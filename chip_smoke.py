@@ -9,15 +9,26 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the four kernels K1-K4 from fastbox_tpu_torch/csrc (timed);
+  2. build the kernels (K1-K4, K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
-     the 256^3 pipeline gives it, with CUDA-event times (median of 11);
+     the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
+     times (median of 11); K11 (lattice CIC paint, gather, three-mesh
+     gather) for bands B = 1, 2, 3, and in f64 against the exact index_add_
+     scatter and gather;
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
      launch counters reset just before and read just after;
   5. a truth check: the 256^3 pipeline in f32 on the card against the port
-     on the CPU in f64 (plain twins), on the same supplied draws.
+     on the CPU in f64 (plain twins), on the same supplied draws;
+  6. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
+     4 Gpc box, z 15 -> 0 in 16 steps, lattice_B=3, spectral gradient, f32):
+     three realisations with the kernels (one with keep_velocities=True and
+     per-component gathers), then 512^3 in the same box and in an 8 Gpc box,
+     with launch counters reset just before and read just after; then, on
+     the same white noise, the engine with the plain twins on the card: the
+     first force evaluation per particle, the final std(delta) and the
+     binned P(k), and bench_cola.py's health bounds.
 
 The last two lines of standard output are the per-kernel JSON and the
 device JSON.  Imports nothing of JAX.
@@ -45,7 +56,21 @@ KERNELS = {
                       "fastbox_tpu/ops/pallas/rsd_interp.py:53"),
     "binned_pk_half_dual_v2": ("fastbox_tpu_torch/csrc/binned_pk_v2.cu",
                                "fastbox_tpu/ops/pallas/binned_pk_v2.py:90"),
+    "cic_paint_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
+                          "fastbox_tpu/ops/pallas/lattice_cic.py:289"),
+    "cic_gather_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
+                           "fastbox_tpu/ops/pallas/lattice_cic.py:355"),
+    "cic_gather3_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
+                            "fastbox_tpu/ops/pallas/lattice_cic.py:408"),
 }
+COLA_Z_INIT = 15.0
+COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
+# K11 against its twin: the kernels sum in the twin's order with explicit
+# rounding, so they should agree exactly; the bound allows f32 reordering
+# of a few terms (a few ulp of the largest value).
+K11_TWIN_BOUND = 1e-6
+# In f64 against the exact scatter/gather: summation order only.
+K11_EXACT_BOUND = 1e-12
 
 
 def log(msg: str) -> None:
@@ -233,6 +258,205 @@ def phase_k4(dev, grid) -> dict:
                 plain_ms=plain_ms)
 
 
+def phase_k11(dev) -> list[dict]:
+    """K11's three entry points against their twins at 256^3, B = 1, 2, 3
+    (open band, displacements uniform in (-B, B)), and in f64 against the
+    exact scatter; times at B = 3, the band the late COLA steps take."""
+    from fastbox_tpu_torch.fields.cola import cic_gather, cic_paint_particles
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    N = COLA_N[0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {n: [] for n in ("cic_paint_lattice", "cic_gather_lattice",
+                            "cic_gather3_lattice")}
+    times = {}
+    site = torch.meshgrid(*(torch.arange(N, device=dev, dtype=torch.float64),)
+                          * 3, indexing="ij")
+    for B in (1, 2, 3):
+        d = tuple((torch.rand((N, N, N), generator=g, device=dev) * 2 - 1) * B
+                  for _ in range(3))
+        w = torch.rand((N, N, N), generator=g, device=dev) * 2 - 1
+        meshes = tuple(torch.randn((N, N, N), generator=g, device=dev)
+                       for _ in range(3))
+        pairs = {
+            "cic_paint_lattice": [(k.cic_paint_lattice_cuda(d, B, wt),
+                                   k.cic_paint_lattice_plain(d, B, wt))
+                                  for wt in (None, w)],
+            "cic_gather_lattice": [(k.cic_gather_lattice_cuda(meshes[0], d, B),
+                                    k.cic_gather_lattice_plain(meshes[0], d,
+                                                               B))],
+            "cic_gather3_lattice": list(zip(
+                k.cic_gather3_lattice_cuda(meshes, d, B),
+                k.cic_gather3_lattice_plain(meshes, d, B))),
+        }
+        for name, ps in pairs.items():
+            e = max(norm_err(a, b) for a, b in ps)
+            same = all(torch.equal(a, b) for a, b in ps)
+            errs[name].append(max((a - b).abs().max().item() for a, b in ps))
+            log(f"K11 {name} B={B}: vs twin {e:.3e} of max|value| "
+                f"(bitwise equal: {same})")
+            check(e <= K11_TWIN_BOUND, f"K11 {name} B={B}: {e} from the twin")
+        # f64 against the exact scatter/gather at the positions l + d
+        d64 = tuple(a.double() for a in d)
+        u = tuple((s + a).reshape(-1) for s, a in zip(site, d64))
+        w64 = w.double()
+        e_paint = max(norm_err(k.cic_paint_lattice_cuda(d64, B, wt),
+                               cic_paint_particles(u, N, wr))
+                      for wt, wr in ((None, None), (w64, w64.reshape(-1))))
+        m64 = meshes[0].double()
+        e_gather = norm_err(k.cic_gather_lattice_cuda(m64, d64, B).reshape(-1),
+                            cic_gather(m64, u))
+        e_g3 = max(norm_err(a.reshape(-1), cic_gather(m.double(), u)) for a, m
+                   in zip(k.cic_gather3_lattice_cuda(
+                       tuple(m.double() for m in meshes), d64, B), meshes))
+        log(f"K11 B={B} f64 vs exact scatter/gather: paint {e_paint:.3e}, "
+            f"gather {e_gather:.3e}, gather3 {e_g3:.3e}")
+        check(max(e_paint, e_gather, e_g3) <= K11_EXACT_BOUND,
+              f"K11 B={B}: off the exact scatter")
+        del d64, u, w64, m64
+        for name, kern, plain in (
+                ("cic_paint_lattice", lambda: k.cic_paint_lattice_cuda(d, B),
+                 lambda: k.cic_paint_lattice_plain(d, B)),
+                ("cic_gather_lattice",
+                 lambda: k.cic_gather_lattice_cuda(meshes[0], d, B),
+                 lambda: k.cic_gather_lattice_plain(meshes[0], d, B)),
+                ("cic_gather3_lattice",
+                 lambda: k.cic_gather3_lattice_cuda(meshes, d, B),
+                 lambda: k.cic_gather3_lattice_plain(meshes, d, B))):
+            times[(name, B)] = (median_ms(kern), median_ms(plain))
+            log(f"K11 {name} B={B}: kernel {times[(name, B)][0]:.4f} ms, "
+                f"plain {times[(name, B)][1]:.4f} ms")
+    return [dict(name=n, max_abs_err=max(errs[n]), ms=times[(n, 3)][0],
+                 plain_ms=times[(n, 3)][1]) for n in errs]
+
+
+def cola_health(grid, cosmo0, delta, label: str) -> None:
+    """scripts/bench_cola.py's health: P/P_lin on 3e-3 < k < 2e-2 inside
+    [0.5, 2.0] and a finite, positive std(delta)."""
+    from fastbox_tpu_torch.ops.spectra import binned_power_spectrum
+
+    std = delta.double().std().item()
+    kc, pk, _ = binned_power_spectrum(grid, delta_x=delta)
+    kc, pk = kc.cpu().numpy(), pk.cpu().numpy()
+    pk_lin = cosmo0.pk_lin(torch.as_tensor(kc)).cpu().numpy()
+    sel = np.isfinite(pk) & (kc > 3e-3) & (kc < 2e-2) & (pk_lin > 0)
+    ratio = pk[sel] / pk_lin[sel]
+    log(f"{label}: std(delta) {std:.5f}; P/P_lin on 3e-3 < k < 2e-2: "
+        + " ".join(f"{r:.3f}" for r in ratio))
+    check(np.isfinite(std) and std > 0, f"{label}: std(delta) {std}")
+    check(sel.sum() >= 3 and bool(np.all((ratio >= 0.5) & (ratio <= 2.0))),
+          f"{label}: P/P_lin {ratio}")
+
+
+def run_cola(label: str, grid, cosmo0, dev, **kw):
+    """One realisation with the kernels; returns (outputs, wall seconds)."""
+    from fastbox_tpu_torch.fields.cola import realise_density_cola
+    from fastbox_tpu_torch.timing import StageClock
+
+    clock = StageClock(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = realise_density_cola(kw.pop("generator", None), grid, cosmo0,
+                               redshift_init=COLA_Z_INIT, lattice_B=3,
+                               diagnostics=True, clock=clock, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta, vel, diag = out
+    check(delta.shape == grid.shape and bool(torch.isfinite(delta).all()),
+          f"{label}: delta not finite of shape {grid.shape}")
+    log(f"{label}: {wall * 1e3:.1f} ms, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bands per step "
+        f"{[int(i) + 1 for i in diag['used_lattice']]} (4 = exact scatter); "
+        f"max|d| {[round(v, 2) for v in diag['maxdisp'].tolist()]}, final "
+        f"{diag['final_maxdisp'].item():.2f}; stages ms "
+        + json.dumps({k: round(v, 2) for k, v in clock.ms().items()}))
+    return out, wall
+
+
+def phase_cola(dev, kernels: list[dict]) -> None:
+    """The COLA path with the kernels (counted), then the plain engine on
+    the same white noise (not counted)."""
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.fields.cola import ColaEngine, realise_density_cola
+    from fastbox_tpu_torch.fields.gaussian import white_noise
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.ops.spectra import binned_power_spectrum
+
+    cosmo0 = build_cosmology(COSMO, redshift=0.0, device=dev)
+    grid = GridSpec.create(box_scale=BOX, nsamp=COLA_N[0])
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    white = white_noise(gen, grid)
+
+    _build.reset_launch_counts()
+    (d1, _, _), wall1 = run_cola("COLA 256^3 realisation 0 (first call)",
+                                 grid, cosmo0, dev, keep_velocities=False,
+                                 white=white)
+    (d2, _, _), wall2 = run_cola("COLA 256^3 realisation 1", grid, cosmo0,
+                                 dev, keep_velocities=False, generator=gen)
+    (d3, vel, _), wall3 = run_cola(
+        "COLA 256^3 realisation 2 (keep_velocities, per-component gathers)",
+        grid, cosmo0, dev, keep_velocities=True, fuse_force_gather=False,
+        generator=gen)
+    check(vel.shape == (3,) + grid.shape and bool(torch.isfinite(vel).all()),
+          "COLA velocities not finite")
+    log(f"COLA 256^3 velocities: rms {vel.double().std().item():.2f} km/s")
+    for d, label in ((d1, "realisation 0"), (d2, "realisation 1"),
+                     (d3, "realisation 2")):
+        cola_health(grid, cosmo0, d, f"COLA 256^3 {label}")
+    del d2, d3, vel
+    for box in (BOX, 2 * BOX):
+        g512 = GridSpec.create(box_scale=box, nsamp=COLA_N[1])
+        d512 = run_cola(f"COLA 512^3 in a {box / 1e3:.0f} Gpc box", g512,
+                        cosmo0, dev, keep_velocities=False,
+                        generator=gen)[0][0]
+        cola_health(g512, cosmo0, d512, f"COLA 512^3 {box / 1e3:.0f} Gpc")
+        del d512
+    counts = _build.launch_counts()
+    log(f"launch counts over the COLA path: {json.dumps(counts)}")
+    for r in kernels:
+        r["launches"] = counts.get(r["name"], 0)
+        check(r["launches"] > 0, f"{r['name']} never launched on the COLA path")
+    log(f"COLA 256^3: {wall2 * 1e3:.1f} ms per realisation (realisation 1; "
+        f"first call {wall1 * 1e3:.1f} ms, keep_velocities "
+        f"{wall3 * 1e3:.1f} ms)")
+
+    # The plain engine (roll-form twins) on the card, same white noise.
+    kw = dict(redshift_init=COLA_Z_INIT, lattice_B=3, device=dev,
+              keep_velocities=False)
+    eng_k = ColaEngine(grid, cosmo0, lattice_impl="cuda", **kw)
+    eng_p = ColaEngine(grid, cosmo0, lattice_impl="plain", **kw)
+    x, _, _, _ = eng_k.initial_conditions(white)
+    a0 = eng_k.rows[0][7]
+    fk, _ = eng_k.force(x, a0)
+    fp, _ = eng_p.force(x, a0)
+    e = norm_err(fk, fp)
+    log(f"COLA first force evaluation, kernels vs plain: {e:.3e} of "
+        f"max|F| (bitwise equal: {torch.equal(fk, fp)})")
+    check(e <= K11_TWIN_BOUND, f"COLA first force: {e}")
+    del x, fk, fp
+    t0 = time.perf_counter()
+    dp, _ = realise_density_cola(None, grid, cosmo0, white=white,
+                                 redshift_init=COLA_Z_INIT, lattice_B=3,
+                                 keep_velocities=False, lattice_impl="plain")
+    torch.cuda.synchronize()
+    log(f"COLA 256^3 with the plain twins: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    s_k, s_p = d1.double().std().item(), dp.double().std().item()
+    log(f"COLA kernels vs plain, same white noise: std(delta) {s_k:.6f} vs "
+        f"{s_p:.6f} (bitwise equal fields: {torch.equal(d1, dp)})")
+    check(abs(s_k / s_p - 1) <= 5e-3, "COLA std(delta): kernels vs plain")
+    kc, pk_k, _ = binned_power_spectrum(grid, delta_x=d1)
+    _, pk_p, _ = binned_power_spectrum(grid, delta_x=dp)
+    kc, pk_k, pk_p = (t.cpu().numpy() for t in (kc, pk_k, pk_p))
+    sel = np.isfinite(pk_p) & (kc < 0.5 * np.pi * grid.N / grid.Lx)
+    rel = np.abs(pk_k[sel] / pk_p[sel] - 1)
+    log("COLA P(k) kernels/plain - 1 for k < k_Nyq/2: "
+        + " ".join(f"{v:.1e}" for v in rel))
+    check(sel.sum() >= 5 and bool(np.all(rel <= 1e-2)), "COLA P(k) off plain")
+
+
 def populated_bins(grid) -> np.ndarray:
     """The retained P(k) bins (all but bin 0) that hold modes."""
     from fastbox_tpu_torch.ops import spectra
@@ -291,14 +515,15 @@ def main() -> None:
         f"(log in {_build.BUILD_ROOT})")
     for build_log in _build.BUILD_ROOT.glob("*/build.log"):
         for line in build_log.read_text().splitlines():
-            if "Compiling entry" in line or "Used" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
 
     grid = GridSpec.create(box_scale=BOX, nsamp=256, redshift=Z)
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
     kernels = [phase_k1(dev), phase_k2(dev, grid, cosmo),
                phase_k3(dev, grid, cosmo), phase_k4(dev, grid)]
-    for r in kernels:
+    k11 = phase_k11(dev)
+    for r in kernels + k11:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -350,6 +575,8 @@ def main() -> None:
             + " ".join(f"{v:.2e}" for v in rel))
         check(bool(np.all(rel <= bound)), f"truth {name}: max {rel.max()}")
 
+    phase_cola(dev, k11)
+    kernels += k11
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

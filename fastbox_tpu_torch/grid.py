@@ -103,6 +103,12 @@ class GridSpec:
                                      device=device)
                      for L in (self.Lx, self.Ly, self.Lz))
 
+    def kmag(self, dtype=torch.float32, device="cpu"):
+        """|k| on the full grid, broadcast from the 1-D vectors."""
+        kx, ky, kz = self.kvec(dtype, device)
+        return torch.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+                          + kz[None, None, :] ** 2)
+
     def nyquist_mask(self, axis: int, device="cpu"):
         """Boolean 1-D mask selecting the most-negative frequency plane.
 

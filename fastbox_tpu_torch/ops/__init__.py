@@ -1,4 +1,4 @@
 """Operators: RSD remap, binned reductions, spectra helpers, CUDA kernels."""
-from . import reduce, rsd, spectra
+from . import painting, reduce, rsd, spectra
 
-__all__ = ["reduce", "rsd", "spectra"]
+__all__ = ["painting", "reduce", "rsd", "spectra"]

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I64, _INT, _INT, _INT, _P),
+    "fbx_cic_paint_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
+    "fbx_cic_gather_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
+    "fbx_cic_gather3_lattice": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                _INT, _INT, _P),
 }
 
 _launches: collections.Counter = collections.Counter()

@@ -1,11 +1,16 @@
-"""P(k) binning helpers (host numpy; copies of fastbox_tpu/ops/spectra.py:43-84)."""
+"""P(k) binning: the host helpers (copies of fastbox_tpu/ops/spectra.py:43-84)
+and the reference-convention estimator ``binned_power_spectrum`` with its
+two cores (fastbox_tpu/ops/spectra.py:88-191)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..grid import GridSpec
+from .reduce import binned_sum_sumsq_count, binned_weighted_sum_sumsq_count
 
-__all__ = ["default_kbins", "kbin_thresholds", "hoisted_counts"]
+__all__ = ["default_kbins", "kbin_thresholds", "hoisted_counts",
+           "binned_power_spectrum"]
 
 
 def default_kbins(grid: GridSpec, nbins: int = 20) -> np.ndarray:
@@ -56,3 +61,82 @@ def hoisted_counts(grid: GridSpec, thr: np.ndarray,
         idx = np.searchsorted(thr, m.ravel(), side="right")
         cnt += np.bincount(idx, weights=w_plane, minlength=nb + 1)[:nb + 1]
     return cnt[:nb]
+
+
+def _finish(sums, sumsqs, counts):
+    vals = sums / counts  # count == 0 -> NaN, matching mean-of-empty
+    var = torch.clamp(sumsqs / counts - vals**2, min=0.0)
+    # a single-element bin has exactly zero std
+    var = torch.where(counts > 1, var, torch.zeros_like(var))
+    return vals, torch.sqrt(var) / torch.sqrt(counts)
+
+
+def _bin_index(grid: GridSpec, bins, thr, nz: int, dtype, device):
+    """Bin of every mode of an (N, N, nz) spectrum: integer-lattice
+    thresholds when ``thr`` is given, else floating |k| against ``bins``."""
+    if thr is not None:
+        fi2 = torch.as_tensor(_index_sq(grid), device=device)
+        m = fi2[:, None, None] + fi2[None, :, None] + fi2[:nz][None, None, :]
+        return torch.searchsorted(torch.as_tensor(thr, device=device),
+                                  m.reshape(-1).contiguous(), right=True)
+    kx, ky, kz = grid.kvec(dtype, device)
+    kmag = torch.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+                      + kz[:nz][None, None, :] ** 2)
+    return torch.searchsorted(torch.as_tensor(bins, dtype=dtype, device=device),
+                              kmag.reshape(-1).contiguous(), right=True)
+
+
+def _binned_pk_half_core(grid: GridSpec, delta_x, bins, thr=None):
+    """One rank-3 R2C plus a kz-multiplicity-weighted histogram: interior
+    kz planes count twice, the kz=0 and Nyquist planes once, which equals
+    the full-grid sums exactly."""
+    rdtype = delta_x.dtype
+    N = grid.N
+    H = N // 2 + 1
+    half = torch.fft.rfftn(delta_x)
+    pk = (half * torch.conj(half)).real / grid.boxfactor
+    idx = _bin_index(grid, bins, thr, H, rdtype, delta_x.device)
+    w = np.full(H, 2.0)
+    w[0] = 1.0
+    if N % 2 == 0:
+        w[-1] = 1.0
+    wf = torch.as_tensor(w, dtype=rdtype,
+                         device=delta_x.device)[None, None, :].expand(pk.shape)
+    return _finish(*binned_weighted_sum_sumsq_count(pk, wf, idx, len(bins)))
+
+
+def _binned_pk_core(grid: GridSpec, delta_k, bins, thr=None):
+    rdtype = delta_k.real.dtype
+    pk = (delta_k * torch.conj(delta_k)).real / grid.boxfactor
+    idx = _bin_index(grid, bins, thr, grid.N, rdtype, delta_k.device)
+    return _finish(*binned_sum_sumsq_count(pk, idx, len(bins)))
+
+
+def binned_power_spectrum(grid: GridSpec, delta_k=None, delta_x=None,
+                          nbins: int = 20, kbins=None):
+    """Binned 1D P(k) with the reference's binning semantics (box.py:696-768):
+    ``|delta_k|^2 / boxfactor``, ``digitize`` against ``nbins`` log-spaced
+    edges (exact integer-lattice classification on cubic grids), midpoint
+    bin centres, per-bin mean and ``std/sqrt(N)``, the first (sub-kmin) bin
+    dropped, NaN for empty bins.  ``delta_x`` takes the half-spectrum core,
+    ``delta_k`` (the full spectrum) the full-grid one.
+
+    Returns:
+        (kc, pk, sigma_pk), each of length ``len(kbins) - 1``.
+    """
+    if delta_x is not None and delta_k is not None:
+        raise ValueError("delta_x and delta_k specified; can only specify one")
+    bins = np.asarray(kbins if kbins is not None
+                      else default_kbins(grid, nbins), dtype=np.float64)
+    _bins = np.concatenate([[0.0], bins])
+    cent = 0.5 * (_bins[1:] + _bins[:-1])
+    thr = kbin_thresholds(grid, bins)
+    if delta_k is None:
+        ref = delta_x
+        vals, stddev = _binned_pk_half_core(grid, delta_x, bins, thr)
+    else:
+        ref = delta_k.real
+        vals, stddev = _binned_pk_core(grid, delta_k, bins, thr)
+    # the first value holds the k < kmin modes (k=0 included): dropped
+    kc = torch.as_tensor(cent[1:], dtype=ref.dtype, device=ref.device)
+    return kc, vals[1:], stddev[1:]

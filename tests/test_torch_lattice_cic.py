@@ -1,0 +1,224 @@
+"""K11 (lattice CIC paint, gather, three-mesh gather): the plain twins and
+the exact scatter of fastbox_tpu_torch against fastbox_tpu, in float64 on
+the CPU at 16^3.
+
+The twins are held to fastbox_tpu's roll form (fields/lattice_cic.py) for
+B = 1, 2, 3, open and closed band, weighted and unweighted, and to the
+Pallas kernels run in interpret mode (as tests/test_cola.py runs them) in
+three of those cases.  Displacements are uniform inside the band; the
+closed-band cases also put some exactly on +-B.  Tolerance: 1e-12 of the
+largest value (f64 summation order).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fastbox_tpu.fields import cola as jcola
+from fastbox_tpu.fields import lattice_cic as jlat
+from fastbox_tpu.ops.pallas import lattice_cic as plc
+from fastbox_tpu_torch.fields import cola, lattice_cic
+from fastbox_tpu_torch.ops.cuda import lattice_cic as k11
+
+N = 16
+RTOL = 1e-12
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (chip_smoke.py runs the kernels there)")
+    return torch.device("cuda")
+
+
+def close(got, want, rtol=RTOL):
+    got = np.asarray(got)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+def displacements(rng, B, openband):
+    """(dx, dy, dz) numpy arrays inside the band: |d| < B for the open band,
+    |d| <= B with some values exactly +-B for the closed one."""
+    if openband:
+        return tuple(rng.uniform(-B, B, (N, N, N)) * 0.999 for _ in range(3))
+    d = [rng.uniform(-B, B, (N, N, N)) for _ in range(3)]
+    for a in d:
+        a.reshape(-1)[::97] = B
+        a.reshape(-1)[5::97] = -B
+    return tuple(d)
+
+
+def tt(arrs):
+    return tuple(torch.as_tensor(a) for a in arrs)
+
+
+def jj(arrs):
+    return tuple(jnp.asarray(a) for a in arrs)
+
+
+CASES = [(B, ob) for B in (1, 2, 3) for ob in (True, False)]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("B, openband", CASES)
+def test_paint_twin_matches_roll_form(rng, B, openband, weighted):
+    d = displacements(rng, B, openband)
+    w = rng.uniform(0.5, 1.5, (N, N, N)) if weighted else None
+    want = jlat.cic_paint_lattice(jj(d), B=B,
+                                  weights=None if w is None else jnp.asarray(w))
+    got = lattice_cic.cic_paint_lattice(
+        tt(d), B, None if w is None else torch.as_tensor(w), openband)
+    close(got.numpy(), want)
+    if not weighted:  # CIC conserves the particle count
+        assert abs(got.sum().item() - N**3) < 1e-9
+
+
+@pytest.mark.parametrize("B, openband", CASES)
+def test_gather_twins_match_roll_form(rng, B, openband):
+    d = displacements(rng, B, openband)
+    meshes = [rng.standard_normal((N, N, N)) for _ in range(3)]
+    want = [jlat.cic_gather_lattice(jnp.asarray(m), jj(d), B=B)
+            for m in meshes]
+    got1 = lattice_cic.cic_gather_lattice(torch.as_tensor(meshes[0]), tt(d),
+                                          B, openband)
+    close(got1.numpy(), want[0])
+    got3 = lattice_cic.cic_gather3_lattice(tt(meshes), tt(d), B, openband)
+    for g, w in zip(got3, want):
+        close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("B, openband, weighted",
+                         [(1, True, True), (3, True, True), (2, False, False)])
+def test_twins_match_pallas_interpret(rng, B, openband, weighted):
+    d = displacements(rng, B, openband)
+    w = rng.uniform(0.5, 1.5, (N, N, N)) if weighted else None
+    meshes = [rng.standard_normal((N, N, N)) for _ in range(3)]
+    want_p = plc.cic_paint_lattice_pallas(
+        jj(d), B=B, weights=None if w is None else jnp.asarray(w),
+        interpret=True, openband=openband)
+    want_g = plc.cic_gather_lattice_pallas(jnp.asarray(meshes[0]), jj(d), B=B,
+                                           interpret=True, openband=openband)
+    want_g3 = plc.cic_gather3_lattice_pallas(jj(meshes), jj(d), B=B,
+                                             interpret=True, openband=openband)
+    close(k11.cic_paint_lattice(
+        tt(d), B, None if w is None else torch.as_tensor(w),
+        openband).numpy(), want_p)
+    close(k11.cic_gather_lattice(torch.as_tensor(meshes[0]), tt(d), B,
+                                 openband).numpy(), want_g)
+    for g, w3 in zip(k11.cic_gather3_lattice(tt(meshes), tt(d), B, openband),
+                     want_g3):
+        close(g.numpy(), w3)
+
+
+def test_wrapped_displacements_match(rng):
+    u = rng.uniform(-3.0, N + 3.0, (N, N, N, 3))
+    close(lattice_cic.wrapped_displacement(torch.as_tensor(u), N).numpy(),
+          jlat.wrapped_displacement(jnp.asarray(u), N))
+    u3 = np.moveaxis(u, -1, 0).copy()
+    got = lattice_cic.wrapped_displacement_axes(torch.as_tensor(u3), N)
+    want = jlat.wrapped_displacement_axes(jnp.asarray(u3), N)
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        close(g.numpy(), w)
+        assert g.min() >= -N / 2 and g.max() < N / 2
+
+
+@pytest.mark.parametrize("layout", ["rows", "tuple"])
+def test_exact_scatter_matches_fastbox_tpu(rng, layout):
+    M = 3000
+    u = rng.uniform(-2.0, N + 2.0, (M, 3))
+    w = rng.uniform(0.5, 1.5, M)
+    mesh = rng.standard_normal((N, N, N))
+    ut = torch.as_tensor(u) if layout == "rows" else tuple(
+        torch.as_tensor(u[:, i].copy()) for i in range(3))
+    for weights in (None, w):
+        close(cola.cic_paint_particles(
+            ut, N, None if weights is None else torch.as_tensor(weights)
+        ).numpy(), jcola.cic_paint_particles(
+            jnp.asarray(u), N,
+            weights=None if weights is None else jnp.asarray(weights)))
+    close(cola.cic_gather(torch.as_tensor(mesh), ut).numpy(),
+          jcola.cic_gather(jnp.asarray(mesh), jnp.asarray(u)))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_lattice_equals_exact_scatter_in_band(rng, B):
+    """Under the strict bound the open-band twins are the CIC scatter and
+    gather at the positions l + d."""
+    d = displacements(rng, B, True)
+    w = rng.uniform(0.5, 1.5, (N, N, N))
+    mesh = rng.standard_normal((N, N, N))
+    site = np.meshgrid(*(np.arange(N),) * 3, indexing="ij")
+    u = tuple(torch.as_tensor((s + a).reshape(-1)) for s, a in zip(site, d))
+    close(lattice_cic.cic_paint_lattice(tt(d), B, torch.as_tensor(w),
+                                        True).numpy(),
+          cola.cic_paint_particles(u, N, torch.as_tensor(w.reshape(-1))))
+    close(lattice_cic.cic_gather_lattice(torch.as_tensor(mesh), tt(d), B,
+                                         True).numpy().reshape(-1),
+          cola.cic_gather(torch.as_tensor(mesh), u))
+
+
+def test_band_edge_and_beyond(rng):
+    """d == B exactly still paints exactly in the open band (its far cell
+    has weight 0); d beyond B loses mass there and needs band B+1, the step
+    the COLA ladder takes once max|d| >= B."""
+    site = np.meshgrid(*(np.arange(N),) * 3, indexing="ij")
+
+    def exact(d):
+        u = tuple(torch.as_tensor((s + a).reshape(-1))
+                  for s, a in zip(site, d))
+        return cola.cic_paint_particles(u, N).numpy()
+
+    d = list(displacements(rng, 1, True))
+    d[0][3, 4, 5] = 1.0
+    close(lattice_cic.cic_paint_lattice(tt(d), 1, None, True).numpy(),
+          exact(d))
+    d[1][6, 7, 8] = 1.25
+    lost = lattice_cic.cic_paint_lattice(tt(d), 1, None, True)
+    assert abs(lost.sum().item() - (N**3 - 0.25)) < 1e-9
+    close(lattice_cic.cic_paint_lattice(tt(d), 2, None, True).numpy(),
+          exact(d))
+
+
+def test_dispatch_takes_the_twin_on_the_cpu_and_the_kernel_raises(rng):
+    d = tt(displacements(rng, 2, True))
+    mesh = torch.as_tensor(rng.standard_normal((N, N, N)))
+    torch.testing.assert_close(k11.cic_paint_lattice(d, 2),
+                               lattice_cic.cic_paint_lattice(d, 2, None, True),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        k11.cic_paint_lattice_cuda(d, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k11.cic_gather_lattice_cuda(mesh, d, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k11.cic_gather3_lattice_cuda((mesh, mesh, mesh), d, 2)
+    with pytest.raises(ValueError, match="B must be"):
+        k11.cic_gather_lattice_cuda(mesh, d, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_equal_twins(cuda, rng, B, dtype):
+    """The kernels sum in the twins' order with explicit rounding: equal."""
+    n = 64
+    d = tuple(torch.as_tensor(rng.uniform(-B, B, (n, n, n)) * 0.999,
+                              dtype=dtype, device=cuda) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, n, n)), dtype=dtype,
+                        device=cuda)
+    meshes = tuple(torch.randn((n, n, n), dtype=dtype, device=cuda)
+                   for _ in range(3))
+    for weights in (None, w):
+        assert torch.equal(k11.cic_paint_lattice_cuda(d, B, weights),
+                           k11.cic_paint_lattice_plain(d, B, weights))
+    assert torch.equal(k11.cic_gather_lattice_cuda(meshes[0], d, B),
+                       k11.cic_gather_lattice_plain(meshes[0], d, B))
+    for a, b in zip(k11.cic_gather3_lattice_cuda(meshes, d, B),
+                    k11.cic_gather3_lattice_plain(meshes, d, B)):
+        assert torch.equal(a, b)
+    # closed band, displacements up to +-B inclusive
+    dc = tuple(torch.clamp(a / 0.999, -B, B) for a in d)
+    assert torch.equal(k11.cic_paint_lattice_cuda(dc, B, w, openband=False),
+                       k11.cic_paint_lattice_plain(dc, B, w, openband=False))
