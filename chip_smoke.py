@@ -9,19 +9,32 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K4, K11) from fastbox_tpu_torch/csrc (timed);
+  2. build the kernels (K1-K6, K9, K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
      times (median of 11); K11 (lattice CIC paint, gather, three-mesh
      gather) for bands B = 1, 2, 3, and in f64 against the exact index_add_
-     scatter and gather;
+     scatter and gather; K5 on the anisotropic 256^3 half spectra and K6 on
+     a 256^3 cube, also in f64 against an f64 index_add_ reduction; K9a/b
+     in supplied mode bitwise, in generated mode by the moments of the
+     normals;
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
      launch counters reset just before and read just after;
   5. a truth check: the 256^3 pipeline in f32 on the card against the port
      on the CPU in f64 (plain twins), on the same supplied draws;
-  6. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
+  6. the pipeline's other entry points and configurations, each with launch
+     counters reset just before and read just after: the anisotropic box
+     (4 x 4 x 2 Gpc, K5) at 256^3 and 512^3; pallas_draw 'on' (K9a) and
+     'vz' (K9b) at 256^3 and 512^3 with pk_density / P_nl on the mid-k
+     bins; the instrument response; pca_exact=False against the exact
+     clean; make_chained_pipeline (chain 16 at 256^3, eigh_hoist 'off' and
+     'on') against single calls; make_ensemble_pipeline (8 x 128^3 in a
+     2 Gpc box); the full-spectrum estimator binned_power_spectrum (K6) on a
+     realise_density field; then the truth check of the anisotropic 256^3
+     box against the port on the CPU in f64 and in f32, bin by bin;
+  7. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
      4 Gpc box, z 15 -> 0 in 16 steps, lattice_B=3, spectral gradient, f32):
      three realisations with the kernels (one with keep_velocities=True and
      per-component gathers), then 512^3 in the same box and in an 8 Gpc box,
@@ -46,6 +59,8 @@ import torch
 
 COSMO = dict(Omega_c=0.25, Omega_b=0.05, h=0.7, n_s=0.95, sigma8=0.8)
 BOX, Z = 4e3, 0.8
+ANISO_BOX = (4e3, 4e3, 2e3)   # a 4 x 4 Gpc footprint, 2 Gpc deep
+N_MAIN, N_BIG, N_ENS = 256, 512, 128   # bench.py's sizes; the ensemble's
 REPS = 11
 KERNELS = {
     "add_scaled_normal": ("fastbox_tpu_torch/csrc/noise.cu",
@@ -62,6 +77,14 @@ KERNELS = {
                            "fastbox_tpu/ops/pallas/lattice_cic.py:355"),
     "cic_gather3_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
                             "fastbox_tpu/ops/pallas/lattice_cic.py:408"),
+    "binned_pk_half_dual": ("fastbox_tpu_torch/csrc/binned_pk.cu",
+                            "fastbox_tpu/ops/pallas/binned_pk.py:195"),
+    "binned_pk_full": ("fastbox_tpu_torch/csrc/binned_pk.cu",
+                       "fastbox_tpu/ops/pallas/binned_pk.py:103"),
+    "colored_half_draw": ("fastbox_tpu_torch/csrc/half_draw.cu",
+                          "fastbox_tpu/ops/pallas/half_draw.py:148"),
+    "colored_half_draw_vz": ("fastbox_tpu_torch/csrc/half_draw.cu",
+                             "fastbox_tpu/ops/pallas/half_draw.py:100"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -71,6 +94,16 @@ COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
 K11_TWIN_BOUND = 1e-6
 # In f64 against the exact scatter/gather: summation order only.
 K11_EXACT_BOUND = 1e-12
+# K5/K6 in f64 against the f64 index_add_ twin, whose bins each add up to
+# millions of terms one after another: the sum of n positive terms in that
+# order is within n unit roundoffs of exact.
+F64_SUM_BOUND = 2.0 ** -53
+# Per-bin truth bounds, f32 on the card against f64 on the CPU, same
+# draws.  pk_cleaned's is a sanity bound: the clean's 4th and 5th
+# eigenvalues lie within ~1% of each other, which amplifies f32 rounding of
+# the data cube into 1e-4..1e-2 of the cleaned spectrum, differently on
+# each device (PERF.md, Findings).
+TRUTH_BOUND = {"pk_density": 1e-4, "pk_cleaned": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -330,6 +363,209 @@ def phase_k11(dev) -> list[dict]:
                  plain_ms=times[(n, 3)][1]) for n in errs]
 
 
+def rel_by_bin(got, want) -> float:
+    """Largest |got - want| / |want| over the bins where want != 0."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        full = b != 0
+        worst = max(worst, ((a.double() - b.double()) / b.double())[full]
+                    .abs().max().item())
+    return worst
+
+
+def phase_k5(dev) -> dict:
+    """K5 on the anisotropic 256^3 half spectra: against its twin, bitwise
+    repeatable, and in f64 against the f64 index_add_ twin; plus how many
+    modes the f32 digitize puts in another bin than the f64 one."""
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.ops.cuda import binned_pk as k
+
+    N = N_MAIN
+    grid = GridSpec.create(box_scale=ANISO_BOX, nsamp=N, redshift=Z)
+    H = N // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    p1 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
+    p2 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
+    wz = torch.full((H,), 2.0, device=dev)
+    wz[0] = wz[-1] = 1.0
+    bins = spectra.default_kbins(grid, 20)
+
+    def plan(dtype):
+        kx2, ky2, kz2, e2 = spectra.kbin_plan(grid, bins, dtype, dev)
+        return kx2, ky2, kz2[:H].contiguous(), wz.to(dtype), e2
+
+    args = plan(torch.float32)
+    got = k.binned_pk_half_dual_cuda(p1, p2, *args)
+    again = k.binned_pk_half_dual_cuda(p1, p2, *args)
+    twin = k.binned_pk_half_dual_plain(p1, p2, *args)
+    rel = rel_by_bin(got, twin)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    a64 = plan(torch.float64)
+    got64 = k.binned_pk_half_dual_cuda(p1.double(), p2.double(), *a64)
+    ref64 = k.binned_pk_half_dual_plain(p1.double(), p2.double(), *a64)
+    rel64 = rel_by_bin(got64, ref64)
+    log(f"K5 binned_pk_half_dual (anisotropic {N}^3): vs twin {rel:.3e}, "
+        f"bitwise repeatable {bitwise}; f64 vs f64 index_add_ {rel64:.3e}; "
+        f"modes binned differently in f32 and f64: "
+        f"{moved_modes(grid, dev)[0]}")
+    check(rel <= 1e-6, f"K5 vs twin {rel}")
+    check(bitwise, "K5 not bitwise repeatable")
+    check(rel64 <= F64_SUM_BOUND * p1.numel(), f"K5 f64 {rel64}")
+    g512 = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_BIG, redshift=Z)
+    log(f"K5 plan at {N_BIG}^3: modes binned differently in f32 and f64: "
+        f"{moved_modes(g512, dev)[0]}")
+    ms = median_ms(lambda: k.binned_pk_half_dual_cuda(p1, p2, *args))
+    plain_ms = median_ms(lambda: k.binned_pk_half_dual_plain(p1, p2, *args))
+    err = max((a.double() - b.double()).abs().max().item()
+              for a, b in zip(got, twin))
+    return dict(name="binned_pk_half_dual", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
+def phase_k6(dev) -> dict:
+    """K6 on a 256^3 cube (the 4 Gpc pipeline box, integer-lattice plan):
+    against its twin, and in f64 against the f64 index_add_ twin."""
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.ops.cuda import binned_pk as k
+
+    N = N_MAIN
+    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+    g = torch.Generator(device=dev).manual_seed(6)
+    pk = torch.exp(3.0 * torch.randn((N, N, N), generator=g, device=dev))
+    bins = spectra.default_kbins(grid, 20)
+    args = spectra.kbin_plan(grid, bins, torch.float32, dev)
+    got = k.binned_pk_full_cuda(pk, *args)
+    twin = k.binned_pk_full_plain(pk, *args)
+    a64 = spectra.kbin_plan(grid, bins, torch.float64, dev)
+    rel64 = rel_by_bin(k.binned_pk_full_cuda(pk.double(), *a64),
+                       k.binned_pk_full_plain(pk.double(), *a64))
+    rel = rel_by_bin(got, twin)
+    log(f"K6 binned_pk_full ({N}^3 cube): vs twin {rel:.3e}; f64 vs f64 "
+        f"index_add_ {rel64:.3e}")
+    check(rel <= 1e-6, f"K6 vs twin {rel}")
+    check(rel64 <= F64_SUM_BOUND * pk.numel(), f"K6 f64 {rel64}")
+    ms = median_ms(lambda: k.binned_pk_full_cuda(pk, *args))
+    plain_ms = median_ms(lambda: k.binned_pk_full_plain(pk, *args))
+    err = max((a.double() - b.double()).abs().max().item()
+              for a, b in zip(got, twin))
+    return dict(name="binned_pk_full", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
+def phase_k9(dev) -> list[dict]:
+    """K9a/K9b at the 256^3 half-grid shape: supplied mode bitwise against
+    the twins (f32 and f64), generated mode by the moments of the interior
+    normals (5 sigma), seed determinism, and one delta_k for 'on' and 'vz'
+    from one generator seed."""
+    from fastbox_tpu_torch.fields import gaussian
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import half_draw as k
+    from fastbox_tpu_torch.pipeline import vz_vectors
+
+    N = N_MAIN
+    H = N // 2 + 1
+    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs = {"colored_half_draw": 0.0, "colored_half_draw_vz": 0.0}
+    for dt in (torch.float32, torch.float64):
+        amp = torch.rand((N, N * H), generator=g, device=dev, dtype=dt) * 5
+        white = torch.complex(torch.randn((N, N * H), generator=g, device=dev,
+                                          dtype=dt),
+                              torch.randn((N, N * H), generator=g, device=dev,
+                                          dtype=dt)) * float(np.sqrt(0.5))
+        vecs = vz_vectors(grid, 80.0, dt, dev)
+        pairs = {"colored_half_draw": [(
+            k.colored_half_draw_cuda(amp, white=white),
+            k.colored_half_draw_plain(amp, white=white))],
+            "colored_half_draw_vz": list(zip(
+                k.colored_half_draw_vz_cuda(amp, *vecs, white=white),
+                k.colored_half_draw_vz_plain(amp, *vecs, white=white)))}
+        for name, ps in pairs.items():
+            errs[name] = max([errs[name]] + [(a - b).abs().max().item()
+                                             for a, b in ps])
+        same_a, same_b = (all(torch.equal(a, b) for a, b in ps)
+                          for ps in pairs.values())
+        log(f"K9 supplied mode {dt}: K9a bitwise {same_a}, K9b bitwise "
+            f"{same_b}")
+        check(same_a and same_b, f"K9 supplied mode {dt} differs from twin")
+    amp = torch.rand((N, N * H), generator=g, device=dev) * 5
+    vecs = vz_vectors(grid, 80.0, torch.float32, dev)
+    one = torch.ones((N, N * H), device=dev)
+    s1 = torch.tensor([12345], dtype=torch.int64, device=dev)
+    s2 = torch.tensor([12346], dtype=torch.int64, device=dev)
+    a = k.colored_half_draw_cuda(one, seed=s1)
+    b, _ = k.colored_half_draw_vz_cuda(one, *vecs, seed=s1)
+    check(torch.equal(a, b), "K9a and K9b: same seed, different normals")
+    check(torch.equal(a, k.colored_half_draw_cuda(one, seed=s1)),
+          "K9: same seed, different bits")
+    check(not torch.equal(a, k.colored_half_draw_cuda(one, seed=s2)),
+          "K9: different seeds, same bits")
+    x = (torch.view_as_real(a.reshape(N, N, H)[:, :, 1:H - 1]).double()
+         / np.sqrt(0.5)).reshape(-1)
+    m = x.numel()
+    mean = x.mean().item()
+    var = x.var(correction=0).item()
+    kurt = (x ** 4).mean().item() / var ** 2
+    log(f"K9 generated: interior normals mean {mean:.3e} var {var:.6f} "
+        f"kurtosis {kurt:.5f} (n={m})")
+    check(abs(mean) < 5 / m ** 0.5, f"K9 mean {mean}")
+    check(abs(var - 1) < 5 * (2 / m) ** 0.5, f"K9 variance {var}")
+    check(abs(kurt - 3) < 5 * (96 / m) ** 0.5, f"K9 kurtosis {kurt}")
+    amp3 = amp.reshape(N, N, H)
+    d_on = gaussian.colored_half_noise(
+        torch.Generator(device=dev).manual_seed(3), grid, amp3)
+    d_vz, _ = gaussian.colored_half_noise_vz(
+        torch.Generator(device=dev).manual_seed(3), grid, amp3, *vecs)
+    check(torch.equal(d_on, d_vz), "'on' and 'vz' give different delta_k")
+    log("K9 'on' and 'vz' from one generator seed: identical delta_k")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = []
+    for name, kern, plain in (
+            ("colored_half_draw",
+             lambda: k.colored_half_draw(amp, generator=gen),
+             lambda: k.colored_half_draw_plain(amp, generator=gen)),
+            ("colored_half_draw_vz",
+             lambda: k.colored_half_draw_vz(amp, *vecs, generator=gen),
+             lambda: k.colored_half_draw_vz_plain(amp, *vecs,
+                                                  generator=gen))):
+        out.append(dict(name=name, max_abs_err=errs[name],
+                        ms=median_ms(kern), plain_ms=median_ms(plain)))
+    return out
+
+
+def digitize(grid, dtype, dev):
+    """(bin of every half-spectrum mode, number of edges) on the
+    squared-space plan in ``dtype`` that K5 bins with."""
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.ops.cuda.binned_pk import bin_index_sq
+
+    H = grid.N // 2 + 1
+    bins = spectra.default_kbins(grid, 20)
+    kx2, ky2, kz2, e2 = spectra.kbin_plan(grid, bins, dtype, dev)
+    return bin_index_sq(kx2, ky2, kz2[:H], e2), bins.size
+
+
+def populated_bins(grid, dev) -> np.ndarray:
+    """The retained P(k) bins (all but bin 0) that hold modes, on the f32
+    digitize plan the pipeline bins with."""
+    idx, nb = digitize(grid, torch.float32, dev)
+    return torch.bincount(idx, minlength=nb + 1)[1:nb].cpu().numpy() > 0
+
+
+def moved_modes(grid, dev) -> tuple:
+    """(number of half-spectrum modes the f32 and the f64 digitize put in
+    different bins, mask of the retained bins either puts them in)."""
+    (i32, nb), (i64, _) = (digitize(grid, dt, dev)
+                           for dt in (torch.float32, torch.float64))
+    diff = i32 != i64
+    moved = torch.zeros(nb + 1, dtype=torch.bool, device=dev)
+    moved[i32[diff]] = True
+    moved[i64[diff]] = True
+    return int(diff.sum()), moved[1:nb].cpu().numpy()
+
+
 def cola_health(grid, cosmo0, delta, label: str) -> None:
     """scripts/bench_cola.py's health: P/P_lin on 3e-3 < k < 2e-2 inside
     [0.5, 2.0] and a finite, positive std(delta)."""
@@ -457,16 +693,6 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     check(sel.sum() >= 5 and bool(np.all(rel <= 1e-2)), "COLA P(k) off plain")
 
 
-def populated_bins(grid) -> np.ndarray:
-    """The retained P(k) bins (all but bin 0) that hold modes."""
-    from fastbox_tpu_torch.ops import spectra
-
-    w = np.full(grid.N // 2 + 1, 2.0)
-    w[0] = w[-1] = 1.0
-    thr = spectra.kbin_thresholds(grid, spectra.default_kbins(grid, 20))
-    return spectra.hoisted_counts(grid, thr, w)[1:] > 0
-
-
 def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     from fastbox_tpu_torch.timing import StageClock
 
@@ -476,7 +702,7 @@ def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stages = clock.ms()
-    full = populated_bins(grid)
+    full = populated_bins(grid, dev)
     for key in ("pk_cleaned", "pk_density", "pk_cleaned_err"):
         v = out[key].cpu().numpy()
         check(v.shape == (19,), f"{label}: {key} shape {v.shape}")
@@ -486,6 +712,246 @@ def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     log(f"{label}: {wall * 1e3:.2f} ms wall; stages ms "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     return dict(out=out, wall=wall)
+
+
+def counted(label: str, expect: tuple, body):
+    """Run ``body`` with the launch counters reset just before and read
+    just after; fail unless every kernel in ``expect`` launched."""
+    from fastbox_tpu_torch.ops.cuda import _build
+
+    _build.reset_launch_counts()
+    result = body()
+    counts = _build.launch_counts()
+    log(f"{label}: launch counts {json.dumps(counts)}")
+    for name in expect:
+        check(counts.get(name, 0) > 0, f"{name} never launched on {label}")
+    return result, counts
+
+
+def mid_k_ratio(outs, cosmo, grid) -> np.ndarray:
+    """mean pk_density / P_nl over realisations on 2 kmin < k < 0.3 kmax
+    (tests/test_pipeline.py:92-107)."""
+    k = outs[0]["k"]
+    mean = np.mean([o["pk_density"].double().cpu().numpy() for o in outs],
+                   axis=0)
+    th = cosmo.pk_nl(k.double()).cpu().numpy()
+    k = k.double().cpu().numpy()
+    sel = np.isfinite(mean) & (k > 2 * grid.kmin) & (k < 0.3 * grid.kmax)
+    return mean[sel] / th[sel]
+
+
+def wall_ms(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def max_rel(a, b) -> float:
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    ok = np.isfinite(b) & (b != 0)
+    return float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok])))
+
+
+def phase_paths(dev, cosmo, grid, fn256) -> dict:
+    """The pipeline's other entry points and configurations; returns the
+    launches of K5, K6, K9a and K9b on their paths."""
+    from fastbox_tpu_torch.fields.gaussian import realise_density
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.spectra import binned_power_spectrum
+    from fastbox_tpu_torch.pipeline import (PipelineConfig, draw_inputs,
+                                            make_chained_pipeline,
+                                            make_ensemble_pipeline,
+                                            make_pipeline)
+
+    launches = {}
+    gen = torch.Generator(device=dev).manual_seed(300)
+    grid512 = GridSpec.create(box_scale=BOX, nsamp=N_BIG, redshift=Z)
+
+    # anisotropic box: K5 bins it
+    ga256 = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_MAIN, redshift=Z)
+    ga512 = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_BIG, redshift=Z)
+    fa256 = make_pipeline(ga256, cosmo, PipelineConfig(), device=dev)
+    fa512 = make_pipeline(ga512, cosmo, PipelineConfig(), device=dev)
+
+    def aniso():
+        runs = [run_pipeline(fa256, dev, f"anisotropic 256^3 realisation {i}",
+                             ga256, generator=gen) for i in range(3)]
+        run = run_pipeline(fa512, dev, "anisotropic 512^3 realisation 0",
+                           ga512, generator=gen)
+        return runs, run
+
+    (runs, run), counts = counted("the anisotropic path",
+                                  ("binned_pk_half_dual",), aniso)
+    launches["binned_pk_half_dual"] = counts["binned_pk_half_dual"]
+    log(f"anisotropic 4x4x2 Gpc: 256^3 {runs[-1]['wall'] * 1e3:.2f} ms per "
+        f"realisation (realisation 2), 512^3 {run['wall'] * 1e3:.2f} ms "
+        "(first call)")
+
+    # pallas_draw 'on' and 'vz': K9a and K9b draw the density
+    for draw, name in (("on", "colored_half_draw"),
+                       ("vz", "colored_half_draw_vz")):
+        cfg = PipelineConfig(pallas_draw=draw)
+        f256 = make_pipeline(grid, cosmo, cfg, device=dev)
+        f512 = make_pipeline(grid512, cosmo, cfg, device=dev)
+
+        def drawn():
+            runs = [run_pipeline(f256, dev, f"pallas_draw={draw} 256^3 "
+                                 f"realisation {i}", grid, generator=gen)
+                    for i in range(3)]
+            run = run_pipeline(f512, dev, f"pallas_draw={draw} 512^3 "
+                               "realisation 0", grid512, generator=gen)
+            return runs, run
+
+        (runs, run), counts = counted(f"pallas_draw={draw}", (name,), drawn)
+        launches[name] = counts[name]
+        ratio = mid_k_ratio([r["out"] for r in runs], cosmo, grid)
+        log(f"pallas_draw={draw}: 256^3 {runs[-1]['wall'] * 1e3:.2f} ms per "
+            f"realisation, 512^3 {run['wall'] * 1e3:.2f} ms (first call); "
+            "mean pk_density/P_nl over 3 realisations on the mid-k bins: "
+            + " ".join(f"{v:.3f}" for v in ratio))
+        check(ratio.size >= 3 and bool(np.all((ratio > 0.6) & (ratio < 1.6))),
+              f"pallas_draw={draw}: pk_density/P_nl {ratio}")
+
+    # the instrument response, and the subspace clean, on the same draws
+    draws = draw_inputs(grid, torch.Generator(device=dev).manual_seed(31))
+    base = fn256(draws=draws)
+    f_inst = make_pipeline(grid, cosmo, PipelineConfig(
+        beam_dish_m=13.5, kpar_min=0.05), device=dev)
+    inst = f_inst(draws=draws)
+    inst2 = run_pipeline(f_inst, dev, "instrument response 256^3", grid,
+                         generator=gen)
+    s0, s1 = base["sigma_data"].item(), inst["sigma_data"].item()
+    log(f"instrument response (beam 13.5 m, kpar_min 0.05): sigma_data "
+        f"{s1:.5f} vs {s0:.5f} without; {inst2['wall'] * 1e3:.2f} ms per "
+        "realisation")
+    check(s1 < s0, "the instrument response did not lower sigma_data")
+    f_sub = make_pipeline(grid, cosmo, PipelineConfig(pca_exact=False),
+                          device=dev)
+    sub = f_sub(draws=draws)
+    sub2 = run_pipeline(f_sub, dev, "pca_exact=False 256^3", grid,
+                        generator=gen)
+    full = populated_bins(grid, dev)
+    rel = np.abs(sub["pk_cleaned"].double().cpu().numpy()[full]
+                 / base["pk_cleaned"].double().cpu().numpy()[full] - 1)
+    log("pca_exact=False vs exact, same draws, pk_cleaned per-bin rel "
+        "diff: " + " ".join(f"{v:.2e}" for v in rel)
+        + f"; {sub2['wall'] * 1e3:.2f} ms per realisation")
+    check(bool(np.all(np.isfinite(rel))), "pca_exact=False: not finite")
+
+    # make_chained_pipeline: chain 16 at 256^3 (bench.py:236).  Both
+    # hoists must reproduce single calls bit for bit: 'off' runs the same
+    # calls, and 'on''s batched eigh decomposes each 256 x 256 matrix with
+    # the solver a single call uses (bitwise equal on an H100).
+    singles = [fn256(torch.Generator(device=dev).manual_seed(600 + i))
+               for i in range(2)]
+    for hoist in ("off", "on"):
+        chain = make_chained_pipeline(grid, cosmo,
+                                      PipelineConfig(eigh_hoist=hoist),
+                                      device=dev)
+        gens = [torch.Generator(device=dev).manual_seed(600 + i)
+                for i in range(16)]
+        out, ms = wall_ms(lambda: chain(generators=gens))
+        check(out["pk_cleaned"].shape == (16, 19), "chain: output shape")
+        same = all(torch.equal(out[k][i].nan_to_num(), one[k].nan_to_num())
+                   for i, one in enumerate(singles) for k in one)
+        rel_c = max(max_rel(out["pk_cleaned"][i], one["pk_cleaned"])
+                    for i, one in enumerate(singles))
+        rel_d = max(max_rel(out["pk_density"][i], one["pk_density"])
+                    for i, one in enumerate(singles))
+        log(f"chain 16 at 256^3, eigh_hoist={hoist}: {ms / 16:.2f} ms per "
+            f"realisation ({ms:.1f} ms); first two vs single calls: bitwise "
+            f"{same}, pk_cleaned {rel_c:.2e}, pk_density {rel_d:.2e}")
+        check(same, f"chain eigh_hoist={hoist} differs from single calls "
+              f"(pk_cleaned {rel_c}, pk_density {rel_d})")
+
+    # make_ensemble_pipeline: 8 x 128^3 in a 2 Gpc box
+    g128 = GridSpec.create(box_scale=2e3, nsamp=N_ENS, redshift=Z)
+    ens = make_ensemble_pipeline(g128, cosmo, PipelineConfig(), device=dev)
+    ens([torch.Generator(device=dev).manual_seed(700)])           # warm-up
+    gens = [torch.Generator(device=dev).manual_seed(701 + i) for i in range(8)]
+    out, ms = wall_ms(lambda: ens(generators=gens))
+    pk = out["pk_cleaned"].cpu().numpy()
+    ok = populated_bins(g128, dev)
+    check(pk.shape == (8, 19) and bool(np.isfinite(pk[:, ok]).all()),
+          "ensemble: shape or finiteness")
+    check(not np.array_equal(pk[0], pk[1]), "ensemble: equal realisations")
+    log(f"ensemble 8 x 128^3 (2 Gpc): {ms / 8:.2f} ms per realisation "
+        f"({ms:.1f} ms)")
+
+    # the full-spectrum estimator on K6
+    def estimate():
+        _, delta_k = realise_density(torch.Generator(device=dev)
+                                     .manual_seed(800), grid, cosmo)
+        return binned_power_spectrum(grid, delta_k=delta_k)
+
+    (kc, pk, _), counts = counted("binned_power_spectrum(delta_k=...)",
+                                  ("binned_pk_full",), estimate)
+    launches["binned_pk_full"] = counts["binned_pk_full"]
+    kc64 = kc.double()
+    ratio = (pk.double() / cosmo.pk_nl(kc64)).cpu().numpy()
+    kcn = kc64.cpu().numpy()
+    sel = np.isfinite(ratio) & (kcn > 2 * grid.kmin) & (kcn < 0.3 * grid.kmax)
+    log("realise_density 256^3 -> binned_power_spectrum (K6): P/P_nl on the "
+        "mid-k bins: " + " ".join(f"{v:.3f}" for v in ratio[sel]))
+    check(sel.sum() >= 3 and bool(np.all((ratio[sel] > 0.6)
+                                         & (ratio[sel] < 1.6))),
+          f"K6 estimator: P/P_nl {ratio[sel]}")
+    return launches
+
+
+def truth_aniso(dev, cosmo_cpu, cosmo) -> None:
+    """The anisotropic 256^3 box in f32 on the card against the port on
+    the CPU, same draws.  Over the bins whose modes the f32 and the f64
+    digitize agree on, against the CPU f64 run: pk_density within 3x the
+    port's own f32-vs-f64 error on the CPU (tests/test_torch_pipeline.py
+    :126-135); pk_cleaned within the cube's truth bound, with the card's
+    and the CPU f32's largest errors printed side by side.  A bin that
+    the two digitizes fill differently (the fundamentals along the long
+    axes sit one f64 ulp below the first edge) has no f64 counterpart: it
+    is held against the CPU f32 run, which bins the same modes."""
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.pipeline import (PipelineConfig, draw_inputs,
+                                            make_pipeline)
+
+    ga = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_MAIN, redshift=Z)
+    draws = draw_inputs(ga, torch.Generator().manual_seed(8), torch.float64)
+    gpu = make_pipeline(ga, cosmo, PipelineConfig(), device=dev)(draws=draws)
+    t0 = time.perf_counter()
+    cpu64 = make_pipeline(ga, cosmo_cpu, PipelineConfig(dtype="float64"))(
+        draws=draws)
+    cpu32 = make_pipeline(ga, cosmo_cpu, PipelineConfig())(draws=draws)
+    log(f"anisotropic truth: the CPU f64 and f32 runs took "
+        f"{time.perf_counter() - t0:.1f} s")
+    full = populated_bins(ga, dev) & np.isfinite(cpu64["pk_density"].numpy())
+    n_moved, moved = moved_modes(ga, dev)
+    moved = moved[full]
+    log(f"anisotropic truth: {n_moved} modes change bin between the f32 and "
+        f"f64 digitize, in retained bins "
+        f"{[int(b) + 1 for b in np.flatnonzero(full)[moved]]}")
+    check(moved.sum() <= 1, "more than one retained bin changes membership")
+    for name in ("pk_density", "pk_cleaned"):
+        c = cpu64[name].numpy()[full]
+        gv = gpu[name].double().cpu().numpy()[full]
+        fv = cpu32[name].double().numpy()[full]
+        g = (np.abs(gv - c) / np.abs(c))[~moved]
+        f = (np.abs(fv - c) / np.abs(c))[~moved]
+        m = (np.abs(gv - fv) / np.abs(fv))[moved]
+        log(f"anisotropic truth {name} per-bin rel err vs CPU f64, bins of "
+            f"unchanged membership, card f32: "
+            + " ".join(f"{v:.2e}" for v in g))
+        log(f"anisotropic truth {name} per-bin rel err vs CPU f64, bins of "
+            f"unchanged membership, CPU f32:  "
+            + " ".join(f"{v:.2e}" for v in f))
+        log(f"anisotropic truth {name}: largest card {g.max():.3e}, 3 x "
+            f"largest CPU f32 {3 * f.max():.3e}; moved bin, card vs CPU f32: "
+            + " ".join(f"{v:.2e}" for v in m))
+        bound = 3.0 * f.max() if name == "pk_density" else TRUTH_BOUND[name]
+        check(g.max() <= bound,
+              f"anisotropic truth {name}: {g.max()} > {bound}")
+        check(bool(np.all(m <= TRUTH_BOUND[name])),
+              f"anisotropic truth {name}, moved bin vs CPU f32: {m}")
 
 
 def main() -> None:
@@ -523,7 +989,8 @@ def main() -> None:
     kernels = [phase_k1(dev), phase_k2(dev, grid, cosmo),
                phase_k3(dev, grid, cosmo), phase_k4(dev, grid)]
     k11 = phase_k11(dev)
-    for r in kernels + k11:
+    others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
+    for r in kernels + k11 + others:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -566,8 +1033,8 @@ def main() -> None:
     cpu = make_pipeline(grid, cosmo_cpu, PipelineConfig(dtype="float64"))(
         draws=draws)
     log(f"truth: f64 CPU reference took {time.perf_counter() - t0:.1f} s")
-    full = populated_bins(grid)
-    for name, bound in (("pk_density", 1e-4), ("pk_cleaned", 5e-2)):
+    full = populated_bins(grid, dev)
+    for name, bound in TRUTH_BOUND.items():
         g = gpu[name].double().cpu().numpy()[full]
         c = cpu[name].numpy()[full]
         rel = np.abs(g - c) / np.abs(c)
@@ -575,8 +1042,13 @@ def main() -> None:
             + " ".join(f"{v:.2e}" for v in rel))
         check(bool(np.all(rel <= bound)), f"truth {name}: max {rel.max()}")
 
+    launches = phase_paths(dev, cosmo, grid, fn256)
+    for r in others:
+        r["launches"] = launches[r["name"]]
+    truth_aniso(dev, cosmo_cpu, cosmo)
+
     phase_cola(dev, k11)
-    kernels += k11
+    kernels += k11 + others
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

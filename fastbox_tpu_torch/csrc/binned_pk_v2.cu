@@ -19,7 +19,7 @@
 // for f32 inputs), and each block walks a fixed contiguous slice of the
 // modes.  The block then sums its threads' slots in a fixed order into a
 // per-block partial, and a second kernel sums the partials in a fixed
-// tree.  The result is bitwise the same on every run.
+// tree (common.cuh).  The result is bitwise the same on every run.
 #include "common.cuh"
 
 namespace {
@@ -75,23 +75,6 @@ __global__ void binned_pk_v2_partial_kernel(const T* __restrict__ p1, const T* _
   }
 }
 
-// out[k] = sum over blocks of partial[block][k], k = stat * nbins + bin; one
-// block of 256 threads per k: strided sums, then a fixed shared-memory tree.
-__global__ void binned_pk_v2_final_kernel(const double* __restrict__ partial,
-                                          double* __restrict__ out, int nblocks, int nk) {
-  __shared__ double sh[256];
-  const int k = blockIdx.x;
-  double s = 0.0;
-  for (int g = threadIdx.x; g < nblocks; g += blockDim.x) s += partial[static_cast<int64_t>(g) * nk + k];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) sh[threadIdx.x] += sh[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[k] = sh[0];
-}
-
 template <typename T>
 cudaError_t launch(const T* p1, const T* p2, const int32_t* kx2, const int32_t* ky2,
                    const int32_t* kz2h, const T* wz, const int32_t* thr, double* partial,
@@ -110,7 +93,7 @@ cudaError_t launch(const T* p1, const T* p2, const int32_t* kx2, const int32_t* 
       static_cast<uint32_t>(H), static_cast<uint32_t>(Nx * Ny * H), nbins);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  binned_pk_v2_final_kernel<<<3 * nbins, 256, 0, stream>>>(partial, out, nblocks, 3 * nbins);
+  fbx::sum_partials_kernel<256><<<3 * nbins, 256, 0, stream>>>(partial, out, nblocks, 3 * nbins);
   return cudaGetLastError();
 }
 

@@ -47,6 +47,82 @@ template <> struct Limits<double> {
   __device__ static double inf() { return __longlong_as_double(0x7ff0000000000000LL); }
 };
 
+// The counter-based random stream of K1 and K9: Philox4x32-10 turns a
+// 128-bit counter and a 64-bit key into four 32-bit words.
+struct U4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+    k0 += W0;
+    k1 += W1;
+  }
+  return c;
+}
+
+// The Philox key: the two halves of a seed drawn on the device (no host sync).
+__device__ __forceinline__ void seed_key(const int64_t* seed, uint32_t& k0, uint32_t& k1) {
+  const uint64_t s = static_cast<uint64_t>(seed[0]);
+  k0 = static_cast<uint32_t>(s);
+  k1 = static_cast<uint32_t>(s >> 32);
+}
+
+__device__ __forceinline__ void sincospi_t(float x, float* s, float* c) { sincospif(x, s, c); }
+__device__ __forceinline__ void sincospi_t(double x, double* s, double* c) { sincospi(x, s, c); }
+__device__ __forceinline__ float log_t(float x) { return logf(x); }
+__device__ __forceinline__ double log_t(double x) { return log(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+
+// Two independent N(0,1) values from two 32-bit words: 24-bit uniforms,
+// u1 in (0, 1) (never 0, so the log is finite) and u2 in [0, 1); n1 is the
+// cos branch, n2 the sin branch.
+template <typename T>
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, T& n1, T& n2) {
+  const T u1 = T(a >> 8) * T(5.9604644775390625e-08) + T(2.98023223876953125e-08);
+  const T u2 = T(b >> 8) * T(5.9604644775390625e-08);
+  const T r = sqrt_t(T(-2) * log_t(u1));
+  T s, c;
+  sincospi_t(T(2) * u2, &s, &c);
+  n1 = r * c;
+  n2 = r * s;
+}
+
+// Grid-stride launch size for one thread per item: at most ~32 blocks per
+// SM of the H100's 132, at least one.
+__host__ inline unsigned grid_blocks(int64_t items, int threads) {
+  int64_t blocks = (items + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned>(blocks);
+}
+
+// out[k] = sum over blocks of partial[block][k] for k < nk; one block of
+// 256 threads per k: strided sums, then a fixed shared-memory tree, so the
+// result is the same on every run.
+template <int kThreads = 256>
+__global__ void sum_partials_kernel(const double* __restrict__ partial, double* __restrict__ out,
+                                    int nblocks, int nk) {
+  __shared__ double sh[kThreads];
+  const int k = blockIdx.x;
+  double s = 0.0;
+  for (int g = threadIdx.x; g < nblocks; g += kThreads) s += partial[static_cast<int64_t>(g) * nk + k];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) sh[threadIdx.x] += sh[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[k] = sh[0];
+}
+
 // Block-wide reduction over blockDim.x threads (a multiple of 32, at most
 // 1024) for an idempotent op (min, max): lanes past the last warp repeat
 // scratch[0].  `scratch` holds 32 values; every thread gets the result.

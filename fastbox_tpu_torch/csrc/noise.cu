@@ -9,9 +9,9 @@
 // per f32 element; 134 MB at 256^3); Philox and Box-Muller cost ~40
 // instructions per element, far below the H100's compute rate at that
 // traffic.  Design: the normals never touch device memory.  A counter-based
-// Philox4x32-10 keyed by (seed, group) yields four 32-bit words per group of
-// four elements; Box-Muller turns each pair of words into two normals, both
-// used.  Group g covers elements g, g+G, g+2G, g+3G (G = ceil(n/4)), so for
+// Philox4x32-10 (common.cuh, shared with K9) keyed by (seed, group) yields
+// four 32-bit words per group of four elements; Box-Muller turns each pair
+// of words into two normals, both used.  Group g covers elements g, g+G, g+2G, g+3G (G = ceil(n/4)), so for
 // each of the four a warp touches 32 consecutive elements.  The seed is read
 // from device memory, so drawing it from a torch.Generator needs no host
 // sync.  The max is a block reduction plus one atomicMax on the float bits,
@@ -21,44 +21,6 @@
 #include "common.cuh"
 
 namespace {
-
-struct U4 {
-  uint32_t x, y, z, w;
-};
-
-__device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-    k0 += W0;
-    k1 += W1;
-  }
-  return c;
-}
-
-__device__ __forceinline__ void sincospi_t(float x, float* s, float* c) { sincospif(x, s, c); }
-__device__ __forceinline__ void sincospi_t(double x, double* s, double* c) { sincospi(x, s, c); }
-__device__ __forceinline__ float log_t(float x) { return logf(x); }
-__device__ __forceinline__ double log_t(double x) { return log(x); }
-__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-
-// Two independent N(0,1) values from two 32-bit words: 24-bit uniforms,
-// u1 in (0, 1) (never 0, so the log is finite) and u2 in [0, 1).
-template <typename T>
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, T& n1, T& n2) {
-  const T u1 = T(a >> 8) * T(5.9604644775390625e-08) + T(2.98023223876953125e-08);
-  const T u2 = T(b >> 8) * T(5.9604644775390625e-08);
-  const T r = sqrt_t(T(-2) * log_t(u1));
-  T s, c;
-  sincospi_t(T(2) * u2, &s, &c);
-  n1 = r * c;
-  n2 = r * s;
-}
 
 __device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
   atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
@@ -81,11 +43,7 @@ __global__ void add_scaled_normal_kernel(const T* __restrict__ x, const T* __res
                                          T* __restrict__ maxabs, int64_t n, int64_t C) {
   __shared__ T scratch[32];
   uint32_t k0 = 0, k1 = 0;
-  if (normals == nullptr) {
-    const uint64_t s = static_cast<uint64_t>(seed[0]);
-    k0 = static_cast<uint32_t>(s);
-    k1 = static_cast<uint32_t>(s >> 32);
-  }
+  if (normals == nullptr) fbx::seed_key(seed, k0, k1);
   const int64_t G = (n + 3) / 4;
   const NanMax<T> nanmax;
   T m = T(0);
@@ -93,10 +51,10 @@ __global__ void add_scaled_normal_kernel(const T* __restrict__ x, const T* __res
        g += (int64_t)gridDim.x * blockDim.x) {
     T nv[4];
     if (normals == nullptr) {
-      const U4 r = philox4x32_10(
-          U4{static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), 0u, 0u}, k0, k1);
-      box_muller(r.x, r.y, nv[0], nv[1]);
-      box_muller(r.z, r.w, nv[2], nv[3]);
+      const fbx::U4 r = fbx::philox4x32_10(
+          fbx::U4{static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), 0u, 0u}, k0, k1);
+      fbx::box_muller(r.x, r.y, nv[0], nv[1]);
+      fbx::box_muller(r.z, r.w, nv[2], nv[3]);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -119,12 +77,8 @@ template <typename T>
 cudaError_t launch(const T* x, const T* scale, const T* normals, const int64_t* seed, T* out,
                    T* maxabs, int64_t R, int64_t C, cudaStream_t stream) {
   const int64_t n = R * C;
-  const int64_t G = (n + 3) / 4;
   const int threads = 256;
-  int64_t blocks = (G + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond ~32 blocks per SM
-  if (blocks < 1) blocks = 1;
-  add_scaled_normal_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+  add_scaled_normal_kernel<T><<<fbx::grid_blocks((n + 3) / 4, threads), threads, 0, stream>>>(
       x, scale, normals, seed, out, maxabs, n, C);
   return cudaGetLastError();
 }

@@ -1,21 +1,27 @@
 """Gaussian random field draws.
 
 Torch counterpart of ``fastbox_tpu/fields/gaussian.py``: the half-spectrum
-draw of the pipeline (``_complex_normal``, ``hermitian_half_noise``,
-``_herm_plane``, ``:40-102``) and the full-cube realisation the COLA engine
-starts from (``white_noise``, ``hermitian_symmetrize``,
-``gaussian_field_from_whitenoise``, ``realise_density``, ``:183-242``).
+draw of the pipeline (``_complex_normal`` with both bits-to-normal methods,
+``hermitian_half_noise``, ``_herm_plane``, ``:40-102``), the fused colored
+draws on K9 (``colored_half_noise``, ``colored_half_noise_vz``, ``:105-180``)
+and the full-cube realisation the COLA engine starts from (``white_noise``,
+``hermitian_symmetrize``, ``gaussian_field_from_whitenoise``,
+``realise_density``, ``:183-242``).
 Every draw takes an explicit ``torch.Generator``; the streams differ from
 ``jax.random``, so tests hand both packages the same numbers instead.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from ..grid import GridSpec
+from ..ops.cuda import half_draw
 
-__all__ = ["complex_dtype", "hermitian_half_noise", "white_noise",
+__all__ = ["complex_dtype", "bm_from_uniforms", "hermitian_half_noise",
+           "colored_half_noise", "colored_half_noise_vz", "white_noise",
            "hermitian_symmetrize", "gaussian_field_from_whitenoise",
            "realise_density"]
 
@@ -24,21 +30,38 @@ def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if real_dtype == torch.float64 else torch.complex64
 
 
+def bm_from_uniforms(u1, u2):
+    """One Box-Muller transform: two independent N(0, 1) fields from
+    uniforms u1 in [tiny, 1) and u2 in [0, 1), as (r cos th, r sin th) with
+    r = sqrt(-2 log u1) and th = 2 pi u2 — the transform of
+    ``fastbox_tpu/parallel/rng.py::bm_pair``, whose output order and
+    endpoint convention define the stream."""
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    th = (2.0 * math.pi) * u2
+    return r * torch.cos(th), r * torch.sin(th)
+
+
 def _complex_normal(generator: torch.Generator, shape, dtype: torch.dtype,
                     method: str = "erfinv"):
     """``re + i im`` with independent unit-normal parts.
 
     ``method='erfinv'`` names the fastbox_tpu stream family; here it is two
-    plain normal draws.  ``'box_muller'`` is not ported yet.
+    plain normal draws.  ``'box_muller'`` draws u1 (floored at the dtype's
+    tiny, as ``jax.random.uniform(minval=tiny)``) and then u2, and emits
+    both outputs of :func:`bm_from_uniforms` as (re, im).
     """
+    device = generator.device
+    kw = dict(generator=generator, dtype=dtype, device=device)
     if method == "box_muller":
-        raise NotImplementedError(
-            "draw_method='box_muller' is not ported yet (ROADMAP.md A2)")
+        tiny = torch.finfo(dtype).tiny
+        u1 = torch.rand(shape, **kw).mul_(1.0 - tiny).add_(tiny) \
+            .clamp_(min=tiny)
+        u2 = torch.rand(shape, **kw)
+        return torch.complex(*bm_from_uniforms(u1, u2))
     if method != "erfinv":
         raise ValueError(f"Unknown draw method '{method}'")
-    device = generator.device
-    re = torch.randn(shape, generator=generator, dtype=dtype, device=device)
-    im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    re = torch.randn(shape, **kw)
+    im = torch.randn(shape, **kw)
     return torch.complex(re, im)
 
 
@@ -69,6 +92,52 @@ def _herm_plane(generator: torch.Generator, N: int, dtype: torch.dtype,
     / kz=N/2 structure of a real cube's half-spectrum."""
     w = _complex_normal(generator, (N, N), dtype, method)
     return hermitian_symmetrize(w)
+
+
+def _fix_planes(half, generator: torch.Generator, amp_half, N: int, dtype):
+    """Overwrite the kz=0 and (even N) Nyquist planes of a colored draw with
+    Hermitian planes x amp (fastbox_tpu/fields/gaussian.py:141-145): a
+    row-local kernel cannot pair those planes' modes."""
+    H = N // 2 + 1
+    half[:, :, 0] = _herm_plane(generator, N, dtype) * amp_half[:, :, 0]
+    if N % 2 == 0:
+        half[:, :, H - 1] = _herm_plane(generator, N, dtype) \
+            * amp_half[:, :, H - 1]
+    return half
+
+
+def colored_half_noise(generator: torch.Generator, grid: GridSpec, amp_half,
+                       dtype: torch.dtype = torch.float32):
+    """``hermitian_half_noise(...) * amp_half`` in one pass: K9a on a CUDA
+    ``amp_half``, its plain twin on a CPU one, then the Hermitian planes.
+
+    On the card the interior normals come from the kernel's Philox stream
+    (seeded from ``generator``), a different stream than ``torch.randn``;
+    on the CPU the twin consumes ``generator`` exactly as
+    ``hermitian_half_noise`` does, so the result equals its
+    ``hermitian_half_noise(generator, grid) * amp_half``.
+    """
+    N = grid.N
+    H = N // 2 + 1
+    half = half_draw.colored_half_draw(amp_half.reshape(N, N * H),
+                                       generator=generator)
+    return _fix_planes(half.reshape(N, N, H), generator, amp_half, N, dtype)
+
+
+def colored_half_noise_vz(generator: torch.Generator, grid: GridSpec,
+                          amp_half, kx2col, kyz2row, kznumrow,
+                          dtype: torch.dtype = torch.float32):
+    """:func:`colored_half_noise` plus the LOS-velocity half spectrum
+    ``vz_k = delta_k * i * kznum / (kx2 + kyz2)`` from the same pass (K9b).
+    The kz=0 and Nyquist planes carry zero velocity weight, so only delta
+    needs the Hermitian fix-up.  Returns (delta_k, vz_k)."""
+    N = grid.N
+    H = N // 2 + 1
+    half, vz = half_draw.colored_half_draw_vz(
+        amp_half.reshape(N, N * H), kx2col, kyz2row, kznumrow,
+        generator=generator)
+    half = _fix_planes(half.reshape(N, N, H), generator, amp_half, N, dtype)
+    return half, vz.reshape(N, N, H)
 
 
 def white_noise(generator: torch.Generator, grid: GridSpec,

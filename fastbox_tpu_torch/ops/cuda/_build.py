@@ -1,11 +1,13 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources in ``fastbox_tpu_torch/csrc/`` are compiled at first use with
+The sources in ``fastbox_tpu_torch/csrc/`` are compiled at first use, one
+``nvcc`` process per ``.cu`` file, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c
 
-into one shared library with a plain C interface, loaded with ``ctypes``.
+and linked (``nvcc -shared``) into one shared library with a plain C
+interface, loaded with ``ctypes``.
 The library lives in ``build/torch_kernels/<key>/`` at the checkout root,
 keyed by a hash of the sources, the flags and ``nvcc --version``, so a
 changed source or toolkit rebuilds and an unchanged one loads at once.
@@ -35,8 +37,8 @@ __all__ = ["load_library", "kernel_fn", "launch_counts",
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libfastbox_tpu_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -48,6 +50,11 @@ _SIGNATURES = {
     "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I64, _INT, _INT, _INT, _P),
+    "fbx_binned_pk_half_dual": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                _I64, _I64, _INT, _INT, _INT, _P),
+    "fbx_binned_pk_full": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                           _INT, _INT, _INT, _P),
+    "fbx_half_draw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     "fbx_cic_paint_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather3_lattice": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
@@ -95,6 +102,38 @@ def build_key(nvcc_version: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(nvcc: str, out_dir: Path, lib_path: Path) -> None:
+    """One nvcc per source in parallel, then one link; ``build.log`` keeps
+    every step's output.  Raises with nvcc's message on failure."""
+    tag = os.getpid()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
+    procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(o), str(c)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c, o in zip(cus, objs)]
+    logs, errors = [], []
+    for c, proc in zip(cus, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {c.name}\n{out}{err}")
+        if proc.returncode != 0:
+            errors.append(f"{c.name} ({proc.returncode}):\n{err}")
+    if not errors:
+        tmp = out_dir / f"{_LIB_NAME}.{tag}.tmp"
+        res = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+        else:
+            os.replace(tmp, lib_path)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(logs))
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
@@ -105,14 +144,7 @@ def load_library() -> ctypes.CDLL:
     lib_path = out_dir / _LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-        cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-        res = subprocess.run([nvcc, *_FLAGS, "-o", str(tmp), *cus],
-                             capture_output=True, text=True)
-        (out_dir / "build.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, lib_path)
+        _compile_and_link(nvcc, out_dir, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for stem, args in _SIGNATURES.items():
         for suffix in ("_f32", "_f64"):

@@ -2,9 +2,11 @@
 
 fastbox_tpu accumulates its histograms as one-hot matmuls on the MXU;
 here ``index_add_`` into float64 bins does the same job.
-``binned_weighted_dual`` is the plain twin of the K4 kernel
-(``ops/cuda/binned_pk_v2.py``); the other two serve
-``ops/spectra.binned_power_spectrum``.
+``binned_weighted_dual`` is the plain twin of the K4 and K5 kernels
+(``ops/cuda/binned_pk_v2.py``, ``ops/cuda/binned_pk.py``) and the
+pipeline's plain reduction (``pallas_pk='off'``); ``binned_sum_sumsq_count``
+is K6's twin; ``binned_weighted_sum_sumsq_count`` serves the half-spectrum
+core of ``ops/spectra.binned_power_spectrum``.
 """
 from __future__ import annotations
 

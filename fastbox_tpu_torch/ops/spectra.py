@@ -1,15 +1,17 @@
-"""P(k) binning: the host helpers (copies of fastbox_tpu/ops/spectra.py:43-84)
-and the reference-convention estimator ``binned_power_spectrum`` with its
-two cores (fastbox_tpu/ops/spectra.py:88-191)."""
+"""P(k) binning: the host helpers (copies of fastbox_tpu/ops/spectra.py:43-84,
+and the K5/K6 digitize plan ``kbin_plan``) and the reference-convention
+estimator ``binned_power_spectrum`` with its two cores
+(fastbox_tpu/ops/spectra.py:88-191); the full-grid core reduces on K6."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..grid import GridSpec
-from .reduce import binned_sum_sumsq_count, binned_weighted_sum_sumsq_count
+from .cuda.binned_pk import binned_pk_full
+from .reduce import binned_weighted_sum_sumsq_count
 
-__all__ = ["default_kbins", "kbin_thresholds", "hoisted_counts",
+__all__ = ["default_kbins", "kbin_thresholds", "kbin_plan", "hoisted_counts",
            "binned_power_spectrum"]
 
 
@@ -37,6 +39,30 @@ def kbin_thresholds(grid: GridSpec, bins) -> np.ndarray | None:
     kappa = 2.0 * np.pi / grid.Lx
     E = (np.asarray(bins, np.float64) / kappa) ** 2
     return np.ceil(E * (1.0 - 1e-12)).astype(np.int32)
+
+
+def kbin_plan(grid: GridSpec, bins, dtype: torch.dtype, device="cpu"):
+    """The squared-space digitize operands (kx2, ky2, kz2, edges2) of the
+    K5/K6 reductions, in ``dtype`` (fastbox_tpu/pipeline.py:363-372,
+    :418-421).
+
+    On a cubic grid: the squared integer FFT indices and the edges
+    ``kbin_thresholds - 0.5``, which classify exactly as the integer
+    lattice does.  Otherwise the floating plan: ``k*k`` of ``grid.kvec``
+    in ``dtype`` per axis, and the physical edges squared in float64 and
+    then cast.  kz2 covers the full axis; a half spectrum takes its first
+    N/2+1 entries.
+    """
+    thr = kbin_thresholds(grid, bins)
+    if thr is not None:
+        fi2 = torch.as_tensor(_index_sq(grid), dtype=dtype, device=device)
+        edges2 = thr.astype(np.float64) - 0.5
+        return fi2, fi2, fi2, torch.as_tensor(edges2, dtype=dtype,
+                                              device=device)
+    kx, ky, kz = grid.kvec(dtype, device)
+    edges2 = np.asarray(bins, np.float64) ** 2
+    return kx * kx, ky * ky, kz * kz, torch.as_tensor(edges2, dtype=dtype,
+                                                      device=device)
 
 
 def _index_sq(grid: GridSpec) -> np.ndarray:
@@ -105,11 +131,15 @@ def _binned_pk_half_core(grid: GridSpec, delta_x, bins, thr=None):
     return _finish(*binned_weighted_sum_sumsq_count(pk, wf, idx, len(bins)))
 
 
-def _binned_pk_core(grid: GridSpec, delta_k, bins, thr=None):
+def _binned_pk_core(grid: GridSpec, delta_k, bins):
+    """The full-grid (sum, sumsq, count) on K6 (the twin on the CPU), with
+    K6's squared-space digitize: the exact lattice on cubic grids, squared
+    physical wavenumbers elsewhere (where fastbox_tpu's XLA core compares
+    |k|; the two agree unless a mode sits within rounding of an edge)."""
     rdtype = delta_k.real.dtype
-    pk = (delta_k * torch.conj(delta_k)).real / grid.boxfactor
-    idx = _bin_index(grid, bins, thr, grid.N, rdtype, delta_k.device)
-    return _finish(*binned_sum_sumsq_count(pk, idx, len(bins)))
+    pk = ((delta_k * torch.conj(delta_k)).real / grid.boxfactor).contiguous()
+    kx2, ky2, kz2, edges2 = kbin_plan(grid, bins, rdtype, delta_k.device)
+    return _finish(*binned_pk_full(pk, kx2, ky2, kz2, edges2))
 
 
 def binned_power_spectrum(grid: GridSpec, delta_k=None, delta_x=None,
@@ -136,7 +166,7 @@ def binned_power_spectrum(grid: GridSpec, delta_k=None, delta_x=None,
         vals, stddev = _binned_pk_half_core(grid, delta_x, bins, thr)
     else:
         ref = delta_k.real
-        vals, stddev = _binned_pk_core(grid, delta_k, bins, thr)
+        vals, stddev = _binned_pk_core(grid, delta_k, bins)
     # the first value holds the k < kmin modes (k=0 included): dropped
     kc = torch.as_tensor(cent[1:], dtype=ref.dtype, device=ref.device)
     return kc, vals[1:], stddev[1:]

@@ -1,23 +1,25 @@
 """The end-to-end 21cm mock pipeline in PyTorch.
 
 Counterpart of ``fastbox_tpu/pipeline.py`` (``PipelineConfig``,
-``_build_pipeline``, ``make_pipeline``) on its default path: f32,
-``noise_scheme='half'``, ``rsd_method='linear'``, ``fg_spectral='poly'``,
-exact PCA, 20 bins, cubic grid.  The stages:
+``_build_pipeline``, ``make_pipeline``, ``make_chained_pipeline``,
+``make_ensemble_pipeline``, ``calibrate_pk_debias``) on one device, for
+cubic and anisotropic boxes.  The stages:
 
-  1. Gaussian density realisation on the rfft half-spectrum x sqrt(P)
+  1. Gaussian density realisation on the rfft half-spectrum x sqrt(P)  (K9)
   2. HI bias scaling and log-normal transform
-  3. linear LOS velocity from the Gaussian delta_k
+  3. linear LOS velocity from the Gaussian delta_k                    (K9)
   4. redshift-space remap, after the sigma_NL dispersion      (K1, K2 | K3)
   5. brightness-temperature scaling Tb (1 + delta_s)
   6. diffuse foreground cube (2D GRF amplitude x spectral-index law)
   7. radiometer noise                                          (K1)
-  8. PCA foreground clean (FP32 GEMMs, eigh)
-  9. binned P(k) of the cleaned cube and of the density       (K4)
+  7b. instrument response: Gaussian beam in k_perp, k_par high-pass
+  8. PCA foreground clean (FP32 GEMMs, eigh or subspace iteration)
+  9. binned P(k) of the cleaned cube and of the density       (K4 | K5)
 
 The host set-up (cosmology, instrument scalars, sqrt(P) on the half grid,
-the exact integer-lattice bin plan and its counts) runs once in
-``make_pipeline``; the returned function runs stages 1-9 on ``device``.
+the bin plan) runs once in ``make_pipeline``; the returned function runs
+stages 1-9 on ``device``, split as fastbox_tpu's ``fn_pre`` (1-7b, its
+``pre`` attribute) and ``fn_post`` (8-9, ``post``).
 
 Random draws.  ``jax.random`` streams cannot be reproduced in torch, so
 the pipeline function takes an optional ``draws`` dict with the five
@@ -32,50 +34,54 @@ arrays fastbox_tpu's ``fn_pre`` draws from its five keys
 
 This is the port's counterpart of fastbox_tpu's ``threefry_noise`` and
 ``draw_dtype`` truth-gate knobs.  Without ``draws`` the function draws
-them itself from the ``torch.Generator`` it is given; the two normal
-draws then happen inside K1 on a GPU.
+them itself from the ``torch.Generator`` it is given; the density draw
+(with ``pallas_draw``) and the two normal draws then happen inside K9 and
+K1 on a GPU.  With ``draws`` and ``pallas_draw`` on, the supplied ``dens``
+is coloured by K9 in its supplied mode, and 'vz' weights the velocity
+spectrum with K9's formula.
 
 Precision.  The TPU-only knobs ``mm3d_precision``, ``vel_precision``,
 ``dx_precision``, ``fwd_precision`` and ``pca_precision`` select MXU pass
 counts and have no meaning on cuFFT or a FP32 GEMM: they are accepted and
 ignored.  The port always computes in full FP32 (TF32 off, PyTorch's
-default), or in float64 for a float64 config.
+default), or in float64 for a float64 config; the one exception is the
+PCA's frequency-covariance eigendecomposition, which always runs in
+float64 (``filters.pca.top_eigvecs``).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
+from .constants import C_MS
 from .cosmology import Cosmology
 from .fields import gaussian, transforms
-from .filters import pca_filter
+from .filters import pca
 from .grid import GridSpec
 from .models import noise as noise_mod
 from .models.foregrounds import ForegroundModel, gaussian_smooth_wrap
 from .ops import rsd as rsd_ops
 from .ops import spectra as spectra_ops
+from .ops.cuda import half_draw
+from .ops.cuda.binned_pk import binned_pk_half_dual
 from .ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
+from .ops.reduce import binned_weighted_dual
 
 __all__ = ["PipelineConfig", "make_pipeline", "draw_inputs", "amp_half_table",
-           "make_chained_pipeline", "make_ensemble_pipeline"]
+           "vz_vectors", "make_chained_pipeline", "make_ensemble_pipeline",
+           "calibrate_pk_debias"]
 
 DRAW_NAMES = ("dens", "rsd", "fg", "alpha", "noise")
 
 # Knobs whose non-default values select parts of fastbox_tpu's pipeline
-# that are not ported yet: field -> (default, ROADMAP.md item).
+# that are not ported: field -> (default, ROADMAP.md item).
 _UNPORTED = {
-    "noise_scheme": ("half", "A2g: the row-keyed 'rows' draw"),
-    "pallas_draw": ("off", "B9: colored_complex_normal_pallas"),
+    "noise_scheme": ("half", "A6: the row-keyed 'rows' draw, with parallel/"),
     "fft_pair": (False, "A (do-not-port list): matmul DFT pair"),
-    "eigh_hoist": ("off", "A2g: make_chained_pipeline"),
-    "pca_exact": (True, "A5: pca_filter_subspace"),
-    "draw_method": ("erfinv", "A2g: the box_muller draw"),
-    "pk_debias": (None, "A2g: pk_debias"),
-    "beam_dish_m": (None, "A2g: the instrument response"),
-    "kpar_min": (None, "A2g: the instrument response"),
-    "rsd_method": ("linear", "A3: method='nearest'"),
+    "rsd_method": ("linear", "A6: method='nearest', with parallel/"),
     "threefry_noise": (False, "pass the pipeline function `draws` instead"),
     "draw_dtype": (None, "pass the pipeline function `draws` instead"),
 }
@@ -110,12 +116,13 @@ class PipelineConfig:
     tp_hours: float = 2.0
     fov_deg2: float = 1.0
     Ndish: int = 64
-    # Instrument response (not ported)
+    # Instrument response: Gaussian beam FWHM = 1.22 lambda / D, and a
+    # k_par foreground-avoidance high-pass (1/Mpc)
     beam_dish_m: float | None = None
     kpar_min: float | None = None
     # Cleaning + estimation
     pca_nmodes: int = 4
-    pca_exact: bool = True
+    pca_exact: bool = True           # False: subspace iteration
     nbins: int = 20
     include_foregrounds: bool = True
     include_noise: bool = True
@@ -131,13 +138,20 @@ class PipelineConfig:
     # Truth-gate knobs: the port takes `draws` instead
     draw_dtype: str | None = None
     threefry_noise: bool = False
-    # 'auto' and 'v2' take the K4 kernel on a GPU (the plain twin on CPU)
+    # P(k) reduction: 'auto' takes K4 on cubic grids and K5 elsewhere, 'v2'
+    # K4 (K5 with a warning off cubes), 'on' K5, 'off' the plain reduction
+    # (on any device); kernels on a GPU, their twins on the CPU
     pallas_pk: str = "auto"
+    # Density draw: 'auto'/'on' the fused colored draw K9a, 'vz' K9b (the
+    # velocity spectrum from the same pass), 'off' the plain draw
     pallas_draw: str = "off"
     fg_spectral: str = "poly"
     debug_stages: bool = False
+    # make_chained_pipeline: 'on' runs one batched eigh over the chain's
+    # covariances; 'auto' resolves to 'off', as in fastbox_tpu
     eigh_hoist: str = "off"
     draw_method: str = "erfinv"
+    # subtracted from the retained pk_cleaned bins (length nbins - 1)
     pk_debias: tuple | None = None
 
     def __post_init__(self):
@@ -145,6 +159,10 @@ class PipelineConfig:
             raise ValueError(f"Unknown eigh_hoist '{self.eigh_hoist}'")
         if self.pallas_pk not in ("auto", "on", "off", "v2", "v2t"):
             raise ValueError(f"Unknown pallas_pk '{self.pallas_pk}'")
+        if self.pallas_draw not in ("auto", "on", "off", "vz"):
+            raise ValueError(f"Unknown pallas_draw '{self.pallas_draw}'")
+        if self.draw_method not in ("erfinv", "box_muller"):
+            raise ValueError(f"Unknown draw method '{self.draw_method}'")
         if self.fg_spectral not in ("poly", "pow"):
             raise ValueError(f"Unknown fg_spectral '{self.fg_spectral}'")
         if self.dtype not in ("float32", "float64"):
@@ -154,10 +172,10 @@ class PipelineConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported "
                     f"(ROADMAP.md {item})")
-        if self.pallas_pk not in ("auto", "v2"):
+        if self.pallas_pk == "v2t":
             raise NotImplementedError(
-                f"pallas_pk={self.pallas_pk!r} is not ported: the port bins "
-                "with the v2 kernel K4 ('auto' or 'v2'); ROADMAP.md B4/B5")
+                "pallas_pk='v2t' (K4's telescoped digitize) is not ported "
+                "(ROADMAP.md B4)")
 
 
 def _hi_bias(z):
@@ -207,6 +225,38 @@ def amp_half_table(grid: GridSpec, cosmology: Cosmology,
                                         device=pk.device))
 
 
+def vz_vectors(grid: GridSpec, vel_fac: float, dtype=torch.float32,
+               device="cpu"):
+    """K9b's velocity-weight operands (kx2col (N,), kyz2row and kznumrow
+    (N*H,)) for ``pallas_draw='vz'``: built in f64 from ``dtype``'s
+    wavenumbers, kznum zero on the Nyquist plane, then cast
+    (fastbox_tpu/pipeline.py:462-472)."""
+    N, H = grid.N, grid.N // 2 + 1
+    kx, ky, kz = (v.double().cpu().numpy() for v in grid.kvec(dtype))
+    kzh = kz[:H]
+    kznum = np.where(grid.nyquist_mask(2)[:H].numpy(), 0.0, vel_fac * kzh)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                 device=device) for a in (
+        kx ** 2, (ky[:, None] ** 2 + kzh[None, :] ** 2).reshape(N * H),
+        np.broadcast_to(kznum[None, :], (N, H)).reshape(N * H)))
+
+
+def _pk_route(pallas_pk: str, cubic: bool) -> str:
+    """'v2' (K4, hoisted counts), 'v1' (K5) or 'plain', as fastbox_tpu
+    routes step (9) on a TPU (fastbox_tpu/pipeline.py:376-400)."""
+    if pallas_pk == "off":
+        return "plain"
+    if pallas_pk == "on":
+        return "v1"
+    if cubic:
+        return "v2"
+    if pallas_pk == "v2":
+        warnings.warn(
+            "pallas_pk='v2' requires a cubic-exact grid (kbin_thresholds "
+            "returned None); falling back to the v1 kernel", stacklevel=3)
+    return "v1"
+
+
 def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                   config: PipelineConfig = PipelineConfig(), device="cpu",
                   amp_half: torch.Tensor | None = None):
@@ -220,11 +270,13 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     ``pk_cleaned_err``, ``pk_density``, ``sigma_data``, and with
     ``debug_stages`` the intermediate cubes.  ``vel_z`` there includes the
     sigma_NL dispersion, as on fastbox_tpu's ``threefry_noise`` path.
+
+    ``fn.pre(generator=None, draws=None, clock=None, want_cov=False)`` runs
+    stages 1-7b and returns the data cube, the density power and
+    ``sigma_data`` (with ``want_cov`` also the PCA covariance);
+    ``fn.post(pre, U=None, clock=None)`` runs 8-9, with the clean's
+    eigenvectors ``U`` (Nfreq, pca_nmodes) given or found inline.
     """
-    if not grid.is_cubic:
-        raise NotImplementedError(
-            "non-cubic grids bin with the v1 kernel binned_pk_half_dual_pallas "
-            "on the TPU, which is not ported yet (ROADMAP.md B5)")
     device = torch.device(device)
     dtype = getattr(torch, config.dtype)
     N = grid.N
@@ -263,36 +315,78 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     if amp_half.shape != (N, N, H):
         raise ValueError(f"amp_half must be {(N, N, H)}")
     amp_half = amp_half.to(device=device, dtype=dtype).contiguous()
+    amp2d = amp_half.reshape(N, N * H)
 
-    # LOS velocity weight vel_fac * kz / k^2 on the half grid, zero on the
-    # Nyquist plane (fastbox_tpu/pipeline.py:526-533)
     kxv, kyv, kzv = grid.kvec(dtype, device)
     kz_half = kzv[:H]
-    k2 = (kxv[:, None, None] ** 2 + kyv[None, :, None] ** 2
-          + kz_half[None, None, :] ** 2)
-    inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
-                         torch.zeros_like(k2))
-    vz_w = (torch.tensor(vel_fac, dtype=dtype) * kz_half)[None, None, :] \
-        * inv_k2
     nyq_z = grid.nyquist_mask(2, device)[:H]
-    vz_w = torch.where(nyq_z[None, None, :], torch.zeros_like(vz_w), vz_w)
-    del k2, inv_k2
+    use_k9 = config.pallas_draw in ("auto", "on", "vz")
+    vz_mode = config.pallas_draw == "vz"
+    if vz_mode:
+        kx2col_j, kyz2row_j, kznumrow_j = vz_vectors(grid, vel_fac, dtype,
+                                                     device)
+    else:
+        # LOS velocity weight vel_fac * kz / k^2 on the half grid, zero on
+        # the Nyquist plane (fastbox_tpu/pipeline.py:526-533)
+        k2 = (kxv[:, None, None] ** 2 + kyv[None, :, None] ** 2
+              + kz_half[None, None, :] ** 2)
+        inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
+                             torch.zeros_like(k2))
+        vz_w = (torch.tensor(vel_fac, dtype=dtype) * kz_half)[None, None, :] \
+            * inv_k2
+        vz_w = torch.where(nyq_z[None, None, :], torch.zeros_like(vz_w), vz_w)
+        del k2, inv_k2
 
-    # Half-spectrum kz multiplicity and the exact integer-lattice bin plan
+    # Instrument response (fastbox_tpu/pipeline.py:636-655), tabulated once
+    beam = kpar_filter = None
+    if config.beam_dish_m is not None:
+        lam = C_MS / (freqs * 1e6)
+        fwhm = 1.22 * lam / config.beam_dish_m                  # rad
+        sigma_r = (fwhm / np.sqrt(8.0 * np.log(2.0))) * cosmology.chi
+        sig_j = dev_tensor(sigma_r)                             # (Nfreq,) Mpc
+        kperp2 = kxv[:, None] ** 2 + kyv[:H][None, :] ** 2
+        beam = torch.exp(-0.5 * kperp2[:, :, None]
+                         * (sig_j ** 2)[None, None, :])
+    if config.kpar_min is not None:
+        kpar_filter = 1.0 - torch.exp(-0.5 * (kz_half / config.kpar_min) ** 2)
+
+    # Half-spectrum kz multiplicity and the bin plan of step (9)
     kz_weight = np.full(H, 2.0, dtype=np.float64)
     kz_weight[0] = 1.0
     if N % 2 == 0:
         kz_weight[-1] = 1.0
     kzw_j = dev_tensor(kz_weight)
     kbins_edges = np.asarray(spectra_ops.default_kbins(grid, config.nbins))
+    nb = kbins_edges.size
+    if config.pk_debias is not None and len(config.pk_debias) != nb - 1:
+        raise ValueError(
+            f"pk_debias must have length {nb - 1} (the retained bins); "
+            f"got {len(config.pk_debias)}")
+    debias_j = (None if config.pk_debias is None
+                else dev_tensor(config.pk_debias))
     e_ = np.concatenate([[0.0], kbins_edges])
     kcent_j = dev_tensor(0.5 * (e_[1:] + e_[:-1])[1:])
     thr = spectra_ops.kbin_thresholds(grid, kbins_edges)
-    fi2 = spectra_ops._index_sq(grid)
-    fi2_j = dev_tensor(fi2, torch.int32)
-    fi2h_j = dev_tensor(fi2[:H], torch.int32)
-    thr_j = dev_tensor(thr, torch.int32)
-    cnt_j = dev_tensor(spectra_ops.hoisted_counts(grid, thr, kz_weight))
+    pk_route = _pk_route(config.pallas_pk, thr is not None)
+    if pk_route == "v2":
+        # the exact integer-lattice plan and its counts (K4)
+        fi2 = spectra_ops._index_sq(grid)
+        fi2_j = dev_tensor(fi2, torch.int32)
+        fi2h_j = dev_tensor(fi2[:H], torch.int32)
+        thr_j = dev_tensor(thr, torch.int32)
+        cnt_j = dev_tensor(spectra_ops.hoisted_counts(grid, thr, kz_weight))
+    elif pk_route == "v1":
+        # squared-space digitize operands (K5), counts from the kernel
+        kx2_b, ky2_b, kz2_b, edges2_j = spectra_ops.kbin_plan(
+            grid, kbins_edges, dtype, device)
+        kz2h_b = kz2_b[:H].contiguous()
+    else:
+        # the bin of every half-spectrum mode, as fastbox_tpu's XLA path
+        # digitizes (fastbox_tpu/pipeline.py:422-440)
+        bin_idx = spectra_ops._bin_index(grid, kbins_edges, thr, H, dtype,
+                                         device)
+        w_flat = torch.broadcast_to(kzw_j[None, None, :], (N, N, H)) \
+            .reshape(-1)
     boxf = torch.tensor(grid.boxfactor, dtype=dtype, device=device)
     sigma_nl_row = torch.full((N,), config.sigma_nl, dtype=dtype,
                               device=device)
@@ -307,8 +401,43 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         dt = cdtype if name in ("dens", "fg") else dtype
         return draws[name].to(device=device, dtype=dt)
 
-    def fn(generator: torch.Generator | None = None,
-           draws: dict | None = None, clock=None) -> dict:
+    def density(generator, draws):
+        """(delta_k, vz_k or None): stage (1), and (3)'s spectrum in 'vz'."""
+        if draws is not None:
+            white = draw(draws, "dens")
+            if not use_k9:
+                return white * amp_half, None
+            white = white.reshape(N, N * H).contiguous()
+            if vz_mode:
+                d, v = half_draw.colored_half_draw_vz(
+                    amp2d, kx2col_j, kyz2row_j, kznumrow_j, white=white)
+                return d.reshape(N, N, H), v.reshape(N, N, H)
+            d = half_draw.colored_half_draw(amp2d, white=white)
+            return d.reshape(N, N, H), None
+        if vz_mode:
+            return gaussian.colored_half_noise_vz(
+                generator, grid, amp_half, kx2col_j, kyz2row_j, kznumrow_j,
+                dtype)
+        if use_k9:
+            return gaussian.colored_half_noise(generator, grid, amp_half,
+                                               dtype), None
+        white = gaussian.hermitian_half_noise(generator, grid, dtype,
+                                              method=config.draw_method)
+        return white * amp_half, None
+
+    def instrument(data):
+        """Stage (7b): the per-channel beam, then the k_par high-pass."""
+        if beam is not None:
+            dk2 = torch.fft.rfftn(data, dim=(0, 1))
+            data = torch.fft.irfftn(dk2 * beam, s=(N, N), dim=(0, 1))
+        if kpar_filter is not None:
+            dkz = torch.fft.rfft(data, dim=2)
+            data = torch.fft.irfft(dkz * kpar_filter, n=N, dim=2)
+        return data.contiguous()
+
+    def pre(generator: torch.Generator | None = None,
+            draws: dict | None = None, clock=None,
+            want_cov: bool = False) -> dict:
         if draws is None and generator is None:
             raise ValueError("pass a torch.Generator or the `draws` dict")
         if draws is not None:
@@ -318,14 +447,13 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         clock = clock or _NoClock()
 
         # (1) density half-spectrum x sqrt(P)
-        white_h = draw(draws, "dens", lambda: gaussian.hermitian_half_noise(
-            generator, grid, dtype))
-        delta_k = white_h * amp_half
+        delta_k, vz_k = density(generator, draws)
         clock.mark("draw")
 
         # (3, hoisted) LOS velocity spectrum i vel_fac kz / k^2 delta_k,
         # and the two inverse transforms
-        vz_k = torch.complex(-delta_k.imag * vz_w, delta_k.real * vz_w)
+        if vz_k is None:
+            vz_k = torch.complex(-delta_k.imag * vz_w, delta_k.real * vz_w)
         delta_x = torch.fft.irfftn(delta_k, s=grid.shape)
         vel_z = torch.fft.irfftn(vz_k, s=grid.shape)
         del vz_k
@@ -372,56 +500,185 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
             data = data + fg_cube
         clock.mark("foregrounds")
 
-        # (7) radiometer noise (K1)
+        # (7) radiometer noise (K1), (7b) instrument response
         if config.include_noise:
             data = rsd_ops.add_scaled_normal(
                 data, sigma_j, generator, draw(draws, "noise"))
-        p_dens = (delta_k.real.square() + delta_k.imag.square()) / boxf
-        sigma_data = torch.std(data, correction=0)
-        clock.mark("noise")
-
-        # (8) PCA clean
-        cleaned = pca_filter(data, config.pca_nmodes)
-        clock.mark("pca")
-
-        # (9) binned P(k) of the cleaned cube and the density (K4)
-        ck = torch.fft.rfftn(cleaned)
-        p_clean = (ck.real.square() + ck.imag.square()) / boxf
-        del ck
-        # (cuFFT may hand back permuted strides; the kernel reads C order)
-        s1, q1, s2 = binned_pk_half_dual_v2(
-            p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j, fi2h_j,
-            kzw_j, thr_j)
-        mean1 = s1 / cnt_j
-        var = torch.clamp(q1 / cnt_j - mean1 ** 2, min=0.0)
-        var = torch.where(cnt_j > 1, var, torch.zeros_like(var))
+        if beam is not None or kpar_filter is not None:
+            clock.mark("noise")
+            data = instrument(data)
         out = {
-            "k": kcent_j,
-            "pk_cleaned": mean1[1:],
-            "pk_cleaned_err": (torch.sqrt(var) / torch.sqrt(cnt_j))[1:],
-            "pk_density": (s2 / cnt_j)[1:],
-            "sigma_data": sigma_data,
+            "data": data,
+            "p_dens": (delta_k.real.square() + delta_k.imag.square()) / boxf,
+            "sigma_data": torch.std(data, correction=0),
         }
-        clock.mark("pk")
+        if want_cov:
+            out["cov"] = pca.covariance(data)
         if config.debug_stages:
-            out.update(delta_x=delta_x, vel_z=vel_z, delta_s=delta_s,
-                       data=data, cleaned=cleaned, ck_power=p_clean)
+            out.update(delta_x=delta_x, vel_z=vel_z, delta_s=delta_s)
             if config.include_foregrounds:
                 out.update(fg_cube=fg_cube, fg_map=fg_map,
                            alpha_map=alpha_map)
+        clock.mark("noise" if beam is None and kpar_filter is None
+                   else "instrument")
         return out
+
+    def post(pre_out: dict, U: torch.Tensor | None = None,
+             clock=None) -> dict:
+        clock = clock or _NoClock()
+        data = pre_out["data"]
+
+        # (8) PCA clean: given eigenvectors, exact eigh, or subspace
+        if U is not None:
+            cleaned = pca.pca_project(data, U)
+        elif config.pca_exact:
+            cleaned = pca.pca_filter(data, config.pca_nmodes)
+        else:
+            cleaned = pca.pca_filter_subspace(data, config.pca_nmodes)
+        clock.mark("pca")
+
+        # (9) binned P(k) of the cleaned cube and the density
+        ck = torch.fft.rfftn(cleaned)
+        p_clean = (ck.real.square() + ck.imag.square()) / boxf
+        del ck
+        # (cuFFT may hand back permuted strides; the kernels read C order)
+        p_dens = pre_out["p_dens"]
+        if pk_route == "v2":
+            s1, q1, s2 = binned_pk_half_dual_v2(
+                p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j,
+                fi2h_j, kzw_j, thr_j)
+            cnt = cnt_j
+        elif pk_route == "v1":
+            s1, q1, s2, cnt = binned_pk_half_dual(
+                p_clean.contiguous(), p_dens.contiguous(), kx2_b, ky2_b,
+                kz2h_b, kzw_j, edges2_j)
+        else:
+            s1, q1, s2, _, cnt = binned_weighted_dual(
+                p_clean.reshape(-1), p_dens.reshape(-1), w_flat, bin_idx, nb)
+        mean1 = s1 / cnt
+        pk_clean = mean1[1:]
+        if debias_j is not None:
+            pk_clean = pk_clean - debias_j
+        var = torch.clamp(q1 / cnt - mean1 ** 2, min=0.0)
+        var = torch.where(cnt > 1, var, torch.zeros_like(var))
+        out = {
+            "k": kcent_j,
+            "pk_cleaned": pk_clean,
+            "pk_cleaned_err": (torch.sqrt(var) / torch.sqrt(cnt))[1:],
+            "pk_density": (s2 / cnt)[1:],
+            "sigma_data": pre_out["sigma_data"],
+        }
+        clock.mark("pk")
+        if config.debug_stages:
+            out.update({n: pre_out[n] for n in ("delta_x", "vel_z",
+                                                "delta_s")},
+                       data=data, cleaned=cleaned, ck_power=p_clean)
+            if config.include_foregrounds:
+                out.update({n: pre_out[n] for n in ("fg_cube", "fg_map",
+                                                    "alpha_map")})
+        return out
+
+    def fn(generator: torch.Generator | None = None,
+           draws: dict | None = None, clock=None) -> dict:
+        return post(pre(generator, draws, clock), None, clock)
+
+    fn.pre = pre
+    fn.post = post
+    return fn
+
+
+def _realisations(generators, draws) -> list:
+    """(generator, draws) of each realisation of a stacked run."""
+    if draws is not None:
+        gens = [None] * len(draws) if generators is None else list(generators)
+        if len(gens) != len(draws):
+            raise ValueError("generators and draws differ in length")
+        return list(zip(gens, draws))
+    if generators is None:
+        raise ValueError("pass a sequence of torch.Generators or of `draws` "
+                         "dicts")
+    return [(g, None) for g in generators]
+
+
+def _stack(outs: list) -> dict:
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def make_chained_pipeline(grid: GridSpec, cosmology: Cosmology,
+                          config: PipelineConfig = PipelineConfig(),
+                          device="cpu", amp_half: torch.Tensor | None = None):
+    """``fn(generators=None, draws=None) -> dict``: K realisations, one
+    after another, with the outputs stacked on a leading axis (K is the
+    length of ``generators`` or ``draws``, sequences of what
+    ``make_pipeline``'s function takes).
+
+    fastbox_tpu scans its single pipeline in one program to amortise the
+    TPU's dispatch cost; here the chain is a Python loop over the same
+    function (CUDA-graph capture is later work, ROADMAP.md).  With
+    ``eigh_hoist='on'`` (and exact PCA, no ``debug_stages``) it runs two
+    passes around ONE batched ``torch.linalg.eigh`` of the K stacked
+    covariances (fastbox_tpu/pipeline.py:812-839): the same estimator, the
+    eigenvectors merely found together.
+    """
+    single = make_pipeline(grid, cosmology, config, device, amp_half)
+    use_hoist = (config.pca_exact and not config.debug_stages
+                 and config.eigh_hoist == "on")
+
+    def fn(generators=None, draws=None) -> dict:
+        runs = _realisations(generators, draws)
+        if not use_hoist:
+            return _stack([single(g, d) for g, d in runs])
+        pres = [single.pre(g, d, want_cov=True) for g, d in runs]
+        U = pca.top_eigvecs(torch.stack([p.pop("cov") for p in pres]),
+                            config.pca_nmodes)
+        return _stack([single.post(p, U[i]) for i, p in enumerate(pres)])
 
     return fn
 
 
-def make_chained_pipeline(*args, **kwargs):
-    """Not ported yet (ROADMAP.md A2g); on a GPU its role is CUDA-graph
-    capture of ``make_pipeline``'s function."""
-    raise NotImplementedError("make_chained_pipeline is not ported yet "
-                              "(ROADMAP.md A2g)")
+def make_ensemble_pipeline(grid: GridSpec, cosmology: Cosmology,
+                           config: PipelineConfig = PipelineConfig(),
+                           device="cpu", mesh=None,
+                           amp_half: torch.Tensor | None = None):
+    """Monte-Carlo ensemble: ``fn(generators=None, draws=None) -> dict`` of
+    B realisations with stacked outputs, each equal to its single call
+    (fastbox_tpu vmaps its pipeline; here it is a loop on one device).
+    A ``mesh`` (data parallelism over devices) belongs to the parallel/
+    slice and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded ensemble (mesh=...) is not ported: it belongs to the "
+            "parallel/ slice (ROADMAP.md A6)")
+    return make_chained_pipeline(
+        grid, cosmology, dataclasses.replace(config, eigh_hoist="off"),
+        device, amp_half)
 
 
-def make_ensemble_pipeline(*args, **kwargs):
-    """Not ported yet (ROADMAP.md A2g)."""
-    raise NotImplementedError("make_ensemble_pipeline is not ported yet "
-                              "(ROADMAP.md A2g)")
+def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
+                        config_fast: PipelineConfig,
+                        config_ref: PipelineConfig | None = None,
+                        seeds=(5000, 5001, 5002, 5003, 5004, 5005, 5006,
+                               5007),
+                        device="cpu", amp_half: torch.Tensor | None = None):
+    """The additive per-bin bias of ``config_fast``'s cleaned P(k) against
+    ``config_ref``'s: ``mean(pk_fast - pk_ref)`` over realisations drawn
+    from ``torch.Generator``s seeded with ``seeds`` (keep them disjoint from
+    science seeds), as a tuple for ``dataclasses.replace(config_fast,
+    pk_debias=...)`` (fastbox_tpu/pipeline.py:852-885).
+
+    fastbox_tpu's default reference restores its DFT precision tiers; the
+    port ignores those knobs, so ``config_ref`` defaults to ``config_fast``
+    with ``pk_debias=None``, and the default calibration is all zeros.
+    """
+    if config_ref is None:
+        config_ref = dataclasses.replace(config_fast, pk_debias=None)
+    config_fast = dataclasses.replace(config_fast, pk_debias=None)
+    fn_fast = make_pipeline(grid, cosmology, config_fast, device, amp_half)
+    fn_ref = make_pipeline(grid, cosmology, config_ref, device, amp_half)
+    diffs = []
+    for seed in seeds:
+        pf, pr = (f(torch.Generator(device=device).manual_seed(seed))
+                  ["pk_cleaned"].double().cpu().numpy()
+                  for f in (fn_fast, fn_ref))
+        diffs.append(pf - pr)
+    return tuple(float(v) for v in np.mean(diffs, axis=0))

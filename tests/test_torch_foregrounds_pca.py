@@ -103,3 +103,21 @@ def test_pca_filter_matches_jax(rng, nmodes):
     cleaned, U, amps = pca_filter(T(cube), nmodes, return_filter=True)
     assert U.shape == (N, nmodes) and amps.shape == (nmodes, N * N)
     torch.testing.assert_close(cleaned, got, rtol=0, atol=0)
+
+
+def test_top_eigvecs_decomposes_in_f64(rng):
+    """A float32 covariance is decomposed in float64 and its eigenvectors
+    come back in float32; a batch gives each matrix's single result."""
+    from fastbox_tpu_torch.filters.pca import covariance, top_eigvecs
+
+    cubes = [T(rng.standard_normal((N, N, N)) * np.linspace(1, 5, N))
+             for _ in range(2)]
+    covs = torch.stack([covariance(c) for c in cubes]).float()
+    U = top_eigvecs(covs[0], 4)
+    assert U.dtype == torch.float32 and U.shape == (N, 4)
+    want = torch.flip(torch.linalg.eigh(covs[0].double())[1], (-1,))[:, :4]
+    torch.testing.assert_close(U, want.float(), rtol=0, atol=0)
+    batched = top_eigvecs(covs, 4)
+    for i in range(2):
+        torch.testing.assert_close(batched[i], top_eigvecs(covs[i], 4),
+                                   rtol=0, atol=0)

@@ -173,10 +173,7 @@ def cosmo_port():
 
 
 @pytest.mark.parametrize("knob, value", [
-    ("noise_scheme", "rows"), ("pallas_draw", "on"), ("fft_pair", True),
-    ("eigh_hoist", "on"), ("pca_exact", False), ("draw_method", "box_muller"),
-    ("pk_debias", (0.0,)), ("beam_dish_m", 6.0), ("kpar_min", 0.01),
-    ("pallas_pk", "v2t"), ("pallas_pk", "on"), ("pallas_pk", "off"),
+    ("noise_scheme", "rows"), ("fft_pair", True), ("pallas_pk", "v2t"),
     ("threefry_noise", True), ("draw_dtype", "float32"),
     ("rsd_method", "nearest"),
 ])
@@ -185,13 +182,33 @@ def test_unported_knobs_raise(knob, value):
         PipelineConfig(**{knob: value})
 
 
-def test_precision_knobs_accepted_and_non_cubic_raises(cosmo_port):
-    PipelineConfig(mm3d_precision="DEFAULT", vel_precision="HIGHEST",
-                   dx_precision="HIGH", fwd_precision="HIGH",
-                   pca_precision=None)
+def test_precision_knobs_accepted_and_ignored(cosmo_port):
+    """The TPU's MXU precision tiers have no meaning here: accepted, and
+    the run is bitwise the default one."""
+    grid = GridSpec.create(box_scale=BOX, nsamp=16, redshift=Z)
+    cfg = PipelineConfig(dtype="float64", mm3d_precision="DEFAULT",
+                         vel_precision="HIGHEST", dx_precision="HIGH",
+                         fwd_precision="HIGH", pca_precision=None)
+    a = make_pipeline(grid, cosmo_port, cfg)(torch.Generator().manual_seed(3))
+    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))(
+        torch.Generator().manual_seed(3))
+    for k in ("pk_cleaned", "pk_density", "sigma_data"):
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, equal_nan=True)
+
+
+def test_v2_on_a_non_cubic_box_warns_and_runs(cosmo_port):
+    """As fastbox_tpu (pipeline.py:389-400): a forced 'v2' off a cube warns
+    and takes the v1 reduction (K5), with the same result as 'auto'."""
     grid = GridSpec.create(box_scale=(1e3, 1e3, 2e3), nsamp=16, redshift=Z)
-    with pytest.raises(NotImplementedError):
-        make_pipeline(grid, cosmo_port)
+    with pytest.warns(UserWarning, match="v1 kernel"):
+        fn = make_pipeline(grid, cosmo_port,
+                           PipelineConfig(dtype="float64", pallas_pk="v2"))
+    a = fn(torch.Generator().manual_seed(4))
+    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))(
+        torch.Generator().manual_seed(4))
+    assert torch.isfinite(a["pk_cleaned"]).sum() >= 10
+    for k in ("pk_cleaned", "pk_density"):
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, equal_nan=True)
 
 
 def test_stage_clock_marks_every_stage(cosmo_port):
