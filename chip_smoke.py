@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of fastbox_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase below
+    python3 chip_smoke.py --step-1024   # only: does a 1024^3 step fit?
 
 from the root of a checkout, on a machine with a CUDA GPU (written for an
 H100, sm_90a) and the CUDA toolkit.  It exits non-zero, printing no result,
@@ -9,7 +10,7 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K6, K9, K11) from fastbox_tpu_torch/csrc (timed);
+  2. build the kernels (K1-K9, K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
      times (median of 11); K11 (lattice CIC paint, gather, three-mesh
@@ -17,7 +18,10 @@ failure:
      scatter and gather; K5 on the anisotropic 256^3 half spectra and K6 on
      a 256^3 cube, also in f64 against an f64 index_add_ reduction; K9a/b
      in supplied mode bitwise, in generated mode by the moments of the
-     normals;
+     normals; K7 at bands 2 and 4 in f32 and f64.  Each kernel's row also
+     carries its bound (bytes or operations over the H100's published
+     peaks) and, where one PyTorch call computes the same function, that
+     call's time (library_ms);
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
@@ -34,7 +38,16 @@ failure:
      2 Gpc box); the full-spectrum estimator binned_power_spectrum (K6) on a
      realise_density field; then the truth check of the anisotropic 256^3
      box against the port on the CPU in f64 and in f32, bin by bin;
-  7. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
+  7. the parallel/ slice on a one-rank ('ens' 1, 'space' 1) mesh under
+     NCCL: the sharded ensemble step at 256^3 with B = 8 and at 512^3 with
+     B = 2 (launch counters reset just before and read just after: K8, K4
+     and K1 must launch), at sigma_NL = 6000 km/s (K3), K8 against its twin
+     on the step's sorted nodes, the step's remap through K7 (the batched
+     remap with unwrapped coordinates, counted), the step against the
+     single pipeline in noise_scheme='rows' on the same seeds,
+     make_ensemble_pipeline over the mesh against the mesh-less call
+     (bitwise), and rsd_method='nearest';
+  8. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
      4 Gpc box, z 15 -> 0 in 16 steps, lattice_B=3, spectral gradient, f32):
      three realisations with the kernels (one with keep_velocities=True and
      per-component gathers), then 512^3 in the same box and in an 8 Gpc box,
@@ -62,6 +75,12 @@ BOX, Z = 4e3, 0.8
 ANISO_BOX = (4e3, 4e3, 2e3)   # a 4 x 4 Gpc footprint, 2 Gpc deep
 N_MAIN, N_BIG, N_ENS = 256, 512, 128   # bench.py's sizes; the ensemble's
 REPS = 11
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM
+# 3.35 TB/s; 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the
+# tensor cores.  The bounds count each input read once, each output written
+# once, and the arithmetic per element written beside each kernel.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.float32: 67e12, torch.float64: 34e12}
 KERNELS = {
     "add_scaled_normal": ("fastbox_tpu_torch/csrc/noise.cu",
                           "fastbox_tpu/ops/pallas/noise.py:94"),
@@ -85,6 +104,10 @@ KERNELS = {
                           "fastbox_tpu/ops/pallas/half_draw.py:148"),
     "colored_half_draw_vz": ("fastbox_tpu_torch/csrc/half_draw.cu",
                              "fastbox_tpu/ops/pallas/half_draw.py:100"),
+    "rsd_bracket_interp": ("fastbox_tpu_torch/csrc/rsd_fused.cu",
+                           "fastbox_tpu/ops/pallas/rsd_fused.py:154"),
+    "banded_interp": ("fastbox_tpu_torch/csrc/banded_interp.cu",
+                      "fastbox_tpu/ops/pallas/banded_interp.py:65"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -98,6 +121,9 @@ K11_EXACT_BOUND = 1e-12
 # millions of terms one after another: the sum of n positive terms in that
 # order is within n unit roundoffs of exact.
 F64_SUM_BOUND = 2.0 ** -53
+# K7 and K8 sum in their twins' order with explicit rounding: equal but for
+# a reordering of a few terms (a few ulp of the largest value).
+K7_K8_TWIN_BOUND = 1e-6
 # Per-bin truth bounds, f32 on the card against f64 on the CPU, same
 # draws.  pk_cleaned's is a sanity bound: the clean's 4th and 5th
 # eigenvalues lie within ~1% of each other, which amplifies f32 rounding of
@@ -135,6 +161,29 @@ def norm_err(got, want) -> float:
     pointwise relative error meaningless)."""
     return ((got.double() - want.double()).abs().max()
             / want.double().abs().max()).item()
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def roofline(n_bytes: float, ops: float, dtype=torch.float32) -> dict:
+    """bound_ms: the larger of the bytes a call must move (each input read
+    once, each output written once) over the card's memory rate and its
+    operations over the card's peak rate for ``dtype``; bound_by names it."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def index_add_ms(idx, terms, nb: int) -> float:
+    """library_ms of a binned reduction: one ``index_add_`` of the stacked
+    per-mode terms into ``nb`` bins, on bin indices computed beforehand."""
+    src = torch.stack([t.reshape(-1) for t in terms], dim=1)
+    return median_ms(lambda: torch.zeros((nb, src.shape[1]), dtype=src.dtype,
+                                         device=src.device)
+                     .index_add_(0, idx, src))
 
 
 def rsd_inputs(grid, cosmo, cells: float, dev, seed: int):
@@ -199,8 +248,11 @@ def phase_k1(dev) -> dict:
         x, scale, seed=k.draw_seed(gen, dev), return_max=True))
     plain_ms = median_ms(lambda: k.add_scaled_normal_plain(
         x, scale, generator=gen, return_max=True))
+    # x + s n: 2 operations per element (the draw's own work not counted);
+    # no single library call draws the normals and scales them in
     return dict(name="add_scaled_normal", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=None,
+                **roofline(2 * nbytes(x) + nbytes(scale) + 4, 2 * x.numel()))
 
 
 def phase_k2(dev, grid, cosmo) -> dict:
@@ -233,8 +285,12 @@ def phase_k2(dev, grid, cosmo) -> dict:
     ms = median_ms(lambda: k.rsd_remap_wrap_cuda(vals, vel, z, fill, wrap, 2))
     plain_ms = median_ms(lambda: k.rsd_remap_wrap_plain(vals, vel, z, fill,
                                                         wrap, 2))
+    # per target: the wrap (4), two one-sided selects over 6B+4 offsets (4
+    # each) and the interpolation (5), at band 2
     return dict(name="rsd_remap_wrap", max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=None,
+                **roofline(nbytes(vals, vel, z, fill, wrap, vals),
+                           vals.numel() * (4 + 4 * (6 * 2 + 4) + 5)))
 
 
 def phase_k3(dev, grid, cosmo) -> dict:
@@ -252,8 +308,12 @@ def phase_k3(dev, grid, cosmo) -> dict:
     check(e <= 1e-5, f"K3: {e}")
     ms = median_ms(lambda: k.interp_sorted_cuda(ss, vv, z, fill))
     plain_ms = median_ms(lambda: k.interp_sorted_plain(ss, vv, z, fill))
+    # per target: a bisection over C nodes and the interpolation
+    steps = int(np.ceil(np.log2(ss.shape[1])))
     return dict(name="interp_sorted", max_abs_err=(got - want).abs().max()
-                .item(), ms=ms, plain_ms=plain_ms)
+                .item(), ms=ms, plain_ms=plain_ms, library_ms=None,
+                **roofline(nbytes(ss, vv, z, fill, got),
+                           got.numel() * (steps + 5)))
 
 
 def phase_k4(dev, grid) -> dict:
@@ -287,8 +347,17 @@ def phase_k4(dev, grid) -> dict:
     plain_ms = median_ms(lambda: k.binned_pk_half_dual_v2_plain(p1, p2,
                                                                 *args))
     err = max((a.double() - b).abs().max().item() for a, b in zip(got, ref))
+    bins = spectra.default_kbins(grid, 20)
+    idx = spectra._bin_index(grid, bins, thr.cpu().numpy(), H, torch.float32,
+                             dev)
+    w = wz[None, None, :]
+    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2), thr.numel() + 1)
+    # per mode: the lattice index sum and bisection (~7), three weighted
+    # terms and their sums (6)
     return dict(name="binned_pk_half_dual_v2", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(nbytes(p1, p2, *args) + 3 * nbytes(got[0]),
+                           p1.numel() * 13))
 
 
 def phase_k11(dev) -> list[dict]:
@@ -359,8 +428,47 @@ def phase_k11(dev) -> list[dict]:
             times[(name, B)] = (median_ms(kern), median_ms(plain))
             log(f"K11 {name} B={B}: kernel {times[(name, B)][0]:.4f} ms, "
                 f"plain {times[(name, B)][1]:.4f} ms")
+    # library: the paint as one index_add_ of the 8 corner weights on
+    # corner indices computed beforehand, at B = 3's displacements
+    idx8, w8 = cic_corners(d, N)
+    lib_paint = median_ms(lambda: torch.zeros(N ** 3, device=dev)
+                          .index_add_(0, idx8, w8))
+    del idx8, w8
+    n3 = N ** 3
+    # per particle: 8 corner weights (3 products each) and 8 adds
+    bounds = {"cic_paint_lattice": roofline(4 * 4 * n3, 32 * n3),
+              "cic_gather_lattice": roofline(5 * 4 * n3, 32 * n3),
+              "cic_gather3_lattice": roofline(9 * 4 * n3, 3 * 32 * n3)}
     return [dict(name=n, max_abs_err=max(errs[n]), ms=times[(n, 3)][0],
-                 plain_ms=times[(n, 3)][1]) for n in errs]
+                 plain_ms=times[(n, 3)][1],
+                 library_ms=lib_paint if n == "cic_paint_lattice" else None,
+                 **bounds[n]) for n in errs]
+
+
+def cic_corners(d, N: int) -> tuple:
+    """(flat cell index, weight) of the 8 CIC corners of every particle
+    at lattice site + d, periodic: the operands of an index_add_ paint."""
+    dev = d[0].device
+    site = torch.arange(N, device=dev, dtype=d[0].dtype)
+    lo, fr = [], []
+    for axis, da in enumerate(d):
+        shape = [1, 1, 1]
+        shape[axis] = N
+        p = site.reshape(shape) + da
+        i0 = torch.floor(p)
+        fr.append(p - i0)
+        lo.append(i0.long())
+    idx, w = [], []
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                ix, iy, iz = ((lo[a] + c) % N for a, c in
+                              enumerate((cx, cy, cz)))
+                idx.append(((ix * N + iy) * N + iz).reshape(-1))
+                w.append(((fr[0] if cx else 1 - fr[0])
+                          * (fr[1] if cy else 1 - fr[1])
+                          * (fr[2] if cz else 1 - fr[2])).reshape(-1))
+    return torch.cat(idx), torch.cat(w)
 
 
 def rel_by_bin(got, want) -> float:
@@ -419,8 +527,17 @@ def phase_k5(dev) -> dict:
     plain_ms = median_ms(lambda: k.binned_pk_half_dual_plain(p1, p2, *args))
     err = max((a.double() - b.double()).abs().max().item()
               for a, b in zip(got, twin))
+    kx2, ky2, kz2h, _, e2 = args
+    idx = k.bin_index_sq(kx2, ky2, kz2h, e2)
+    w = torch.broadcast_to(wz[None, None, :], p1.shape)
+    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2, w),
+                          e2.numel() + 1)
+    # per mode: the squared |k| (2), a bisection over the edges (~7), four
+    # weighted terms and their sums (8)
     return dict(name="binned_pk_half_dual", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(nbytes(p1, p2, *args) + 4 * nbytes(got[0]),
+                           p1.numel() * 17))
 
 
 def phase_k6(dev) -> dict:
@@ -450,8 +567,14 @@ def phase_k6(dev) -> dict:
     plain_ms = median_ms(lambda: k.binned_pk_full_plain(pk, *args))
     err = max((a.double() - b.double()).abs().max().item()
               for a, b in zip(got, twin))
+    kx2, ky2, kz2, e2 = args
+    lib_ms = index_add_ms(k.bin_index_sq(kx2, ky2, kz2, e2),
+                          (pk, pk * pk, torch.ones_like(pk)), e2.numel() + 1)
+    # per mode: the squared |k| (2), a bisection (~7), three sums (4)
     return dict(name="binned_pk_full", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(nbytes(pk, *args) + 3 * nbytes(got[0]),
+                           pk.numel() * 13))
 
 
 def phase_k9(dev) -> list[dict]:
@@ -530,8 +653,16 @@ def phase_k9(dev) -> list[dict]:
              lambda: k.colored_half_draw_vz(amp, *vecs, generator=gen),
              lambda: k.colored_half_draw_vz_plain(amp, *vecs,
                                                   generator=gen))):
+        # reads amp (and the three vz vectors), writes delta_k (and vz_k);
+        # per mode two normals (~40 for Philox and Box-Muller) and the
+        # colouring (2, and ~8 more for the vz weight)
+        vz = name.endswith("_vz")
+        n_bytes = nbytes(amp) + (2 if vz else 1) * 2 * nbytes(amp) \
+            + (nbytes(*vecs) if vz else 0)
         out.append(dict(name=name, max_abs_err=errs[name],
-                        ms=median_ms(kern), plain_ms=median_ms(plain)))
+                        ms=median_ms(kern), plain_ms=median_ms(plain),
+                        library_ms=None,
+                        **roofline(n_bytes, amp.numel() * (50 if vz else 42))))
     return out
 
 
@@ -919,9 +1050,10 @@ def truth_aniso(dev, cosmo_cpu, cosmo) -> None:
     draws = draw_inputs(ga, torch.Generator().manual_seed(8), torch.float64)
     gpu = make_pipeline(ga, cosmo, PipelineConfig(), device=dev)(draws=draws)
     t0 = time.perf_counter()
-    cpu64 = make_pipeline(ga, cosmo_cpu, PipelineConfig(dtype="float64"))(
-        draws=draws)
-    cpu32 = make_pipeline(ga, cosmo_cpu, PipelineConfig())(draws=draws)
+    cpu64 = make_pipeline(ga, cosmo_cpu, PipelineConfig(dtype="float64"),
+                          device="cpu")(draws=draws)
+    cpu32 = make_pipeline(ga, cosmo_cpu, PipelineConfig(),
+                          device="cpu")(draws=draws)
     log(f"anisotropic truth: the CPU f64 and f32 runs took "
         f"{time.perf_counter() - t0:.1f} s")
     full = populated_bins(ga, dev) & np.isfinite(cpu64["pk_density"].numpy())
@@ -954,6 +1086,280 @@ def truth_aniso(dev, cosmo_cpu, cosmo) -> None:
               f"anisotropic truth {name}, moved bin vs CPU f32: {m}")
 
 
+def phase_k7(dev, grid, cosmo) -> dict:
+    """K7 at the pipeline's (N^2, N) RSD shapes, bands 2 and 4, f32 and
+    f64, against its twin on coordinates wrapped beforehand."""
+    from fastbox_tpu_torch.ops.cuda import rsd_fused as k
+
+    errs, ms = [], {}
+    for band, cells in ((2, 1.9), (4, 3.9)):
+        vals, vel, z, fill, wrap, inv_hz, _ = rsd_inputs(grid, cosmo, cells,
+                                                         dev, seed=70 + band)
+        s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0], wrap[1]) \
+            + wrap[0]
+        for dt in (torch.float32, torch.float64):
+            args = tuple(t.to(dt).contiguous() for t in (s, vals, z, fill))
+            got = k.rsd_bracket_interp_cuda(*args, band)
+            want = k.rsd_bracket_interp_plain(*args, band)
+            e = norm_err(got, want)
+            log(f"K7 rsd_bracket_interp band {band} {dt}: vs twin {e:.3e} "
+                f"(bitwise equal: {torch.equal(got, want)})")
+            check(e <= K7_K8_TWIN_BOUND, f"K7 band {band} {dt}: {e}")
+            errs.append((got - want).abs().max().item())
+        args = (s, vals, z, fill, band)
+        ms[band] = (median_ms(lambda: k.rsd_bracket_interp_cuda(*args)),
+                    median_ms(lambda: k.rsd_bracket_interp_plain(*args)))
+        log(f"K7 band {band} f32: kernel {ms[band][0]:.4f} ms, plain "
+            f"{ms[band][1]:.4f} ms")
+    # per target: two one-sided selects over 6B+4 offsets (4 each) and the
+    # interpolation (5), at band 2
+    return dict(name="rsd_bracket_interp", max_abs_err=max(errs),
+                ms=ms[2][0], plain_ms=ms[2][1], library_ms=None,
+                **roofline(nbytes(s, vals, z, fill, vals),
+                           vals.numel() * (4 * (6 * 2 + 4) + 5)))
+
+
+def phase_k8(dev, ss, vv, z, fill) -> dict:
+    """K8 against its twin on the sorted nodes of a sharded step (M =
+    B N^2 lines of sight of N nodes, band 4)."""
+    from fastbox_tpu_torch.ops.cuda import banded_interp as k
+
+    got = k.banded_interp_cuda(ss, vv, z, fill, 4)
+    want = k.banded_interp_plain(ss, vv, z, fill, 4)
+    e = norm_err(got, want)
+    log(f"K8 banded_interp on the step's sorted nodes {tuple(ss.shape)}: vs "
+        f"twin {e:.3e} (bitwise equal: {torch.equal(got, want)})")
+    check(e <= K7_K8_TWIN_BOUND, f"K8 vs twin {e}")
+    err = (got - want).abs().max().item()
+    del want
+    ms = median_ms(lambda: k.banded_interp_cuda(ss, vv, z, fill, 4))
+    plain_ms = median_ms(lambda: k.banded_interp_plain(ss, vv, z, fill, 4))
+    # per target: 2 band segment terms of ~8 operations each
+    return dict(name="banded_interp", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **roofline(nbytes(ss, vv, z, fill, got), got.numel() * 64))
+
+
+def run_step(step, dev, label: str, seeds) -> tuple:
+    """One sharded step, timed on the host around a synchronise; returns
+    (outputs, wall seconds)."""
+    from fastbox_tpu_torch.timing import StageClock
+
+    clock = StageClock(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(seeds=seeds, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for key in ("pk_cleaned", "pk_density", "pk_cleaned_err"):
+        check(out[key].shape == (len(seeds), 19),
+              f"{label}: {key} shape {tuple(out[key].shape)}")
+    check(bool(torch.isfinite(out["sigma_data"]).all()),
+          f"{label}: sigma_data")
+    log(f"{label}: {wall * 1e3:.1f} ms, {wall * 1e3 / len(seeds):.2f} ms per "
+        f"realisation; stages ms "
+        + json.dumps({k: round(v, 2) for k, v in clock.ms().items()}))
+    return out, wall
+
+
+def phase_sharded(dev, cosmo, grid) -> tuple:
+    """The sharded ensemble step on a one-rank ('ens' 1, 'space' 1) mesh
+    under NCCL, and the rest of the parallel/ slice; returns (K7 and K8's
+    rows, the launches of each on its path)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import fastbox_tpu_torch.parallel.sharded as sharded
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.ops.rsd import remap_los_batched
+    from fastbox_tpu_torch.parallel import make_mesh
+    from fastbox_tpu_torch.parallel.mesh import init_single_rank
+    from fastbox_tpu_torch.pipeline import (PipelineConfig,
+                                            make_ensemble_pipeline,
+                                            make_pipeline)
+
+    _build.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    init_single_rank(dev, tempfile.mkdtemp(prefix="pg_",
+                                           dir=_build.BUILD_ROOT.parent))
+    mesh = make_mesh(device=dev)
+    log(f"mesh: {mesh}")
+    grid512 = GridSpec.create(box_scale=BOX, nsamp=N_BIG, redshift=Z)
+    step256 = sharded.make_sharded_ensemble_step(mesh, grid, cosmo,
+                                                 PipelineConfig(), dev)
+    step512 = sharded.make_sharded_ensemble_step(mesh, grid512, cosmo,
+                                                 PipelineConfig(), dev)
+    step_exact = sharded.make_sharded_ensemble_step(
+        mesh, grid, cosmo, PipelineConfig(sigma_nl=6000.0), dev)
+
+    # warm-up, keeping the RSD remap's inputs of one real step
+    remap = sharded.remap_los_batched
+    seen = {}
+
+    def keep(vals, s, z, fill, **kw):
+        seen.update(vals=vals, s=s, z=z, fill=fill, kw=kw)
+        return remap(vals, s, z, fill, **kw)
+
+    sharded.remap_los_batched = keep
+    try:
+        run_step(step256, dev, "sharded 256^3 B=8 warm-up", list(range(8)))
+    finally:
+        sharded.remap_los_batched = remap
+
+    def main_path():
+        torch.cuda.reset_peak_memory_stats()
+        out, wall = run_step(step256, dev, "sharded 256^3 B=8",
+                             list(range(100, 108)))
+        peak256 = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        run_step(step512, dev, "sharded 512^3 B=2 (first call)", [200, 201])
+        _, wall512 = run_step(step512, dev, "sharded 512^3 B=2", [202, 203])
+        peak512 = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, wall, peak256, wall512, peak512
+
+    (out, wall, peak256, wall512, peak512), counts = counted(
+        "the sharded step", ("banded_interp", "binned_pk_half_dual_v2",
+                             "add_scaled_normal"), main_path)
+    launches = {"banded_interp": counts["banded_interp"]}
+    log(f"sharded step on the one-rank mesh: 256^3 B=8 "
+        f"{wall * 1e3 / 8:.2f} ms per realisation (peak device memory "
+        f"{peak256:.2f} GiB); 512^3 B=2 {wall512 * 1e3 / 2:.2f} ms per "
+        f"realisation (peak {peak512:.2f} GiB); launches K8 "
+        f"{counts.get('banded_interp', 0)}, K3 "
+        f"{counts.get('interp_sorted', 0)}, K4 "
+        f"{counts.get('binned_pk_half_dual_v2', 0)}, K1 "
+        f"{counts.get('add_scaled_normal', 0)}")
+    ratio = mid_k_ratio([{"k": out["k"], "pk_density": p}
+                         for p in out["pk_density"]], cosmo, grid)
+    log("sharded 256^3: mean pk_density/P_nl over 8 realisations on the "
+        "mid-k bins: " + " ".join(f"{v:.3f}" for v in ratio))
+    check(ratio.size >= 3 and bool(np.all((ratio > 0.6) & (ratio < 1.6))),
+          f"sharded: pk_density/P_nl {ratio}")
+
+    _, counts = counted("the sharded step, sigma_nl=6000 (exact tier)",
+                        ("interp_sorted",),
+                        lambda: run_step(step_exact, dev,
+                                         "sharded 256^3 B=8 sigma_nl=6000",
+                                         list(range(300, 308))))
+
+    # K8 on the step's sorted nodes; then the same remap through K7 with
+    # the unwrapped coordinates (the batched remap's fused branch)
+    vals, s, z, fill = (seen[k] for k in ("vals", "s", "z", "fill"))
+    ss, order = torch.sort(s, dim=1, stable=True)
+    vv = torch.gather(vals, 1, order)
+    del order
+    k8 = phase_k8(dev, ss, vv, z, fill)
+    via_k8 = remap(vals, s, z, fill, **seen["kw"])
+    del ss, vv
+    length = float(z[-1] - z[0])
+    u = s + length * torch.round((z[None, :] - s) / length)
+    via_k7, counts = counted(
+        "remap_los_batched(s_unwrapped=...) on the step's inputs",
+        ("rsd_bracket_interp",),
+        lambda: remap_los_batched(vals, s, z, fill, ztarget_np=np.asarray(
+            grid.z), s_unwrapped=u))
+    launches["rsd_bracket_interp"] = counts["rsd_bracket_interp"]
+    off = ((via_k7 - via_k8).abs() > 1e-5 * via_k8.abs().max()).sum().item()
+    log(f"the step's remap through K7 vs through the sort and K8: {off} of "
+        f"{via_k8.numel()} values differ (ties with a periodic image)")
+    check(off <= 1e-6 * via_k8.numel(), f"K7 vs K8 remap: {off} differ")
+    del vals, s, u, via_k7, via_k8, seen
+
+    # the step against the single pipeline in rows mode, same seeds
+    seeds = list(range(400, 408))
+    fn_rows = make_pipeline(grid, cosmo, PipelineConfig(noise_scheme="rows"),
+                            device=dev)
+    got = step256(seeds=seeds)
+    singles, walls = [], []
+    for sd in seeds:
+        one, ms = wall_ms(lambda: fn_rows(seed=sd))
+        singles.append(one)
+        walls.append(ms)
+    full = populated_bins(grid, dev)
+    worst = {}
+    for name in ("pk_density", "pk_cleaned", "sigma_data"):
+        rel = [np.abs(got[name][i].double().cpu().numpy()
+                      / one[name].double().cpu().numpy() - 1)
+               for i, one in enumerate(singles)]
+        if name != "sigma_data":
+            rel = [r[full] for r in rel]
+        worst[name] = float(np.max(rel))
+        log(f"step vs single rows pipeline, {name} per-bin rel diff, "
+            "realisation 0: " + " ".join(f"{v:.2e}" for v in
+                                          np.atleast_1d(rel[0]))
+            + f"; largest over 8: {worst[name]:.3e}")
+    check(worst["pk_density"] <= 1e-5,
+          f"step vs rows pipeline pk_density {worst['pk_density']}")
+    check(worst["pk_cleaned"] <= TRUTH_BOUND["pk_cleaned"],
+          f"step vs rows pipeline pk_cleaned {worst['pk_cleaned']}")
+    log(f"single pipeline, noise_scheme='rows', 256^3: "
+        f"{statistics.median(walls[1:]):.2f} ms per realisation")
+
+    # make_ensemble_pipeline over the mesh against the mesh-less call
+    g128 = GridSpec.create(box_scale=2e3, nsamp=N_ENS, redshift=Z)
+    gens = lambda: [torch.Generator(device=dev).manual_seed(900 + i)
+                    for i in range(8)]
+    ens_mesh = make_ensemble_pipeline(g128, cosmo, PipelineConfig(),
+                                      device=dev, mesh=mesh)
+    ens = make_ensemble_pipeline(g128, cosmo, PipelineConfig(), device=dev)
+    a, ms_mesh = wall_ms(lambda: ens_mesh(gens()))
+    b, ms_ens = wall_ms(lambda: ens(gens()))
+    same = all(torch.equal(a[k].nan_to_num(), b[k].nan_to_num()) for k in b)
+    log(f"ensemble 8 x 128^3 over the mesh: {ms_mesh / 8:.2f} ms per "
+        f"realisation ({ms_ens / 8:.2f} without); bitwise equal to the "
+        f"mesh-less call: {same}")
+    check(same, "make_ensemble_pipeline(mesh=...) differs from mesh=None")
+
+    # rsd_method='nearest', one 256^3 realisation
+    fn_near = make_pipeline(grid, cosmo, PipelineConfig(rsd_method="nearest"),
+                            device=dev)
+    fn_near(torch.Generator(device=dev).manual_seed(1))
+    run_pipeline(fn_near, dev, "rsd_method='nearest' 256^3", grid,
+                 generator=torch.Generator(device=dev).manual_seed(2))
+    dist.destroy_process_group()
+    return [k8], launches
+
+
+def explore_1024(dev) -> None:
+    """``--step-1024``: one sharded step at 1024^3 with B = 1 on the
+    one-rank mesh, to see whether it fits the card: its wall time, peak
+    device memory (or the out-of-memory error) and launch counts.  Not a
+    check: it exits 0 either way."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.parallel import (make_mesh,
+                                            make_sharded_ensemble_step)
+    from fastbox_tpu_torch.parallel.mesh import init_single_rank
+    from fastbox_tpu_torch.pipeline import PipelineConfig
+
+    _build.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    init_single_rank(dev, tempfile.mkdtemp(prefix="pg_",
+                                           dir=_build.BUILD_ROOT.parent))
+    cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
+    grid = GridSpec.create(box_scale=BOX, nsamp=1024, redshift=Z)
+    step = make_sharded_ensemble_step(make_mesh(device=dev), grid, cosmo,
+                                      PipelineConfig(), dev)
+    for i in range(2):
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            run_step(step, dev, f"sharded 1024^3 B=1 call {i}", [i])
+        except torch.OutOfMemoryError as e:
+            log(f"sharded 1024^3 B=1: out of memory ({str(e)[:200]})")
+            break
+        finally:
+            log(f"peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                f"launch counts {json.dumps(_build.launch_counts())}")
+    dist.destroy_process_group()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -984,13 +1390,17 @@ def main() -> None:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
 
+    if "--step-1024" in sys.argv[1:]:
+        explore_1024(dev)
+        return
     grid = GridSpec.create(box_scale=BOX, nsamp=256, redshift=Z)
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
     kernels = [phase_k1(dev), phase_k2(dev, grid, cosmo),
                phase_k3(dev, grid, cosmo), phase_k4(dev, grid)]
     k11 = phase_k11(dev)
     others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
-    for r in kernels + k11 + others:
+    k7 = phase_k7(dev, grid, cosmo)
+    for r in kernels + k11 + others + [k7]:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -1030,8 +1440,8 @@ def main() -> None:
     gpu = fn256(draws=draws)
     cosmo_cpu = build_cosmology(COSMO, redshift=Z)
     t0 = time.perf_counter()
-    cpu = make_pipeline(grid, cosmo_cpu, PipelineConfig(dtype="float64"))(
-        draws=draws)
+    cpu = make_pipeline(grid, cosmo_cpu, PipelineConfig(dtype="float64"),
+                        device="cpu")(draws=draws)
     log(f"truth: f64 CPU reference took {time.perf_counter() - t0:.1f} s")
     full = populated_bins(grid, dev)
     for name, bound in TRUTH_BOUND.items():
@@ -1047,13 +1457,16 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     truth_aniso(dev, cosmo_cpu, cosmo)
 
+    k8, launches = phase_sharded(dev, cosmo, grid)
+    for r in [k7] + k8:
+        r["launches"] = launches[r["name"]]
     phase_cola(dev, k11)
-    kernels += k11 + others
+    kernels += k11 + others + [k7] + k8
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,13 @@
-// K2: wrap-fused periodic bracket interpolation for the RSD remap.
+// K2: wrap-fused periodic bracket interpolation for the RSD remap, and K7,
+// the same scan on coordinates the caller already wrapped.
 //
-// Replaces fastbox_tpu/ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas
+// K2 replaces fastbox_tpu/ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas
 // (_kernel_wrap -> _bracket_interp), the band-2 and band-4 tiers of
-// ops/rsd.py::_remap_wrap_tiered.  Per line of sight (row) of C cells:
+// ops/rsd.py::_remap_wrap_tiered.  K7 replaces rsd_bracket_interp_pallas
+// (_kernel -> _bracket_interp), the fused branch of
+// ops/rsd.py::remap_los_batched; it reads s instead of computing it from
+// the velocity (the template flag kWrap).  Per line of sight (row) of C
+// cells:
 //   s = (z - v/H - z0) mod L + z0          (floor mod, torch.remainder)
 //   out(t) = linear interp between the bracket nodes of z_t, found by a
 //            circular scan over lane offsets o = -3B-1 .. 3B+2,
@@ -36,8 +41,10 @@ struct Max {
   __device__ T operator()(T a, T b) const { return b > a ? b : a; }
 };
 
-template <typename T>
-__global__ void rsd_remap_wrap_kernel(const T* __restrict__ vals, const T* __restrict__ vel,
+// coord: the velocity (kWrap, K2) or the wrapped coordinate (K7); wrap is
+// read only with kWrap.
+template <typename T, bool kWrap>
+__global__ void bracket_interp_kernel(const T* __restrict__ vals, const T* __restrict__ coord,
                                       const T* __restrict__ z, const T* __restrict__ fill,
                                       const T* __restrict__ wrap, T* __restrict__ out,
                                       int64_t M, int C, int band) {
@@ -45,16 +52,26 @@ __global__ void rsd_remap_wrap_kernel(const T* __restrict__ vals, const T* __res
   T* s_sh = reinterpret_cast<T*>(smem_raw);
   T* v_sh = s_sh + C;
   __shared__ T scratch[32];
-  const T z0 = wrap[0], length = wrap[1], inv_hz = wrap[2];
+  T z0 = T(0), length = T(0), inv_hz = T(0);
+  if (kWrap) {
+    z0 = wrap[0];
+    length = wrap[1];
+    inv_hz = wrap[2];
+  }
   const T big = fbx::Limits<T>::max() / T(4);
 
   for (int64_t row = blockIdx.x; row < M; row += gridDim.x) {
     const T* vr = vals + row * C;
-    const T* wr = vel + row * C;
+    const T* wr = coord + row * C;
     T lmin = fbx::Limits<T>::inf(), lmax = -fbx::Limits<T>::inf();
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const T u = fbx::sub_rn(z[c], fbx::mul_rn(wr[c], inv_hz));
-      const T s = fbx::add_rn(fbx::floor_mod(fbx::sub_rn(u, z0), length), z0);
+      T s;
+      if (kWrap) {
+        const T u = fbx::sub_rn(z[c], fbx::mul_rn(wr[c], inv_hz));
+        s = fbx::add_rn(fbx::floor_mod(fbx::sub_rn(u, z0), length), z0);
+      } else {
+        s = wr[c];
+      }
       s_sh[c] = s;
       v_sh[c] = vr[c];
       lmin = s < lmin ? s : lmin;
@@ -89,20 +106,20 @@ __global__ void rsd_remap_wrap_kernel(const T* __restrict__ vals, const T* __res
   }
 }
 
-template <typename T>
-cudaError_t launch(const T* vals, const T* vel, const T* z, const T* fill, const T* wrap, T* out,
+template <typename T, bool kWrap>
+cudaError_t launch(const T* vals, const T* coord, const T* z, const T* fill, const T* wrap, T* out,
                    int64_t M, int64_t C, int band, cudaStream_t stream) {
   const int threads = C >= 256 ? 256 : static_cast<int>((C + 31) / 32 * 32);
   const int64_t blocks = M < (1 << 20) ? M : (1 << 20);
   const size_t smem = 2 * static_cast<size_t>(C) * sizeof(T);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rsd_remap_wrap_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(bracket_interp_kernel<T, kWrap>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  rsd_remap_wrap_kernel<T><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      vals, vel, z, fill, wrap, out, M, static_cast<int>(C), band);
+  bracket_interp_kernel<T, kWrap><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      vals, coord, z, fill, wrap, out, M, static_cast<int>(C), band);
   return cudaGetLastError();
 }
 
@@ -113,11 +130,28 @@ cudaError_t launch(const T* vals, const T* vel, const T* z, const T* fill, const
 extern "C" int fbx_rsd_remap_wrap_f32(const float* vals, const float* vel, const float* z,
                                       const float* fill, const float* wrap, float* out, int64_t M,
                                       int64_t C, int band, void* stream) {
-  return launch(vals, vel, z, fill, wrap, out, M, C, band, static_cast<cudaStream_t>(stream));
+  return launch<float, true>(vals, vel, z, fill, wrap, out, M, C, band,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_rsd_remap_wrap_f64(const double* vals, const double* vel, const double* z,
                                       const double* fill, const double* wrap, double* out,
                                       int64_t M, int64_t C, int band, void* stream) {
-  return launch(vals, vel, z, fill, wrap, out, M, C, band, static_cast<cudaStream_t>(stream));
+  return launch<double, true>(vals, vel, z, fill, wrap, out, M, C, band,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// K7.  s, v, out: (M, C) contiguous, s already wrapped; z: (C,); fill: (M,).
+extern "C" int fbx_rsd_bracket_interp_f32(const float* s, const float* v, const float* z,
+                                          const float* fill, float* out, int64_t M, int64_t C,
+                                          int band, void* stream) {
+  return launch<float, false>(v, s, z, fill, nullptr, out, M, C, band,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fbx_rsd_bracket_interp_f64(const double* s, const double* v, const double* z,
+                                          const double* fill, double* out, int64_t M, int64_t C,
+                                          int band, void* stream) {
+  return launch<double, false>(v, s, z, fill, nullptr, out, M, C, band,
+                               static_cast<cudaStream_t>(stream));
 }

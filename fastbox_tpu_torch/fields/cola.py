@@ -30,6 +30,7 @@ import torch
 from scipy.integrate import quad
 
 from ..cosmology import background as bg
+from ..device import resolve
 from ..grid import GridSpec
 from ..ops.cuda import lattice_cic as k11
 from ..ops.painting import compensation
@@ -169,7 +170,7 @@ class ColaEngine:
 
     def __init__(self, grid: GridSpec, cosmology, redshift=None,
                  redshift_init: float = 15.0, n_steps: int | None = None,
-                 dtype=torch.float32, device="cpu",
+                 dtype=torch.float32, device=None,
                  keep_velocities: bool = True, force_factor: int = 1,
                  lattice_B: int | None = 3, lattice_impl: str = "auto",
                  gradient: str = "spectral",
@@ -177,7 +178,7 @@ class ColaEngine:
                  diagnostics: bool = False):
         if not grid.Lx == grid.Ly == grid.Lz:
             raise ValueError("COLA requires a cubic box")
-        self.device = device = torch.device(device)
+        self.device = device = resolve(device)
         if lattice_impl == "auto":
             lattice_impl = "cuda" if device.type == "cuda" else "plain"
         if lattice_impl not in ("plain", "cuda"):

@@ -4,11 +4,13 @@ One module per TPU kernel it replaces:
 
 ====================  ===================================================
 ``noise``             K1 ``ops/pallas/noise.py::add_scaled_normal_pallas``
-``rsd_fused``         K2 ``ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas``
+``rsd_fused``         K2 ``ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas``,
+                      K7 ``ops/pallas/rsd_fused.py::rsd_bracket_interp_pallas``
 ``rsd_interp``        K3 ``ops/pallas/rsd_interp.py::interp_sorted_pallas``
 ``binned_pk_v2``      K4 ``ops/pallas/binned_pk_v2.py::binned_pk_half_dual_pallas_v2``
 ``binned_pk``         K5 ``ops/pallas/binned_pk.py::binned_pk_half_dual_pallas``,
                       K6 ``ops/pallas/binned_pk.py::binned_pk_pallas``
+``banded_interp``     K8 ``ops/pallas/banded_interp.py::banded_interp_pallas``
 ``half_draw``         K9 ``ops/pallas/half_draw.py::colored_complex_normal_pallas``,
                       ``colored_complex_normal_vz_pallas``
 ``lattice_cic``       K11 ``ops/pallas/lattice_cic.py::cic_paint_lattice_pallas``,

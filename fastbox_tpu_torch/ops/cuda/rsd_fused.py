@@ -1,9 +1,10 @@
-"""K2: wrap-fused periodic bracket interpolation (csrc/rsd_fused.cu) and
-its plain twin.
+"""K2: wrap-fused periodic bracket interpolation, and K7: the same scan on
+coordinates already wrapped (csrc/rsd_fused.cu), with their plain twins.
 
-Counterpart of ``fastbox_tpu/ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas``;
-the module docstring there proves the scan window.  Exact whenever every
-node moved at most ``band`` cells: the caller checks max|v|/H <= band*dz.
+Counterparts of ``fastbox_tpu/ops/pallas/rsd_fused.py::rsd_remap_wrap_pallas``
+(K2) and ``rsd_bracket_interp_pallas`` (K7); the module docstring there
+proves the scan window.  Exact whenever every node moved at most ``band``
+cells: the caller checks max|v|/H <= band*dz.
 """
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ import torch
 from . import _build
 
 __all__ = ["rsd_remap_wrap", "rsd_remap_wrap_cuda", "rsd_remap_wrap_plain",
-           "wrap_params"]
+           "rsd_bracket_interp", "rsd_bracket_interp_cuda",
+           "rsd_bracket_interp_plain", "wrap_params"]
 
 NAME = "rsd_remap_wrap"
+NAME_K7 = "rsd_bracket_interp"
 
 
 def wrap_params(z0, length_z, inv_hz, dtype, device) -> torch.Tensor:
@@ -24,11 +27,17 @@ def wrap_params(z0, length_z, inv_hz, dtype, device) -> torch.Tensor:
 
 
 def rsd_remap_wrap_plain(vals, vel, ztarget, fill, wrap, band: int = 4):
-    """The bracket scan with ``torch.roll`` on the last axis."""
-    z = ztarget[None, :]
+    """The wrap, then the bracket scan of ``rsd_bracket_interp_plain``."""
     z0, length, inv_hz = wrap[0], wrap[1], wrap[2]
-    u = z - vel * inv_hz
+    u = ztarget[None, :] - vel * inv_hz
     s = torch.remainder(u - z0, length) + z0
+    return rsd_bracket_interp_plain(s, vals, ztarget, fill, band)
+
+
+def rsd_bracket_interp_plain(s, vals, ztarget, fill, band: int = 4):
+    """The bracket scan on wrapped coordinates ``s``, with ``torch.roll``
+    on the last axis."""
+    z = ztarget[None, :]
     big = torch.finfo(vals.dtype).max / 4
     s_lo = torch.full_like(s, -big)
     v_lo = torch.zeros_like(vals)
@@ -73,6 +82,36 @@ def rsd_remap_wrap_cuda(vals, vel, ztarget, fill, wrap, band: int = 4):
     _build.check(err, NAME)
     _build.count_launch(NAME)
     return out
+
+
+def rsd_bracket_interp_cuda(s, vals, ztarget, fill, band: int = 4):
+    if s.dim() != 2:
+        raise ValueError(f"{NAME_K7}: s must be 2-D (M, C)")
+    M, C = s.shape
+    if vals.shape != s.shape or ztarget.shape != (C,) or fill.shape != (M,):
+        raise ValueError(f"{NAME_K7}: shapes s/vals (M, C), ztarget (C,), "
+                         "fill (M,) required")
+    if band < 0:
+        raise ValueError(f"{NAME_K7}: band must be >= 0")
+    _build.require_cuda(NAME_K7, s, vals, ztarget, fill, dtype=s.dtype)
+    out = torch.empty_like(s)
+    fn = _build.kernel_fn("fbx_rsd_bracket_interp", s.dtype)
+    with torch.cuda.device(s.device):
+        err = fn(s.data_ptr(), vals.data_ptr(), ztarget.data_ptr(),
+                 fill.data_ptr(), out.data_ptr(), M, C, int(band),
+                 _build.stream_ptr(s.device))
+    _build.check(err, NAME_K7)
+    _build.count_launch(NAME_K7)
+    return out
+
+
+def rsd_bracket_interp(s, vals, ztarget, fill, band: int = 4):
+    """K7 on CUDA tensors, the plain twin on CPU tensors."""
+    if s.device.type == "cuda":
+        return rsd_bracket_interp_cuda(s, vals, ztarget, fill, band)
+    if s.device.type == "cpu":
+        return rsd_bracket_interp_plain(s, vals, ztarget, fill, band)
+    raise ValueError(f"{NAME_K7}: unsupported device {s.device}")
 
 
 def rsd_remap_wrap(vals, vel, ztarget, fill, wrap, band: int = 4):

@@ -1,30 +1,41 @@
 """Redshift-space distortion remap and the scaled-normal draw.
 
 Counterpart of ``fastbox_tpu/ops/rsd.py`` (``add_scaled_normal`` :63-91,
-``redshift_space_density`` :313-386, ``_remap_wrap_tiered`` :389-420) on
-its default TPU path: the wrap-fused bracket kernel K2 at band 2 or band
-4, and the sort + exact interpolation kernel K3 beyond.
+``remap_los_batched`` :170-310, ``redshift_space_density`` :313-386,
+``_remap_wrap_tiered`` :389-420).  ``redshift_space_density`` takes the
+default TPU path for 'linear': the wrap-fused bracket kernel K2 at band 2
+or band 4, and the sort + exact interpolation kernel K3 beyond.  For
+'nearest' it wraps and calls ``remap_los_batched``, whose branches are the
+bracket scan on pre-wrapped coordinates (K7), the banded interpolation on
+sorted nodes (K8), K3, and the 'nearest' rule in plain PyTorch.
 
 Semantics matched to the reference:
   * ``s = z - (v_z + v_nl) / H(a)`` (box.py:422)
   * periodic wrap ``s -> (s - z0) mod Lz + z0`` (box.py:425-426)
   * 1-D ``griddata`` linear: targets outside [min(s), max(s)] get the fill
     value ``0.5 (delta[...,0] + delta[...,-1])`` (box.py:429-437)
+  * ``method='nearest'``: scipy's interp1d(kind='nearest',
+    fill_value='extrapolate') — nearest endpoint out of range, midpoint
+    bisection inside.
 
 The tier is chosen on the host from ``maxdisp`` (one ``.item()`` per
-realisation, the only host sync of the RSD stage).  Every tier is exact
-when its band covers ``maxdisp``.
+call, the only host sync of the RSD stage).  Every tier is exact when its
+band covers ``maxdisp``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..grid import GridSpec
+from .cuda.banded_interp import banded_interp
 from .cuda.noise import add_scaled_normal_2d
-from .cuda.rsd_fused import rsd_remap_wrap, wrap_params
+from .cuda.rsd_fused import rsd_bracket_interp, rsd_remap_wrap, wrap_params
 from .cuda.rsd_interp import interp_sorted
 
-__all__ = ["add_scaled_normal", "redshift_space_density"]
+__all__ = ["add_scaled_normal", "redshift_space_density", "remap_los_batched"]
+
+METHODS = ("linear", "nearest")
 
 
 def add_scaled_normal(x, scale_row, generator=None, normals=None,
@@ -60,16 +71,15 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
         Hz: H(a) in km/s/Mpc.
         sigma_nl: RMS of incoherent small-scale velocities (km/s); when > 0
             they are drawn from ``generator`` or taken from ``normals``.
-        method: only 'linear' is ported.
+        method: 'linear' or 'nearest'.
         vmax: optional max|velocity_z| already at hand (a 0-dim tensor),
             which saves a reduction; ignored when sigma_nl > 0.
 
     Returns:
         delta_s: (N,N,N) redshift-space density field.
     """
-    if method != "linear":
-        raise NotImplementedError(
-            f"rsd method '{method}' is not ported yet (ROADMAP.md A3)")
+    if method not in METHODS:
+        raise ValueError(f"Unsupported RSD interpolation method '{method}'")
     rdtype = delta_x.dtype
     dev = delta_x.device
     N = grid.N
@@ -86,6 +96,16 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
         vmax = torch.max(torch.abs(vel))
 
     fill = 0.5 * (delta_x[..., 0] + delta_x[..., -1])
+    if method == "nearest":
+        # the wrapped redshift-space coordinate (box.py:422-426), then the
+        # generic remap (fastbox_tpu/ops/rsd.py:377-386)
+        u = z - vel / torch.tensor(Hz, dtype=rdtype, device=dev)
+        s = torch.remainder(u - z0, length_z) + z0
+        out = remap_los_batched(
+            delta_x.reshape(N * N, N), s.reshape(N * N, N), z,
+            fill.reshape(N * N), method=method, ztarget_np=grid.z,
+            s_unwrapped=u.reshape(N * N, N))
+        return out.reshape(N, N, N)
     inv_hz = 1.0 / torch.tensor(Hz, dtype=rdtype, device=dev)
     maxdisp = vmax * inv_hz
     dz = float(grid.z[1] - grid.z[0])
@@ -95,6 +115,93 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
         fill.reshape(N * N).contiguous(), z0, length_z, inv_hz, dz, maxdisp,
         band=4)
     return out.reshape(N, N, N)
+
+
+def _uniform_targets(ztarget, ztarget_np, C: int):
+    """The targets on the host when they are a uniform grid of C points
+    (the rank grid the nodes were displaced from), else None."""
+    zt = np.asarray(ztarget_np if ztarget_np is not None
+                    else ztarget.detach().cpu().numpy())
+    d = np.diff(zt.astype(np.float64))
+    # f32 coordinates carry ~1e-4 jitter in their diffs at Gpc offsets;
+    # uniform-enough is all the band bound needs
+    if (zt.size != C or d.size == 0 or d.min() <= 0
+            or (d.max() - d.min()) > 1e-2 * abs(d.mean())):
+        return None
+    return zt
+
+
+def _covers(maxdisp, bound: float) -> bool:
+    """maxdisp <= bound, compared in maxdisp's dtype (one host sync)."""
+    return maxdisp.item() <= torch.tensor(bound, dtype=maxdisp.dtype).item()
+
+
+def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
+                      band: int = 4, ztarget_np=None, fused: bool = True,
+                      s_unwrapped=None):
+    """Scattered 1-D interpolation of many lines of sight at once
+    (fastbox_tpu/ops/rsd.py:170-310).
+
+    Parameters:
+        vals: (M, C) sample values per LOS.
+        s: (M, C) sample coordinates per LOS (unsorted, wrapped).
+        ztarget: (T,) target grid (shared by all LOS).
+        fill: (M,) fill value per LOS ('linear' outside the node hull).
+        method: 'linear' or 'nearest'.
+        band: displacement bound in cells of the banded tiers.
+        ztarget_np: the targets on the host (saves a device read).
+        fused: allow the sort-free bracket scan (K7).
+        s_unwrapped: (M, C) coordinates before the wrap; with a uniform
+            target grid, C a power of two and M a multiple of
+            min(256, M) it selects the bracket scan.
+
+    Branches, in fastbox_tpu's order: with ``s_unwrapped``, K7 when
+    max|s_unwrapped - z| <= band*dz and the sort + K3 otherwise; else the
+    per-row stable sort, then K8 when every sorted node lies within
+    ``band`` cells of its rank, K3 otherwise ('linear'), or the nearest-node
+    rule.  Uniform targets of length C are required for the banded tiers.
+
+    Returns:
+        (M, T) interpolated values.
+    """
+    if method not in METHODS:
+        raise ValueError(f"Unsupported RSD interpolation method '{method}'")
+    M, C = s.shape
+    zt_np = None
+    if method == "linear" and band > 0:
+        zt_np = _uniform_targets(ztarget, ztarget_np, C)
+
+    if (fused and method == "linear" and zt_np is not None
+            and s_unwrapped is not None and C & (C - 1) == 0
+            and M % min(256, M) == 0):
+        dz = float(zt_np[1] - zt_np[0])
+        maxdisp = torch.max(torch.abs(s_unwrapped - ztarget[None, :]))
+        if _covers(maxdisp, band * dz):
+            return rsd_bracket_interp(s.contiguous(), vals.contiguous(),
+                                      ztarget, fill, band)
+        ss, order = torch.sort(s, dim=1, stable=True)
+        return interp_sorted(ss, torch.gather(vals, 1, order), ztarget, fill)
+
+    ss, order = torch.sort(s, dim=1, stable=True)
+    vv = torch.gather(vals, 1, order)
+    if method == "linear":
+        # K8 and K3 both apply the hull fill
+        if zt_np is not None:
+            dz = float(zt_np[1] - zt_np[0])
+            maxdisp = torch.max(torch.abs(ss - ztarget[None, :]))
+            if _covers(maxdisp, band * dz):
+                return banded_interp(ss, vv, ztarget, fill, band)
+        return interp_sorted(ss, vv, ztarget, fill)
+
+    # 'nearest' (interp1d, fill_value='extrapolate'): the value switches at
+    # segment midpoints.  fastbox_tpu sums vv_0 + sum_c dv_c [mid_c < z];
+    # the count of midpoints below z indexes the same node directly
+    # (searchsorted(mids, z, side='left')), without the (M, C-1, T)
+    # temporary.
+    mids = 0.5 * (ss[:, 1:] + ss[:, :-1])
+    zt = ztarget[None, :].expand(M, ztarget.shape[0]).contiguous()
+    idx = torch.searchsorted(mids.contiguous(), zt, side="left")
+    return torch.gather(vv, 1, idx)
 
 
 def pick_band(maxdisp, dz: float, band: int = 4) -> int:

@@ -1,0 +1,24 @@
+"""Multi-rank execution on ``torch.distributed``: the ('ens', 'space') mesh,
+slab FFTs, the row-keyed draws and the sharded ensemble step.
+
+Counterpart of ``fastbox_tpu/parallel/`` (``mesh``, ``fft``, ``rng``,
+``sharded``).  One process per rank; ``local.launch`` runs gloo ranks on
+the CPU.  ``make_sharded_ensemble_step`` is imported on first use, since
+``sharded`` imports the pipeline, which imports ``rng`` from here.
+"""
+from .fft import (pfft2_local, pfft3_local, pifft2_local, pifft3_local,
+                  pirfft3_local, prfft3_local)
+from .mesh import largest_pow2_divisor, make_mesh
+from .rng import TAGS, row_complex_normal, row_normal
+
+__all__ = ["make_mesh", "largest_pow2_divisor", "make_sharded_ensemble_step",
+           "pfft3_local", "pifft3_local", "pfft2_local", "pifft2_local",
+           "prfft3_local", "pirfft3_local", "TAGS", "row_normal",
+           "row_complex_normal"]
+
+
+def __getattr__(name):
+    if name == "make_sharded_ensemble_step":
+        from .sharded import make_sharded_ensemble_step
+        return make_sharded_ensemble_step
+    raise AttributeError(name)

@@ -1,0 +1,152 @@
+"""Run a function on local CPU ranks under gloo.
+
+``launch("package.module:function", world_size, payload)`` starts
+``world_size`` Python processes (``python -m fastbox_tpu_torch.parallel.
+local``).  Each joins a gloo process group on a shared file store, calls
+``function(payload)`` and saves what it returns; ``launch`` returns the
+ranks' results in rank order, or raises with the failing rank's errors.
+The payload and the results travel through ``torch.save`` files in a
+temporary directory.
+
+``tasks`` runs the checks the CPU tests make on 2 and 4 ranks, named in
+``payload["tasks"]``: ``fft`` (each slab FFT helper on this rank's rows),
+``sharded_step`` and ``ensemble`` (``make_ensemble_pipeline`` over a mesh
+of the world's ranks).
+"""
+from __future__ import annotations
+
+import importlib
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["launch", "tasks", "fft", "sharded_step", "ensemble"]
+
+_ROOT = Path(__file__).resolve().parents[2]
+
+
+def launch(target: str, world_size: int, payload=None,
+           timeout: float = 300.0) -> list:
+    """``target`` ("module:function") on ``world_size`` gloo ranks; returns
+    the list of the ranks' return values."""
+    with tempfile.TemporaryDirectory(prefix="fastbox_ranks_") as tmp:
+        tmp = Path(tmp)
+        torch.save(payload, tmp / "payload.pt")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", __name__, target, str(r), str(world_size),
+             str(tmp)], cwd=_ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(world_size)]
+        errors = []
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    errors.append(f"rank {r} exited {p.returncode}:\n{err}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                for r in range(world_size)]
+
+
+def _main(target: str, rank: int, world_size: int, tmp: str) -> None:
+    store = dist.FileStore(os.path.join(tmp, "store"), world_size)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world_size)
+    try:
+        module, name = target.split(":")
+        fn = getattr(importlib.import_module(module), name)
+        payload = torch.load(os.path.join(tmp, "payload.pt"),
+                             weights_only=False)
+        result = fn(payload)
+        torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _setup(spec: dict):
+    """(grid, cosmology, amp_half, config) of a task's spec: the grid's
+    (box, N, redshift), the cosmology as ``convert.from_jax_state``'s state
+    dict and the ``PipelineConfig`` keywords."""
+    from ..convert import from_jax_state
+    from ..grid import GridSpec
+    from ..pipeline import PipelineConfig
+
+    box, n, z = spec["grid"]
+    cosmo, amp = from_jax_state(spec["state"])
+    return (GridSpec.create(box_scale=box, nsamp=n, redshift=z), cosmo, amp,
+            PipelineConfig(**spec["config"]))
+
+
+def tasks(payload: dict) -> dict:
+    """{name: result} of every task named in ``payload["tasks"]``."""
+    return {name: _TASKS[name](payload) for name in payload["tasks"]}
+
+
+def fft(payload: dict) -> dict:
+    """This rank's rows of each slab FFT helper applied to the full batched
+    cubes ``payload["fft"]["complex"]`` and ``["real"]`` (B, N, N, N), on a
+    mesh whose 'space' axis holds every rank."""
+    from . import fft as pf
+    from .mesh import axis_group, make_mesh
+
+    mesh = make_mesh(dist.get_world_size(), space=dist.get_world_size(),
+                     device="cpu")
+    group, P, r = axis_group(mesh, "space")
+    xc, xr = payload["fft"]["complex"], payload["fft"]["real"]
+    n = xr.shape[1]
+    rows = slice(r * n // P, (r + 1) * n // P)
+    xc, xr = xc[:, rows].contiguous(), xr[:, rows].contiguous()
+    return {"pfft3": pf.pfft3_local(xc, group),
+            "pifft3": pf.pifft3_local(xc, group),
+            "pfft2": pf.pfft2_local(xc, group),
+            "pifft2": pf.pifft2_local(xc, group),
+            "prfft3": pf.prfft3_local(xr, group),
+            "pirfft3": pf.pirfft3_local(pf.prfft3_local(xr, group), n, group)}
+
+
+def sharded_step(payload: dict) -> list:
+    """The outputs of the sharded step for each spec of ``payload["steps"]``,
+    on a mesh of every rank with 'space' = ``spec["space"]``, on the B
+    realisations' ``spec["draws"]``."""
+    from .mesh import make_mesh
+    from .sharded import make_sharded_ensemble_step
+
+    outs = []
+    for spec in payload["steps"]:
+        grid, cosmo, amp, config = _setup(spec)
+        mesh = make_mesh(dist.get_world_size(), space=spec["space"],
+                         device="cpu")
+        step = make_sharded_ensemble_step(mesh, grid, cosmo, config, "cpu",
+                                          amp)
+        outs.append(step(draws=spec["draws"]))
+    return outs
+
+
+def ensemble(payload: dict) -> dict:
+    """``make_ensemble_pipeline(mesh=...)`` over every rank ('space' = 1) on
+    generators seeded with ``payload["ensemble"]["seeds"]``."""
+    from ..pipeline import make_ensemble_pipeline
+    from .mesh import make_mesh
+
+    spec = payload["ensemble"]
+    grid, cosmo, amp, config = _setup(spec)
+    mesh = make_mesh(dist.get_world_size(), space=1, device="cpu")
+    fn = make_ensemble_pipeline(grid, cosmo, config, "cpu", mesh, amp)
+    return fn([torch.Generator().manual_seed(s) for s in spec["seeds"]])
+
+
+_TASKS = {"fft": fft, "sharded_step": sharded_step, "ensemble": ensemble}
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -9,6 +9,7 @@ cubic and anisotropic boxes.  The stages:
   2. HI bias scaling and log-normal transform
   3. linear LOS velocity from the Gaussian delta_k                    (K9)
   4. redshift-space remap, after the sigma_NL dispersion      (K1, K2 | K3)
+     ('nearest': the sort and the nearest-node rule)
   5. brightness-temperature scaling Tb (1 + delta_s)
   6. diffuse foreground cube (2D GRF amplitude x spectral-index law)
   7. radiometer noise                                          (K1)
@@ -33,7 +34,11 @@ arrays fastbox_tpu's ``fn_pre`` draws from its five keys
   ``noise`` (N, N, N) radiometer normals                     (:630-631)
 
 This is the port's counterpart of fastbox_tpu's ``threefry_noise`` and
-``draw_dtype`` truth-gate knobs.  Without ``draws`` the function draws
+``draw_dtype`` truth-gate knobs.  With ``noise_scheme='rows'`` every field
+is drawn per leading-axis row instead (``parallel.rng``), keyed by a seed
+and the row index alone, as the sharded ensemble step draws it; ``draws``
+then holds the full-field rows under the ``parallel.rng.TAGS`` names
+(``ROWS_DRAW_NAMES``).  Without ``draws`` the function draws
 them itself from the ``torch.Generator`` it is given; the density draw
 (with ``pallas_draw``) and the two normal draws then happen inside K9 and
 K1 on a GPU.  With ``draws`` and ``pallas_draw`` on, the supplied ``dens``
@@ -55,9 +60,11 @@ import warnings
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .constants import C_MS
 from .cosmology import Cosmology
+from .device import resolve
 from .fields import gaussian, transforms
 from .filters import pca
 from .grid import GridSpec
@@ -69,19 +76,20 @@ from .ops.cuda import half_draw
 from .ops.cuda.binned_pk import binned_pk_half_dual
 from .ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
 from .ops.reduce import binned_weighted_dual
+from .parallel import rng
 
 __all__ = ["PipelineConfig", "make_pipeline", "draw_inputs", "amp_half_table",
            "vz_vectors", "make_chained_pipeline", "make_ensemble_pipeline",
            "calibrate_pk_debias"]
 
 DRAW_NAMES = ("dens", "rsd", "fg", "alpha", "noise")
+# noise_scheme='rows': the full-field rows of each stream, by its TAGS name
+ROWS_DRAW_NAMES = tuple(rng.ROW_NDIM)
 
 # Knobs whose non-default values select parts of fastbox_tpu's pipeline
 # that are not ported: field -> (default, ROADMAP.md item).
 _UNPORTED = {
-    "noise_scheme": ("half", "A6: the row-keyed 'rows' draw, with parallel/"),
     "fft_pair": (False, "A (do-not-port list): matmul DFT pair"),
-    "rsd_method": ("linear", "A6: method='nearest', with parallel/"),
     "threefry_noise": (False, "pass the pipeline function `draws` instead"),
     "draw_dtype": (None, "pass the pipeline function `draws` instead"),
 }
@@ -167,6 +175,10 @@ class PipelineConfig:
             raise ValueError(f"Unknown fg_spectral '{self.fg_spectral}'")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"Unknown dtype '{self.dtype}'")
+        if self.noise_scheme not in ("half", "rows"):
+            raise ValueError(f"Unknown noise_scheme '{self.noise_scheme}'")
+        if self.rsd_method not in rsd_ops.METHODS:
+            raise ValueError(f"Unknown rsd_method '{self.rsd_method}'")
         for name, (default, item) in _UNPORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -258,10 +270,11 @@ def _pk_route(pallas_pk: str, cubic: bool) -> str:
 
 
 def make_pipeline(grid: GridSpec, cosmology: Cosmology,
-                  config: PipelineConfig = PipelineConfig(), device="cpu",
+                  config: PipelineConfig = PipelineConfig(), device=None,
                   amp_half: torch.Tensor | None = None):
     """Build the pipeline: host set-up now, stages 1-9 in the returned
-    ``fn(generator=None, draws=None, clock=None) -> dict``.
+    ``fn(generator=None, draws=None, clock=None, seed=None) -> dict`` on
+    ``device`` (None: the CUDA card; pass ``"cpu"`` for the CPU).
 
     ``amp_half`` (N, N, N/2+1) replaces the sqrt(P boxfactor) table built
     from ``cosmology`` (e.g. fastbox_tpu's own, via
@@ -271,13 +284,18 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     ``debug_stages`` the intermediate cubes.  ``vel_z`` there includes the
     sigma_NL dispersion, as on fastbox_tpu's ``threefry_noise`` path.
 
-    ``fn.pre(generator=None, draws=None, clock=None, want_cov=False)`` runs
+    With ``noise_scheme='rows'`` the fields are the row-keyed draws of
+    ``seed`` (default: ``generator.initial_seed()``), or ``draws`` holds
+    them (``ROWS_DRAW_NAMES``).
+
+    ``fn.pre(generator=None, draws=None, clock=None, want_cov=False,
+    seed=None)`` runs
     stages 1-7b and returns the data cube, the density power and
     ``sigma_data`` (with ``want_cov`` also the PCA covariance);
     ``fn.post(pre, U=None, clock=None)`` runs 8-9, with the clean's
     eigenvectors ``U`` (Nfreq, pca_nmodes) given or found inline.
     """
-    device = torch.device(device)
+    device = resolve(device)
     dtype = getattr(torch, config.dtype)
     N = grid.N
     H = N // 2 + 1
@@ -320,8 +338,10 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     kxv, kyv, kzv = grid.kvec(dtype, device)
     kz_half = kzv[:H]
     nyq_z = grid.nyquist_mask(2, device)[:H]
-    use_k9 = config.pallas_draw in ("auto", "on", "vz")
-    vz_mode = config.pallas_draw == "vz"
+    rows_mode = config.noise_scheme == "rows"
+    # the row-keyed draws are white rows in x-space: K9 has no part in them
+    use_k9 = not rows_mode and config.pallas_draw in ("auto", "on", "vz")
+    vz_mode = use_k9 and config.pallas_draw == "vz"
     if vz_mode:
         kx2col_j, kyz2row_j, kznumrow_j = vz_vectors(grid, vel_fac, dtype,
                                                      device)
@@ -401,6 +421,34 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         dt = cdtype if name in ("dens", "fg") else dtype
         return draws[name].to(device=device, dtype=dt)
 
+    def row_fields(generator, draws, seed) -> dict:
+        """noise_scheme='rows': the full-field rows of every stream the
+        configuration uses, supplied or drawn from ``seed``
+        (fastbox_tpu/pipeline.py:498-504, :559-562, :587-592, :625-628),
+        with ``fg`` combined from its two real streams."""
+        names = ["density"]
+        if config.sigma_nl > 0.0:
+            names.append("sigma_nl")
+        if config.include_foregrounds:
+            names += ["fg_re", "fg_im", "alpha"]
+        if config.include_noise:
+            names.append("noise")
+        if draws is not None:
+            missing = [n for n in names if n not in draws]
+            if missing:
+                raise ValueError(f"draws is missing {missing}")
+            out = {n: draws[n].to(device=device, dtype=dtype) for n in names}
+        else:
+            if seed is None:
+                if generator is None:
+                    raise ValueError("noise_scheme='rows' needs a seed, a "
+                                     "torch.Generator or the `draws` dict")
+                seed = generator.initial_seed()
+            out = rng.row_draws(seed, names, N, dtype=dtype, device=device)
+        if config.include_foregrounds:
+            out["fg"] = torch.complex(out.pop("fg_re"), out.pop("fg_im"))
+        return out
+
     def density(generator, draws):
         """(delta_k, vz_k or None): stage (1), and (3)'s spectrum in 'vz'."""
         if draws is not None:
@@ -437,17 +485,27 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
 
     def pre(generator: torch.Generator | None = None,
             draws: dict | None = None, clock=None,
-            want_cov: bool = False) -> dict:
-        if draws is None and generator is None:
-            raise ValueError("pass a torch.Generator or the `draws` dict")
-        if draws is not None:
-            missing = [k for k in DRAW_NAMES if k not in draws]
-            if missing:
-                raise ValueError(f"draws is missing {missing}")
+            want_cov: bool = False, seed: int | None = None) -> dict:
         clock = clock or _NoClock()
-
-        # (1) density half-spectrum x sqrt(P)
-        delta_k, vz_k = density(generator, draws)
+        if rows_mode:
+            # (1) real white rows, one half-spectrum FFT, x sqrt(P)
+            rows = row_fields(generator, draws, seed)
+            delta_k = torch.fft.rfftn(rows.pop("density")) \
+                * (N ** -1.5) * amp_half
+            vz_k = None
+            draws = rows
+        else:
+            if seed is not None:
+                raise ValueError("seed= selects the row-keyed draws of "
+                                 "noise_scheme='rows'")
+            if draws is None and generator is None:
+                raise ValueError("pass a torch.Generator or the `draws` dict")
+            if draws is not None:
+                missing = [k for k in DRAW_NAMES if k not in draws]
+                if missing:
+                    raise ValueError(f"draws is missing {missing}")
+            # (1) density half-spectrum x sqrt(P)
+            delta_k, vz_k = density(generator, draws)
         clock.mark("draw")
 
         # (3, hoisted) LOS velocity spectrum i vel_fac kz / k^2 delta_k,
@@ -463,14 +521,18 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         delta_ln = transforms.lognormal(delta_x * bias)
         clock.mark("lognormal")
 
-        # (4) sigma_NL dispersion (K1, with max|v|), then the remap (K2/K3)
+        # (4) sigma_NL dispersion (K1, with max|v|), then the remap (K2/K3;
+        # 'nearest' sorts); rows mode adds its sigma_NL rows to vel_z first
+        # (fastbox_tpu/pipeline.py:559-566)
         vmax = None
-        if config.sigma_nl > 0.0:
+        if rows_mode and config.sigma_nl > 0.0:
+            vel_z = vel_z + config.sigma_nl * draws["sigma_nl"]
+        elif config.sigma_nl > 0.0:
             vel_z, vmax = rsd_ops.add_scaled_normal(
                 vel_z, sigma_nl_row, generator, draw(draws, "rsd"),
                 return_max=True)
         delta_s = rsd_ops.redshift_space_density(
-            delta_ln, vel_z, grid, Hz, vmax=vmax)
+            delta_ln, vel_z, grid, Hz, vmax=vmax, method=config.rsd_method)
         del delta_ln
         clock.mark("rsd")
 
@@ -579,8 +641,9 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         return out
 
     def fn(generator: torch.Generator | None = None,
-           draws: dict | None = None, clock=None) -> dict:
-        return post(pre(generator, draws, clock), None, clock)
+           draws: dict | None = None, clock=None,
+           seed: int | None = None) -> dict:
+        return post(pre(generator, draws, clock, seed=seed), None, clock)
 
     fn.pre = pre
     fn.post = post
@@ -606,7 +669,7 @@ def _stack(outs: list) -> dict:
 
 def make_chained_pipeline(grid: GridSpec, cosmology: Cosmology,
                           config: PipelineConfig = PipelineConfig(),
-                          device="cpu", amp_half: torch.Tensor | None = None):
+                          device=None, amp_half: torch.Tensor | None = None):
     """``fn(generators=None, draws=None) -> dict``: K realisations, one
     after another, with the outputs stacked on a leading axis (K is the
     length of ``generators`` or ``draws``, sequences of what
@@ -638,20 +701,39 @@ def make_chained_pipeline(grid: GridSpec, cosmology: Cosmology,
 
 def make_ensemble_pipeline(grid: GridSpec, cosmology: Cosmology,
                            config: PipelineConfig = PipelineConfig(),
-                           device="cpu", mesh=None,
+                           device=None, mesh=None,
                            amp_half: torch.Tensor | None = None):
     """Monte-Carlo ensemble: ``fn(generators=None, draws=None) -> dict`` of
     B realisations with stacked outputs, each equal to its single call
     (fastbox_tpu vmaps its pipeline; here it is a loop on one device).
-    A ``mesh`` (data parallelism over devices) belongs to the parallel/
-    slice and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded ensemble (mesh=...) is not ported: it belongs to the "
-            "parallel/ slice (ROADMAP.md A6)")
-    return make_chained_pipeline(
+
+    With ``mesh`` (a ``parallel.make_mesh`` DeviceMesh), pure data
+    parallelism over its 'ens' group (fastbox_tpu/pipeline.py:888-911):
+    rank e of 'ens' runs realisations [e B/ens, (e+1) B/ens) and the
+    stacked outputs are all-gathered, so every rank returns all B.  B must
+    be a multiple of the 'ens' size; the 'space' ranks of one 'ens' index
+    repeat the same work, as fastbox_tpu's replicated keys do.
+    """
+    if mesh is not None and not (
+            isinstance(mesh, DeviceMesh)
+            and "ens" in (mesh.mesh_dim_names or ())):
+        raise TypeError("mesh must be a DeviceMesh with an 'ens' axis "
+                        "(parallel.make_mesh)")
+    chain = make_chained_pipeline(
         grid, cosmology, dataclasses.replace(config, eigh_hoist="off"),
         device, amp_half)
+    if mesh is None:
+        return chain
+    from .parallel.mesh import ens_share, gather_ens
+
+    def fn(generators=None, draws=None) -> dict:
+        runs = _realisations(generators, draws)
+        lo, hi = ens_share(mesh, len(runs))
+        gens, ds = zip(*runs[lo:hi])
+        local = chain(list(gens), list(ds))
+        return {k: gather_ens(mesh, v) for k, v in local.items()}
+
+    return fn
 
 
 def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
@@ -659,7 +741,7 @@ def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
                         config_ref: PipelineConfig | None = None,
                         seeds=(5000, 5001, 5002, 5003, 5004, 5005, 5006,
                                5007),
-                        device="cpu", amp_half: torch.Tensor | None = None):
+                        device=None, amp_half: torch.Tensor | None = None):
     """The additive per-bin bias of ``config_fast``'s cleaned P(k) against
     ``config_ref``'s: ``mean(pk_fast - pk_ref)`` over realisations drawn
     from ``torch.Generator``s seeded with ``seeds`` (keep them disjoint from
@@ -670,6 +752,7 @@ def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
     port ignores those knobs, so ``config_ref`` defaults to ``config_fast``
     with ``pk_debias=None``, and the default calibration is all zeros.
     """
+    device = resolve(device)
     if config_ref is None:
         config_ref = dataclasses.replace(config_fast, pk_debias=None)
     config_fast = dataclasses.replace(config_fast, pk_debias=None)

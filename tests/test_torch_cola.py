@@ -133,7 +133,8 @@ def test_band_pick_is_strict_and_escalates(cosmos):
     beyond the widest band to the exact scatter (None)."""
     _, tc = cosmos
     _, g = grids(box=200.0)
-    eng = cola.ColaEngine(g, tc, redshift_init=3.0, lattice_B=3)
+    eng = cola.ColaEngine(g, tc, redshift_init=3.0, lattice_B=3,
+                          device="cpu")
     assert eng.bands == (1, 2, 3)
     assert eng.pick_band(0.0) == 1
     assert eng.pick_band(np.nextafter(1.0, 0.0)) == 1
@@ -144,7 +145,7 @@ def test_band_pick_is_strict_and_escalates(cosmos):
         eng.pick_band(float("nan"))
     # bands wider than the grid allows (2b + 2 > N) are dropped
     small = cola.ColaEngine(GridSpec.create(box_scale=50.0, nsamp=6), tc,
-                            redshift_init=3.0, lattice_B=3)
+                            redshift_init=3.0, lattice_B=3, device="cpu")
     assert small.bands == (1, 2)
 
 

@@ -91,7 +91,7 @@ def run_port(case, dtype: str, debug: bool = True):
     grid = GridSpec.create(box_scale=BOX, nsamp=16, redshift=Z)
     fn = make_pipeline(grid, cosmo, PipelineConfig(dtype=dtype,
                                                    debug_stages=debug),
-                       amp_half=amp)
+                       device="cpu", amp_half=amp)
     draws = {k: torch.tensor(v) for k, v in case["draws"].items()}
     return {k: v.numpy() for k, v in fn(draws=draws).items()}
 
@@ -141,7 +141,8 @@ def test_own_cosmology_and_generator_run(cosmo_port):
     that agree with the injected-draw run's shapes, and a realisation that
     depends on the seed only."""
     grid = GridSpec.create(box_scale=BOX, nsamp=16, redshift=Z)
-    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))
+    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                       device="cpu")
     a = fn(torch.Generator().manual_seed(5))
     b = fn(torch.Generator().manual_seed(5))
     c = fn(torch.Generator().manual_seed(6))
@@ -156,7 +157,8 @@ def test_draw_inputs_reproduce_generator_run(cosmo_port):
     """Drawing the five arrays up front gives the pipeline's own draws on
     the CPU (same generator, same order)."""
     grid = GridSpec.create(box_scale=BOX, nsamp=16, redshift=Z)
-    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))
+    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                       device="cpu")
     own = fn(torch.Generator().manual_seed(9))
     draws = draw_inputs(grid, torch.Generator().manual_seed(9),
                         torch.float64)
@@ -178,6 +180,11 @@ def cosmo_port():
     ("rsd_method", "nearest"),
 ])
 def test_unported_knobs_raise(knob, value):
+    """Knobs of unported paths raise; the row-keyed draws and the
+    'nearest' remap are ported, and those two values are accepted."""
+    if (knob, value) in (("noise_scheme", "rows"), ("rsd_method", "nearest")):
+        assert getattr(PipelineConfig(**{knob: value}), knob) == value
+        return
     with pytest.raises(NotImplementedError):
         PipelineConfig(**{knob: value})
 
@@ -189,8 +196,10 @@ def test_precision_knobs_accepted_and_ignored(cosmo_port):
     cfg = PipelineConfig(dtype="float64", mm3d_precision="DEFAULT",
                          vel_precision="HIGHEST", dx_precision="HIGH",
                          fwd_precision="HIGH", pca_precision=None)
-    a = make_pipeline(grid, cosmo_port, cfg)(torch.Generator().manual_seed(3))
-    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))(
+    a = make_pipeline(grid, cosmo_port, cfg, device="cpu")(
+        torch.Generator().manual_seed(3))
+    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                       device="cpu")(
         torch.Generator().manual_seed(3))
     for k in ("pk_cleaned", "pk_density", "sigma_data"):
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, equal_nan=True)
@@ -202,9 +211,11 @@ def test_v2_on_a_non_cubic_box_warns_and_runs(cosmo_port):
     grid = GridSpec.create(box_scale=(1e3, 1e3, 2e3), nsamp=16, redshift=Z)
     with pytest.warns(UserWarning, match="v1 kernel"):
         fn = make_pipeline(grid, cosmo_port,
-                           PipelineConfig(dtype="float64", pallas_pk="v2"))
+                           PipelineConfig(dtype="float64", pallas_pk="v2"),
+                           device="cpu")
     a = fn(torch.Generator().manual_seed(4))
-    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))(
+    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                       device="cpu")(
         torch.Generator().manual_seed(4))
     assert torch.isfinite(a["pk_cleaned"]).sum() >= 10
     for k in ("pk_cleaned", "pk_density"):
@@ -215,7 +226,8 @@ def test_stage_clock_marks_every_stage(cosmo_port):
     from fastbox_tpu_torch.timing import StageClock
 
     grid = GridSpec.create(box_scale=BOX, nsamp=16, redshift=Z)
-    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))
+    fn = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                       device="cpu")
     clock = StageClock("cpu")
     fn(torch.Generator().manual_seed(1), clock=clock)
     ms = clock.ms()

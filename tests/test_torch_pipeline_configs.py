@@ -85,7 +85,8 @@ def config_case(request):
     want = jax_make(jgrid, jcosmo, JaxConfig(
         dtype="float64", threefry_noise=True, debug_stages=True, **jkw))(key)
     fn = make_pipeline(grid, cosmo, PipelineConfig(
-        dtype="float64", debug_stages=True, **pkw), amp_half=amp)
+        dtype="float64", debug_stages=True, **pkw), device="cpu",
+        amp_half=amp)
     return ({k: np.asarray(v) for k, v in want.items()},
             numpy_out(fn(draws=draws)))
 
@@ -122,7 +123,7 @@ def test_anisotropic_f32_within_jax_f32_floor():
         dtype="float32", threefry_noise=True, draw_dtype="float64",
         pallas_pk="on"))(key)
     port32 = make_pipeline(grid, cosmo, PipelineConfig(dtype="float32"),
-                           amp_half=amp)(draws=draws)
+                           device="cpu", amp_half=amp)(draws=draws)
     for name in ("pk_cleaned", "pk_density"):
         floor = rel_err(out32[name], out64[name]).max()
         err = rel_err(port32[name], out64[name]).max()
@@ -141,8 +142,9 @@ def chain_case(request):
     draws = [{k: torch.tensor(v) for k, v in jax_draws(k_, jgrid).items()}
              for k_ in keys]
     cfg = PipelineConfig(dtype="float64", eigh_hoist=request.param)
-    got = make_chained_pipeline(grid, cosmo, cfg, amp_half=amp)(draws=draws)
-    single = make_pipeline(grid, cosmo, cfg, amp_half=amp)
+    got = make_chained_pipeline(grid, cosmo, cfg, device="cpu",
+                                amp_half=amp)(draws=draws)
+    single = make_pipeline(grid, cosmo, cfg, device="cpu", amp_half=amp)
     return (request.param, {k: np.asarray(v) for k, v in want.items()},
             numpy_out(got), [numpy_out(single(draws=d)) for d in draws])
 
@@ -180,9 +182,9 @@ def cosmo_port():
 def test_ensemble_equals_single_calls(cosmo_port, box):
     grid = GridSpec.create(box_scale=box, nsamp=N, redshift=Z)
     cfg = PipelineConfig(dtype="float64")
-    ens = make_ensemble_pipeline(grid, cosmo_port, cfg)(
+    ens = make_ensemble_pipeline(grid, cosmo_port, cfg, device="cpu")(
         generators=[torch.Generator().manual_seed(s) for s in (1, 2, 3)])
-    single = make_pipeline(grid, cosmo_port, cfg)
+    single = make_pipeline(grid, cosmo_port, cfg, device="cpu")
     assert ens["pk_cleaned"].shape == (3, 19)
     for i, s in enumerate((1, 2, 3)):
         one = single(torch.Generator().manual_seed(s))
@@ -192,9 +194,11 @@ def test_ensemble_equals_single_calls(cosmo_port, box):
 
 
 def test_ensemble_mesh_raises(cosmo_port):
+    """A mesh must be a DeviceMesh with an 'ens' axis
+    (tests/test_torch_parallel.py runs the real one)."""
     grid = GridSpec.create(box_scale=CUBE, nsamp=N, redshift=Z)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_ensemble_pipeline(grid, cosmo_port, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_ensemble_pipeline(grid, cosmo_port, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("draw", ["on", "vz"])
@@ -203,7 +207,7 @@ def test_pallas_draw_with_a_generator(cosmo_port, draw):
     'off' bit for bit; 'vz' has the same delta_k (pk_density exact) and
     only the velocity weight's rounding differs."""
     grid = GridSpec.create(box_scale=CUBE, nsamp=N, redshift=Z)
-    run = lambda cfg: make_pipeline(grid, cosmo_port, cfg)(
+    run = lambda cfg: make_pipeline(grid, cosmo_port, cfg, device="cpu")(
         torch.Generator().manual_seed(12))
     a = run(PipelineConfig(dtype="float64", pallas_draw=draw))
     b = run(PipelineConfig(dtype="float64"))
@@ -217,9 +221,10 @@ def test_pallas_draw_with_a_generator(cosmo_port, draw):
 def test_box_muller_draw_method_runs(cosmo_port):
     grid = GridSpec.create(box_scale=CUBE, nsamp=N, redshift=Z)
     cfg = PipelineConfig(dtype="float64", draw_method="box_muller")
-    fn = make_pipeline(grid, cosmo_port, cfg)
+    fn = make_pipeline(grid, cosmo_port, cfg, device="cpu")
     a = fn(torch.Generator().manual_seed(3))
-    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"))(
+    b = make_pipeline(grid, cosmo_port, PipelineConfig(dtype="float64"),
+                      device="cpu")(
         torch.Generator().manual_seed(3))
     assert torch.isfinite(a["pk_density"]).sum() >= 10
     assert not torch.equal(a["sigma_data"], b["sigma_data"])
@@ -228,7 +233,8 @@ def test_box_muller_draw_method_runs(cosmo_port):
 def test_pk_debias_length_is_checked(cosmo_port):
     grid = GridSpec.create(box_scale=CUBE, nsamp=N, redshift=Z)
     with pytest.raises(ValueError, match="length 19"):
-        make_pipeline(grid, cosmo_port, PipelineConfig(pk_debias=(0.0,)))
+        make_pipeline(grid, cosmo_port, PipelineConfig(pk_debias=(0.0,)),
+                      device="cpu")
 
 
 def test_calibrate_pk_debias(cosmo_port):
@@ -237,14 +243,17 @@ def test_calibrate_pk_debias(cosmo_port):
     of the two pipelines on generators of the given seeds."""
     grid = GridSpec.create(box_scale=CUBE, nsamp=N, redshift=Z)
     fast = PipelineConfig(dtype="float64", pk_debias=DEBIAS)
-    zero = calibrate_pk_debias(grid, cosmo_port, fast, seeds=(1, 2))
+    zero = calibrate_pk_debias(grid, cosmo_port, fast, seeds=(1, 2),
+                               device="cpu")
     assert len(zero) == 19
     np.testing.assert_array_equal(np.nan_to_num(zero), 0.0)
     ref = dataclasses.replace(fast, pk_debias=None, include_noise=False)
-    got = calibrate_pk_debias(grid, cosmo_port, fast, ref, seeds=(1, 2))
+    got = calibrate_pk_debias(grid, cosmo_port, fast, ref, seeds=(1, 2),
+                              device="cpu")
     f = make_pipeline(grid, cosmo_port, dataclasses.replace(fast,
-                                                            pk_debias=None))
-    r = make_pipeline(grid, cosmo_port, ref)
+                                                            pk_debias=None),
+                      device="cpu")
+    r = make_pipeline(grid, cosmo_port, ref, device="cpu")
     want = np.mean([(f(torch.Generator().manual_seed(s))["pk_cleaned"]
                      - r(torch.Generator().manual_seed(s))["pk_cleaned"])
                     .numpy() for s in (1, 2)], axis=0)

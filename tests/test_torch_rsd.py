@@ -101,8 +101,8 @@ def test_redshift_space_density_sigma_nl_matches_supplied(rng):
                                normals=nrm)
     b = redshift_space_density(delta, vel + 120.0 * nrm, grid, HZ)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        redshift_space_density(delta, vel, grid, HZ, method="nearest")
+    with pytest.raises(ValueError, match="method"):
+        redshift_space_density(delta, vel, grid, HZ, method="cubic")
 
 
 @pytest.mark.cuda
