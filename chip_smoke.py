@@ -10,7 +10,7 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K9, K11) from fastbox_tpu_torch/csrc (timed);
+  2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
      times (median of 11); K11 (lattice CIC paint, gather, three-mesh
@@ -18,10 +18,12 @@ failure:
      scatter and gather; K5 on the anisotropic 256^3 half spectra and K6 on
      a 256^3 cube, also in f64 against an f64 index_add_ reduction; K9a/b
      in supplied mode bitwise, in generated mode by the moments of the
-     normals; K7 at bands 2 and 4 in f32 and f64.  Each kernel's row also
-     carries its bound (bytes or operations over the H100's published
-     peaks) and, where one PyTorch call computes the same function, that
-     call's time (library_ms);
+     normals; K7 at bands 2 and 4 in f32 and f64; K10 (the factored DFT)
+     at the K10 route's planar shapes (256, 256, 129) and (512, 512, 257),
+     both axes and signs, against its twin and complex128 torch.fft.  Each
+     kernel's row also carries its bound (bytes or operations over the
+     H100's published peaks) and, where one PyTorch call computes the same
+     function, that call's time (library_ms);
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
@@ -54,7 +56,16 @@ failure:
      with launch counters reset just before and read just after; then, on
      the same white noise, the engine with the plain twins on the card: the
      first force evaluation per particle, the final std(delta) and the
-     binned P(k), and bench_cola.py's health bounds.
+     binned P(k), and bench_cola.py's health bounds;
+  9. the K10 route of the cube transforms (ops/mmfft.PALLAS_DFT on, and
+     off again after): the pipeline at 256^3 (three realisations) and 512^3
+     (two), each with launch counters reset just before and read just
+     after and K10's count held to the code's; the route's delta_x and
+     vel_z against the cuFFT run on the same draws, and the truth check
+     against the f64 CPU run of phase 5; COLA at 256^3 on the same white
+     noise as phase 8, its K10 count held to the code's, against the cuFFT
+     engine and bench_cola.py's health bounds.  Every phase before it runs
+     with the route off and must launch K10 zero times.
 
 The last two lines of standard output are the per-kernel JSON and the
 device JSON.  Imports nothing of JAX.
@@ -108,6 +119,8 @@ KERNELS = {
                            "fastbox_tpu/ops/pallas/rsd_fused.py:154"),
     "banded_interp": ("fastbox_tpu_torch/csrc/banded_interp.cu",
                       "fastbox_tpu/ops/pallas/banded_interp.py:65"),
+    "dft_c2c_axis": ("fastbox_tpu_torch/csrc/mmdft.cu",
+                     "fastbox_tpu/ops/pallas/mmdft.py:172"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -130,6 +143,13 @@ K7_K8_TWIN_BOUND = 1e-6
 # the data cube into 1e-4..1e-2 of the cleaned spectrum, differently on
 # each device (PERF.md, Findings).
 TRUTH_BOUND = {"pk_density": 1e-4, "pk_cleaned": 5e-2}
+# K10 and the route's fields against complex128 FFTs / the cuFFT run: the
+# bound of fastbox_tpu's own test (tests/test_pallas_dft.py), of max|y|.
+K10_BOUND = 2e-6
+K10 = "dft_c2c_axis"
+# K10 launches per 'half' pipeline realisation on the route: the delta_x
+# and vel_z inverses and the cleaned cube's forward, each on axes 0 and 1.
+K10_PER_PIPELINE = 2 * 3
 
 
 def log(msg: str) -> None:
@@ -782,6 +802,7 @@ def phase_cola(dev, kernels: list[dict]) -> None:
         del d512
     counts = _build.launch_counts()
     log(f"launch counts over the COLA path: {json.dumps(counts)}")
+    check_route_off(counts, "the COLA path")
     for r in kernels:
         r["launches"] = counts.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the COLA path")
@@ -822,6 +843,7 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     log("COLA P(k) kernels/plain - 1 for k < k_Nyq/2: "
         + " ".join(f"{v:.1e}" for v in rel))
     check(sel.sum() >= 5 and bool(np.all(rel <= 1e-2)), "COLA P(k) off plain")
+    return grid, cosmo0, white, d1
 
 
 def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
@@ -856,7 +878,14 @@ def counted(label: str, expect: tuple, body):
     log(f"{label}: launch counts {json.dumps(counts)}")
     for name in expect:
         check(counts.get(name, 0) > 0, f"{name} never launched on {label}")
+    check_route_off(counts, label)
     return result, counts
+
+
+def check_route_off(counts: dict, label: str) -> None:
+    """A path run with the K10 route off must not launch K10."""
+    check(counts.get(K10, 0) == 0,
+          f"{label}: K10 launched {counts.get(K10)} times with the route off")
 
 
 def mid_k_ratio(outs, cosmo, grid) -> np.ndarray:
@@ -1360,17 +1389,185 @@ def explore_1024(dev) -> None:
     dist.destroy_process_group()
 
 
+def complex_err(got, want) -> float:
+    """max|got - want| / max|want| of two complex tensors, in complex128."""
+    got, want = got.to(torch.complex128), want.to(torch.complex128)
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_k10(dev) -> dict:
+    """K10 against its twin and complex128 torch.fft at the route's planar
+    shapes, both axes and signs; times at both shapes, forward.  The row
+    is the (256, 256, 129) axis-1 forward call."""
+    from fastbox_tpu_torch.ops.cuda import mmdft as k
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    row = None
+    for N in (N_MAIN, N_BIG):
+        shape = (N, N, N // 2 + 1)
+        xr = torch.randn(shape, generator=g, device=dev)
+        xi = torch.randn(shape, generator=g, device=dev)
+        x64 = torch.complex(xr.double(), xi.double())
+        x32 = torch.complex(xr, xi)
+        for axis in (0, 1):
+            for sign in (-1, 1):
+                inv = sign > 0
+                kr, ki = k.dft_c2c_axis_cuda(xr, xi, axis, sign, inv)
+                pr, pi = k.dft_c2c_axis_plain(xr, xi, axis, sign, inv)
+                ref = (torch.fft.fft(x64, dim=axis) if sign < 0
+                       else torch.fft.ifft(x64, dim=axis))
+                got = torch.complex(kr, ki)
+                e_ref = complex_err(got, ref)
+                e_twin = complex_err(got, torch.complex(pr, pi))
+                del kr, ki, pr, pi, ref, got
+                what = f"K10 {shape} axis {axis} sign {sign:+d}"
+                check(e_ref <= K10_BOUND and e_twin <= K10_BOUND,
+                      f"{what}: {e_ref} vs torch.fft, {e_twin} vs twin")
+                if sign > 0:
+                    log(f"{what}: {e_ref:.2e} of max|y| vs complex128 "
+                        f"torch.fft, {e_twin:.2e} vs twin")
+                    continue
+                ms = median_ms(lambda: k.dft_c2c_axis_cuda(xr, xi, axis, -1))
+                plain_ms = median_ms(
+                    lambda: k.dft_c2c_axis_plain(xr, xi, axis, -1))
+                library_ms = median_ms(lambda: torch.fft.fft(x32, dim=axis))
+                # 16 bytes per complex element moved; an FFT's 5 log2(C)
+                # operations per element, whatever computes it
+                bound = roofline(16 * xr.numel(),
+                                 5 * np.log2(shape[axis]) * xr.numel())
+                log(f"{what}: {e_ref:.2e} of max|y| vs complex128 torch.fft, "
+                    f"{e_twin:.2e} vs twin; kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f}, torch.fft.fft {library_ms:.4f}, bound "
+                    f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
+                if N == N_MAIN and axis == 1:
+                    row = dict(name=K10, max_abs_err=e_ref, ms=ms,
+                               plain_ms=plain_ms, library_ms=library_ms,
+                               **bound)
+        del xr, xi, x64, x32
+    return row
+
+
+def phase_route(dev, cosmo, grid, draws, cpu) -> int:
+    """The pipeline on the K10 route; returns K10's launches over the
+    counted realisations (3 at 256^3, 2 at 512^3)."""
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops import mmfft
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.pipeline import PipelineConfig, make_pipeline
+
+    fn_dbg = make_pipeline(grid, cosmo, PipelineConfig(debug_stages=True),
+                           device=dev)
+    fn256 = make_pipeline(grid, cosmo, PipelineConfig(), device=dev)
+    grid512 = GridSpec.create(box_scale=BOX, nsamp=N_BIG, redshift=Z)
+    fn512 = make_pipeline(grid512, cosmo, PipelineConfig(), device=dev)
+    fft_run = fn_dbg(draws=draws)
+    gen = torch.Generator(device=dev).manual_seed(2028)
+    for N in (N_MAIN, N_BIG):
+        s = (N, N, N)
+        x = torch.randn(s, generator=gen, device=dev)
+        a = torch.fft.rfftn(x)
+        log(f"{N}^3 cube transforms, ms: route rfftn3 "
+            f"{median_ms(lambda: mmfft.rfftn3(x)):.3f} vs torch.fft.rfftn "
+            f"{median_ms(lambda: torch.fft.rfftn(x)):.3f}; route irfftn3 "
+            f"{median_ms(lambda: mmfft.irfftn3(a, s)):.3f} vs "
+            f"torch.fft.irfftn {median_ms(lambda: torch.fft.irfftn(a, s=s)):.3f}")
+        del x, a
+    runs = [(f"route 256^3 realisation {i}", fn256, grid) for i in range(3)]
+    runs += [(f"route 512^3 realisation {i}", fn512, grid512)
+             for i in range(2)]
+    launches = 0
+    mmfft.PALLAS_DFT = True
+    try:
+        walls = {}
+        for label, fn, g in runs:
+            _build.reset_launch_counts()
+            walls[label] = run_pipeline(fn, dev, label, g,
+                                        generator=gen)["wall"]
+            n = _build.launch_counts().get(K10, 0)
+            check(n == K10_PER_PIPELINE,
+                  f"{label}: K10 launched {n} times, not {K10_PER_PIPELINE}")
+            launches += n
+        _build.reset_launch_counts()
+        route = fn_dbg(draws=draws)
+        n = _build.launch_counts().get(K10, 0)
+        check(n == K10_PER_PIPELINE, f"route truth run: K10 launched {n}")
+    finally:
+        mmfft.PALLAS_DFT = False
+    log(f"route: K10 launched {K10_PER_PIPELINE} times per realisation; "
+        f"256^3 {statistics.median(walls[r[0]] for r in runs[1:3]) * 1e3:.2f}"
+        f" ms (median of realisations 1-2), 512^3 "
+        f"{walls[runs[4][0]] * 1e3:.2f} ms (realisation 1)")
+    for stage in ("delta_x", "vel_z"):
+        e = norm_err(route[stage], fft_run[stage])
+        log(f"route {stage} vs the cuFFT run, same draws: {e:.2e} of max")
+        check(e <= K10_BOUND, f"route {stage}: {e}")
+    full = populated_bins(grid, dev)
+    for name, bound in TRUTH_BOUND.items():
+        g = route[name].double().cpu().numpy()[full]
+        c = cpu[name].numpy()[full]
+        rel = np.abs(g - c) / np.abs(c)
+        f = fft_run[name].double().cpu().numpy()[full]
+        log(f"route truth {name} per-bin rel err vs f64 CPU: "
+            + " ".join(f"{v:.2e}" for v in rel)
+            + f" (max {rel.max():.2e}; the cuFFT run's max "
+            f"{(np.abs(f - c) / np.abs(c)).max():.2e})")
+        check(bool(np.all(rel <= bound)), f"route truth {name}: {rel.max()}")
+    return launches
+
+
+def phase_cola_route(dev, grid, cosmo0, white, d_fft) -> int:
+    """COLA at 256^3 on the K10 route, on the white noise of the cuFFT
+    realisation ``d_fft``; returns K10's launches."""
+    from fastbox_tpu_torch.fields.cola import ColaEngine
+    from fastbox_tpu_torch.ops import mmfft
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.ops.spectra import binned_power_spectrum
+
+    n_steps = ColaEngine(grid, cosmo0, redshift_init=COLA_Z_INIT,
+                         device=dev).n_steps
+    # cube transforms per realisation (spectral gradient, fields/lpt.py and
+    # fields/cola.py): 2LPT 3 + 6 + 1 + 3, per force evaluation 1 R2C + 3
+    # C2R, the finish 1 R2C + 1 C2R; K10 runs each on axes 0 and 1
+    expect = 2 * (13 + 4 * n_steps + 2)
+    mmfft.PALLAS_DFT = True
+    try:
+        _build.reset_launch_counts()
+        (d, _, _), wall = run_cola("COLA 256^3 on the K10 route", grid,
+                                   cosmo0, dev, keep_velocities=False,
+                                   white=white)
+        n = _build.launch_counts().get(K10, 0)
+    finally:
+        mmfft.PALLAS_DFT = False
+    log(f"COLA route: K10 launched {n} times ({n_steps} steps; expected "
+        f"{expect}); {wall * 1e3:.1f} ms")
+    check(n == expect, f"COLA route: K10 launched {n}, not {expect}")
+    cola_health(grid, cosmo0, d, "COLA 256^3 route")
+    s_r, s_f = d.double().std().item(), d_fft.double().std().item()
+    kc, pk_r, _ = binned_power_spectrum(grid, delta_x=d)
+    _, pk_f, _ = binned_power_spectrum(grid, delta_x=d_fft)
+    kc, pk_r, pk_f = (t.cpu().numpy() for t in (kc, pk_r, pk_f))
+    sel = np.isfinite(pk_f)
+    rel = np.abs(pk_r[sel] / pk_f[sel] - 1)
+    log(f"COLA route vs cuFFT, same white noise: std(delta) {s_r:.6f} vs "
+        f"{s_f:.6f}; largest per-bin P(k) difference {rel.max():.2e} "
+        f"(k < k_Nyq/2: "
+        f"{rel[kc[sel] < 0.5 * np.pi * grid.N / grid.Lx].max():.2e})")
+    return n
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs an NVIDIA GPU")
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops import mmfft
     from fastbox_tpu_torch.ops.cuda import _build
     from fastbox_tpu_torch.pipeline import (PipelineConfig, draw_inputs,
                                             make_pipeline)
 
     check("jax" not in sys.modules, "jax was imported")
+    mmfft.PALLAS_DFT = False    # phase 9 turns the K10 route on
     torch.set_float32_matmul_precision("highest")   # FP32 GEMMs, no TF32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -1400,7 +1597,8 @@ def main() -> None:
     k11 = phase_k11(dev)
     others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
     k7 = phase_k7(dev, grid, cosmo)
-    for r in kernels + k11 + others + [k7]:
+    k10 = phase_k10(dev)
+    for r in kernels + k11 + others + [k7, k10]:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -1425,6 +1623,7 @@ def main() -> None:
                            generator=gen) for i in range(2)]
     counts = _build.launch_counts()
     log(f"launch counts over the main path: {json.dumps(counts)}")
+    check_route_off(counts, "the main path")
     for r in kernels:
         r["launches"] = counts.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the main path")
@@ -1460,8 +1659,12 @@ def main() -> None:
     k8, launches = phase_sharded(dev, cosmo, grid)
     for r in [k7] + k8:
         r["launches"] = launches[r["name"]]
-    phase_cola(dev, k11)
-    kernels += k11 + others + [k7] + k8
+    cola = phase_cola(dev, k11)
+
+    # The K10 route: the pipeline, then COLA, counted apart
+    k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)
+    phase_cola_route(dev, *cola)
+    kernels += k11 + others + [k7] + k8 + [k10]
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

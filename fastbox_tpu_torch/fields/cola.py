@@ -32,6 +32,7 @@ from scipy.integrate import quad
 from ..cosmology import background as bg
 from ..device import resolve
 from ..grid import GridSpec
+from ..ops import fft_safe
 from ..ops.cuda import lattice_cic as k11
 from ..ops.painting import compensation
 from . import lattice_cic as twin
@@ -354,7 +355,7 @@ class ColaEngine:
         if clock:
             clock.mark("paint")
 
-        dk = torch.fft.rfftn(rho / self.mean_per_cell - 1.0)
+        dk = fft_safe.rfftn(rho / self.mean_per_cell - 1.0)
         del rho
         if self.force_factor > 1:
             # Keep only modes that exist on the particle grid: beyond the
@@ -368,7 +369,7 @@ class ColaEngine:
         if self.gradient in ("fd4", "fd6"):
             # one inverse transform of the potential, then centred finite
             # differences (fd4: (8, -1)/12, fd6: (45, -9, 1)/60)
-            phi = torch.fft.irfftn(c * dk * self._k2_inv(), s=s).contiguous()
+            phi = fft_safe.irfftn(c * dk * self._k2_inv(), s).contiguous()
             del dk
             coeffs, denom = (((8.0, -1.0), 12.0) if self.gradient == "fd4"
                              else ((45.0, -9.0, 1.0), 60.0))
@@ -388,7 +389,7 @@ class ColaEngine:
                      self._kz_d[None, None, :])
 
             def comp(ax):
-                return torch.fft.irfftn(base * kvecs[ax], s=s).contiguous()
+                return fft_safe.irfftn(base * kvecs[ax], s).contiguous()
 
         F = torch.empty((3, N, N, N), dtype=self.dtype, device=self.device)
         if b is not None and b <= self.fuse_band:
@@ -460,8 +461,8 @@ class ColaEngine:
         # unbiased up to the particle Nyquist scale.
         comp_k = compensation(self.grid, "cic", self.dtype, self.device,
                               half=True)
-        delta_x = torch.fft.irfftn(torch.fft.rfftn(rho - 1.0) * comp_k,
-                                   s=self.grid.shape).to(self.dtype)
+        delta_x = fft_safe.irfftn(fft_safe.rfftn(rho - 1.0) * comp_k,
+                                  self.grid.shape).to(self.dtype)
         delta_x = delta_x.contiguous()
         del comp_k
         if not self.diagnostics:

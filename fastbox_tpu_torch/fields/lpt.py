@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..grid import GridSpec
+from ..ops import fft_safe
 
 __all__ = ["lpt_displacements", "second_order_growth"]
 
@@ -50,7 +51,7 @@ def lpt_displacements(delta_k, grid: GridSpec):
     delta_h = delta_k if delta_k.shape[-1] == H else delta_k[:, :, :H]
 
     def irfft(a):
-        return torch.fft.irfftn(a, s=grid.shape).contiguous()
+        return fft_safe.irfftn(a, grid.shape).contiguous()
 
     def grad_half(phi_h):
         # irfftn(i k_i phi_h) per axis; the Nyquist plane of the derivative
@@ -85,7 +86,7 @@ def lpt_displacements(delta_k, grid: GridSpec):
     S2 = S2 - dd(kxc, kyc) ** 2
     S2 = S2 - dd(kxc, kzc) ** 2
     S2 = S2 - dd(kyc, kzc) ** 2
-    phi2_h = torch.fft.rfftn(S2) * inv_k2
+    phi2_h = fft_safe.rfftn(S2) * inv_k2
     del S2
     psi2 = grad_half(phi2_h)
     return psi1, psi2

@@ -13,6 +13,7 @@ One module per TPU kernel it replaces:
 ``banded_interp``     K8 ``ops/pallas/banded_interp.py::banded_interp_pallas``
 ``half_draw``         K9 ``ops/pallas/half_draw.py::colored_complex_normal_pallas``,
                       ``colored_complex_normal_vz_pallas``
+``mmdft``             K10 ``ops/pallas/mmdft.py::dft_c2c_axis_pallas``
 ``lattice_cic``       K11 ``ops/pallas/lattice_cic.py::cic_paint_lattice_pallas``,
                       ``cic_gather_lattice_pallas``, ``cic_gather3_lattice_pallas``
 ====================  ===================================================

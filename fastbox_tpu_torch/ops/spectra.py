@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..grid import GridSpec
+from . import fft_safe
 from .cuda.binned_pk import binned_pk_full
 from .reduce import binned_weighted_sum_sumsq_count
 
@@ -119,7 +120,7 @@ def _binned_pk_half_core(grid: GridSpec, delta_x, bins, thr=None):
     rdtype = delta_x.dtype
     N = grid.N
     H = N // 2 + 1
-    half = torch.fft.rfftn(delta_x)
+    half = fft_safe.rfftn(delta_x)
     pk = (half * torch.conj(half)).real / grid.boxfactor
     idx = _bin_index(grid, bins, thr, H, rdtype, delta_x.device)
     w = np.full(H, 2.0)

@@ -70,6 +70,7 @@ from .filters import pca
 from .grid import GridSpec
 from .models import noise as noise_mod
 from .models.foregrounds import ForegroundModel, gaussian_smooth_wrap
+from .ops import fft_safe
 from .ops import rsd as rsd_ops
 from .ops import spectra as spectra_ops
 from .ops.cuda import half_draw
@@ -490,7 +491,7 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         if rows_mode:
             # (1) real white rows, one half-spectrum FFT, x sqrt(P)
             rows = row_fields(generator, draws, seed)
-            delta_k = torch.fft.rfftn(rows.pop("density")) \
+            delta_k = fft_safe.rfftn(rows.pop("density")) \
                 * (N ** -1.5) * amp_half
             vz_k = None
             draws = rows
@@ -512,8 +513,8 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         # and the two inverse transforms
         if vz_k is None:
             vz_k = torch.complex(-delta_k.imag * vz_w, delta_k.real * vz_w)
-        delta_x = torch.fft.irfftn(delta_k, s=grid.shape)
-        vel_z = torch.fft.irfftn(vz_k, s=grid.shape)
+        delta_x = fft_safe.irfftn(delta_k, grid.shape)
+        vel_z = fft_safe.irfftn(vz_k, grid.shape)
         del vz_k
         clock.mark("velocity_irfft")
 
@@ -600,7 +601,7 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         clock.mark("pca")
 
         # (9) binned P(k) of the cleaned cube and the density
-        ck = torch.fft.rfftn(cleaned)
+        ck = fft_safe.rfftn(cleaned)
         p_clean = (ck.real.square() + ck.imag.square()) / boxf
         del ck
         # (cuFFT may hand back permuted strides; the kernels read C order)
