@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --step-1024   # only: does a 1024^3 step fit?
+    python3 chip_smoke.py --truth-256   # only: the truth gate at 256^3
 
 from the root of a checkout, on a machine with a CUDA GPU (written for an
 H100, sm_90a) and the CUDA toolkit.  It exits non-zero, printing no result,
@@ -13,7 +14,8 @@ failure:
   2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
-     times (median of 11); K11 (lattice CIC paint, gather, three-mesh
+     times (median of 11); K4t (K4's telescoped mode) against its f64 twin
+     and against K4 on the same inputs; K11 (lattice CIC paint, gather, three-mesh
      gather) for bands B = 1, 2, 3, and in f64 against the exact index_add_
      scatter and gather; K5 on the anisotropic 256^3 half spectra and K6 on
      a 256^3 cube, also in f64 against an f64 index_add_ reduction; K9a/b
@@ -48,7 +50,10 @@ failure:
      remap with unwrapped coordinates, counted), the step against the
      single pipeline in noise_scheme='rows' on the same seeds,
      make_ensemble_pipeline over the mesh against the mesh-less call
-     (bitwise), and rsd_method='nearest';
+     (bitwise), and rsd_method='nearest'; then the pallas_pk='v2t' path:
+     the 256^3 pipeline (two realisations, counted: K4t once per
+     realisation, K4 never) against the default run on the same draws, and
+     one 256^3 B=2 step with 'v2t' on the same mesh, counted;
   8. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
      4 Gpc box, z 15 -> 0 in 16 steps, lattice_B=3, spectral gradient, f32):
      three realisations with the kernels (one with keep_velocities=True and
@@ -65,7 +70,22 @@ failure:
      against the f64 CPU run of phase 5; COLA at 256^3 on the same white
      noise as phase 8, its K10 count held to the code's, against the cuFFT
      engine and bench_cola.py's health bounds.  Every phase before it runs
-     with the route off and must launch K10 zero times.
+     with the route off and must launch K10 zero times;
+ 10. the truth gate (fastbox_tpu_torch.truth_gate) at scripts/truth_gate.py's
+     defaults, 128^3 in a 2 Gpc box at z=0.8, keys 1000-1003: the f64
+     oracle and the f32 floor on the CPU, then every variant that runs on
+     the card (pallas_dft needs an axis K10 takes, so it runs from 256^3
+     on), each against the oracle per bin: pk_density within 1e-4,
+     pk_cleaned within the 5e-2 sanity bound (pca_subspace, a different
+     estimator, is reported only), and pk_v2t within 1e-6 of
+     native_highest; K4t counted once per key.
+
+``--truth-256`` runs the gate at the bench size instead: the 256^3 cube in
+the 4 Gpc box over 8 keys with every variant, the anisotropic 4 x 4 x 2 Gpc
+box over 8 keys (native_highest; per seed, the card's largest pk_cleaned
+error over the CPU f32 floor's), and the sharded step (B = 8) and the
+single pipeline in noise_scheme='rows' against their f64 CPU run on the
+same rows; its f64 CPU oracles take minutes.
 
 The last two lines of standard output are the per-kernel JSON and the
 device JSON.  Imports nothing of JAX.
@@ -101,6 +121,9 @@ KERNELS = {
                       "fastbox_tpu/ops/pallas/rsd_interp.py:53"),
     "binned_pk_half_dual_v2": ("fastbox_tpu_torch/csrc/binned_pk_v2.cu",
                                "fastbox_tpu/ops/pallas/binned_pk_v2.py:90"),
+    # the telescoped body of the same function (:63-71, :162-173)
+    "binned_pk_half_dual_v2t": ("fastbox_tpu_torch/csrc/binned_pk_v2.cu",
+                                "fastbox_tpu/ops/pallas/binned_pk_v2.py:63"),
     "cic_paint_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
                           "fastbox_tpu/ops/pallas/lattice_cic.py:289"),
     "cic_gather_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
@@ -150,6 +173,14 @@ K10 = "dft_c2c_axis"
 # K10 launches per 'half' pipeline realisation on the route: the delta_x
 # and vel_z inverses and the cleaned cube's forward, each on axes 0 and 1.
 K10_PER_PIPELINE = 2 * 3
+K4, K4T = "binned_pk_half_dual_v2", "binned_pk_half_dual_v2t"
+# The truth gate: scripts/truth_gate.py's defaults, and --truth-256's cells
+GATE_N, GATE_BOX, GATE_KEYS = 128, 2e3, range(1000, 1004)
+GATE256_KEYS = range(1000, 1008)
+# K4t in f32 against its f64 twin, and against K4 in f32 ulp per bin
+K4T_TWIN_BOUND, K4T_K4_ULP = 1e-6, 2
+# the v2t path against the default one on the same draws, per bin
+V2T_BOUND = 1e-6
 
 
 def log(msg: str) -> None:
@@ -376,6 +407,58 @@ def phase_k4(dev, grid) -> dict:
     # terms and their sums (6)
     return dict(name="binned_pk_half_dual_v2", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(nbytes(p1, p2, *args) + 3 * nbytes(got[0]),
+                           p1.numel() * 13))
+
+
+def phase_k4t(dev, grid) -> dict:
+    """K4t at K4's 256^3 shapes on powers uniform in [0.1, 5), the inputs
+    of fastbox_tpu's own test of the telescoped mode
+    (tests/test_binned_pk_v2.py:15-24): a prefix difference loses
+    eps * prefix / bin, and heavy-tailed powers, whose largest mode
+    dominates later prefixes, would measure that cancellation rather than
+    the kernel.  Against its f64 twin, against K4 in f32 ulp, bitwise
+    repeatable."""
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.ops.cuda import binned_pk_v2 as k
+
+    N, H = grid.N, grid.N // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(41)
+    p1, p2 = (torch.rand((N, N, H), generator=g, device=dev) * 4.9 + 0.1
+              for _ in range(2))
+    fi2 = torch.as_tensor(spectra._index_sq(grid), device=dev)
+    thr = torch.as_tensor(spectra.kbin_thresholds(
+        grid, spectra.default_kbins(grid, 20)), device=dev)
+    wz = torch.full((H,), 2.0, device=dev)
+    wz[0] = wz[-1] = 1.0
+    args = (fi2, fi2, fi2[:H].contiguous(), wz, thr)
+    got = k.binned_pk_half_dual_v2_cuda(p1, p2, *args, telescoped=True)
+    again = k.binned_pk_half_dual_v2_cuda(p1, p2, *args, telescoped=True)
+    k4 = k.binned_pk_half_dual_v2_cuda(p1, p2, *args)
+    ref = k.binned_pk_half_dual_v2_plain(p1.double(), p2.double(), *args[:3],
+                                         wz.double(), thr, telescoped=True)
+    rel = rel_by_bin(got, ref)
+    ulps = max((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max().item() for a, b in zip(got, k4))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"K4t binned_pk_half_dual_v2t: max rel err vs f64 twin {rel:.3e}, "
+        f"vs K4 {ulps} f32 ulp, bitwise repeatable {bitwise}")
+    check(rel <= K4T_TWIN_BOUND, f"K4t rel err {rel}")
+    check(ulps <= K4T_K4_ULP, f"K4t vs K4: {ulps} ulp")
+    check(bitwise, "K4t not bitwise repeatable")
+    ms = median_ms(lambda: k.binned_pk_half_dual_v2_cuda(p1, p2, *args,
+                                                         telescoped=True))
+    plain_ms = median_ms(lambda: k.binned_pk_half_dual_v2_plain(
+        p1, p2, *args, telescoped=True))
+    err = max((a.double() - b).abs().max().item() for a, b in zip(got, ref))
+    bins = spectra.default_kbins(grid, 20)
+    idx = spectra._bin_index(grid, bins, thr.cpu().numpy(), H, torch.float32,
+                             dev)
+    w = wz[None, None, :]
+    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2), thr.numel() + 1)
+    # K4's bytes and operations: the prefix scan is nbins^2 per block
+    return dict(name=K4T, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
                 **roofline(nbytes(p1, p2, *args) + 3 * nbytes(got[0]),
                            p1.numel() * 13))
 
@@ -1191,10 +1274,10 @@ def run_step(step, dev, label: str, seeds) -> tuple:
     return out, wall
 
 
-def phase_sharded(dev, cosmo, grid) -> tuple:
+def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     """The sharded ensemble step on a one-rank ('ens' 1, 'space' 1) mesh
-    under NCCL, and the rest of the parallel/ slice; returns (K7 and K8's
-    rows, the launches of each on its path)."""
+    under NCCL, the rest of the parallel/ slice, then the v2t path; returns
+    (K8's row, the launches of K7, K8 and K4t each on its path)."""
     import tempfile
 
     import torch.distributed as dist
@@ -1346,8 +1429,55 @@ def phase_sharded(dev, cosmo, grid) -> tuple:
     fn_near(torch.Generator(device=dev).manual_seed(1))
     run_pipeline(fn_near, dev, "rsd_method='nearest' 256^3", grid,
                  generator=torch.Generator(device=dev).manual_seed(2))
+    launches[K4T] = phase_v2t(dev, cosmo, grid, fn256, mesh)
     dist.destroy_process_group()
     return [k8], launches
+
+
+def phase_v2t(dev, cosmo, grid, fn256, mesh) -> int:
+    """pallas_pk='v2t': the 256^3 pipeline, two realisations on supplied
+    draws, must launch K4t once each and K4 never, and agree with the
+    default run on the same draws; then one 256^3 B=2 step with 'v2t' on
+    the one-rank mesh, K4t once per realisation's slab.  Returns K4t's
+    launches on both."""
+    from fastbox_tpu_torch.parallel import make_sharded_ensemble_step
+    from fastbox_tpu_torch.pipeline import (PipelineConfig, draw_inputs,
+                                            make_pipeline)
+
+    cfg = PipelineConfig(pallas_pk="v2t")
+    fn = make_pipeline(grid, cosmo, cfg, device=dev)
+    draws = [draw_inputs(grid, torch.Generator().manual_seed(s))
+             for s in (61, 62)]
+    runs, counts = counted("the v2t pipeline", (K4T,), lambda: [
+        run_pipeline(fn, dev, f"v2t 256^3 realisation {i}", grid, draws=d)
+        for i, d in enumerate(draws)])
+    check(counts[K4T] == len(draws) and counts.get(K4, 0) == 0,
+          f"v2t pipeline: K4t {counts[K4T]}, K4 {counts.get(K4, 0)} launches")
+    launches = counts[K4T]
+    full = populated_bins(grid, dev)
+    for i, (run, d) in enumerate(zip(runs, draws)):
+        base = fn256(draws=d)
+        for name in ("pk_density", "pk_cleaned"):
+            rel = np.abs(run["out"][name].double().cpu().numpy()[full]
+                         / base[name].double().cpu().numpy()[full] - 1)
+            log(f"v2t vs default, realisation {i}, {name}: largest per-bin "
+                f"rel diff {rel.max():.3e}")
+            check(rel.max() <= V2T_BOUND, f"v2t vs default {name}: {rel.max()}")
+    step = make_sharded_ensemble_step(mesh, grid, cosmo, cfg, dev)
+    seeds = [500, 501]
+    out, counts = counted("the sharded step, v2t", (K4T,), lambda: run_step(
+        step, dev, "sharded 256^3 B=2 v2t", seeds)[0])
+    check(counts[K4T] == len(seeds) and counts.get(K4, 0) == 0,
+          f"v2t step: K4t {counts[K4T]}, K4 {counts.get(K4, 0)} launches")
+    base = make_sharded_ensemble_step(mesh, grid, cosmo, PipelineConfig(),
+                                      dev)(seeds=seeds)
+    for name in ("pk_density", "pk_cleaned"):
+        rel = np.abs(out[name].double().cpu().numpy()[:, full]
+                     / base[name].double().cpu().numpy()[:, full] - 1)
+        log(f"v2t step vs default step, same seeds, {name}: largest per-bin "
+            f"rel diff {rel.max():.3e}")
+        check(rel.max() <= V2T_BOUND, f"v2t step vs default {name}")
+    return launches + counts[K4T]
 
 
 def explore_1024(dev) -> None:
@@ -1555,6 +1685,226 @@ def phase_cola_route(dev, grid, cosmo0, white, d_fft) -> int:
     return n
 
 
+def run_gate(dev, grid, keys, variants=None, label: str = "gate") -> tuple:
+    """make_truth on the CPU, then check_truth on the card, with launch
+    counters reset around the check; returns (truth, summary, spectra,
+    counts)."""
+    from fastbox_tpu_torch import truth_gate as tg
+    from fastbox_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    truth = tg.make_truth(grid, keys, log=log)
+    log(f"{label}: truth phase ({len(keys)} keys, CPU f64 and f32) "
+        f"{time.perf_counter() - t0:.1f} s")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, spectra = tg.check_truth(truth, variants, dev, log=log)
+    counts = _build.launch_counts()
+    log(f"{label}: check phase {time.perf_counter() - t0:.1f} s; launch "
+        f"counts {json.dumps(counts)}")
+    log(f"{label}: summary {json.dumps(summary)}")
+    floor = tg._rel(truth["f32_pk_cleaned"], truth["pk_cleaned"]).max(axis=0)
+    log(f"{label}: CPU f32 floor per bin, pk_cleaned: "
+        + " ".join(f"{v:.2e}" for v in floor))
+    for name, sp in spectra.items():
+        rel = tg._rel(sp["pk_cleaned"], truth["pk_cleaned"]).max(axis=0)
+        log(f"{label}: {name} per bin, pk_cleaned: "
+            + " ".join(f"{v:.2e}" for v in rel))
+    return truth, summary, spectra, counts
+
+
+def phase_gate(dev) -> int:
+    """Phase 10: the truth gate at scripts/truth_gate.py's defaults; every
+    variant that runs on the card against the f64 oracle.  Returns K4t's
+    launches (the pk_v2t variant)."""
+    from fastbox_tpu_torch import truth_gate as tg
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda.mmdft import supported_length
+
+    grid = GridSpec.create(box_scale=GATE_BOX, nsamp=GATE_N, redshift=Z)
+    _, summary, spectra, counts = run_gate(dev, grid, GATE_KEYS,
+                                           label=f"gate {GATE_N}^3")
+    ran = {n for n, v in summary["variants"].items() if "skipped" not in v}
+    # bm_draw needs a box-Muller truth; pallas_dft an axis K10 takes
+    want = set(tg.VARIANTS) - {"bm_draw"}
+    if not supported_length(GATE_N):
+        want.discard("pallas_dft")
+    check(ran == want, f"gate: ran {sorted(ran)}, expected {sorted(want)}")
+    for name in ran:
+        v = summary["variants"][name]
+        check(v["pk_density_max"] <= TRUTH_BOUND["pk_density"],
+              f"gate {name}: pk_density {v['pk_density_max']}")
+        # the subspace clean is another estimator: reported, not bounded
+        if name != "pca_subspace":
+            check(v["pk_cleaned_max"] <= TRUTH_BOUND["pk_cleaned"],
+                  f"gate {name}: pk_cleaned {v['pk_cleaned_max']}")
+    for name in ("pk_cleaned", "pk_density"):
+        a, b = spectra["pk_v2t"][name], spectra["native_highest"][name]
+        ok = np.isfinite(b) & (b != 0)
+        rel = float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok])))
+        log(f"gate: pk_v2t vs native_highest, {name}: largest per-bin rel "
+            f"diff {rel:.3e}")
+        check(rel <= V2T_BOUND, f"gate pk_v2t vs native_highest {name}")
+    n = counts.get(K4T, 0)
+    check(n == len(GATE_KEYS), f"gate: K4t launched {n} times")
+    check(counts.get(K10, 0) == (K10_PER_PIPELINE * len(GATE_KEYS)
+                                 if "pallas_dft" in ran else 0),
+          f"gate: K10 launched {counts.get(K10, 0)} times")
+    return n
+
+
+def per_seed(truth, got, keep) -> tuple:
+    """Per key: the largest pk_cleaned error of ``got`` and of the CPU f32
+    floor against the f64 oracle over the bins ``keep``."""
+    from fastbox_tpu_torch import truth_gate as tg
+
+    t = truth["pk_cleaned"]
+    card = tg._rel(got, t)[:, keep].max(axis=1)
+    floor = tg._rel(truth["f32_pk_cleaned"], t)[:, keep].max(axis=1)
+    return card, floor
+
+
+def step_truth(dev, grid, cosmo, cosmo_cpu) -> None:
+    """The sharded step (one-rank mesh, B = 8) and the single pipeline in
+    noise_scheme='rows' on the card, each against the port in f64 on the
+    CPU on the same rows (the step's own f32 row draws, cast up), beside
+    the CPU f32 run on the same rows."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fastbox_tpu_torch import truth_gate as tg
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.parallel import (make_mesh,
+                                            make_sharded_ensemble_step, rng)
+    from fastbox_tpu_torch.parallel.mesh import init_single_rank
+    from fastbox_tpu_torch.pipeline import (ROWS_DRAW_NAMES, PipelineConfig,
+                                            make_pipeline)
+
+    _build.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    init_single_rank(dev, tempfile.mkdtemp(prefix="pg_",
+                                           dir=_build.BUILD_ROOT.parent))
+    cfg = PipelineConfig(noise_scheme="rows")
+    seeds = list(GATE256_KEYS)
+    step = make_sharded_ensemble_step(make_mesh(device=dev), grid, cosmo, cfg,
+                                      dev)
+    got = step(seeds=seeds)
+    dist.destroy_process_group()
+    single = make_pipeline(grid, cosmo, cfg, device=dev)
+    cpu64 = make_pipeline(grid, cosmo_cpu, dataclasses.replace(
+        cfg, dtype="float64"), device="cpu")
+    cpu32 = make_pipeline(grid, cosmo_cpu, cfg, device="cpu")
+    res = {k: [] for k in ("t", "f", "step", "single")}
+    t0 = time.perf_counter()
+    for s in seeds:
+        rows = {k: v.cpu() for k, v in rng.row_draws(
+            s, ROWS_DRAW_NAMES, grid.N, device=dev).items()}
+        res["t"].append(cpu64(draws=rows)["pk_cleaned"].numpy())
+        res["f"].append(cpu32(draws=rows)["pk_cleaned"].double().numpy())
+        del rows
+        res["single"].append(single(seed=s)["pk_cleaned"].double().cpu()
+                             .numpy())
+    log(f"step truth: the CPU f64 and f32 runs took "
+        f"{time.perf_counter() - t0:.1f} s")
+    res["step"] = got["pk_cleaned"].double().cpu().numpy()
+    t = np.stack(res["t"])
+    truth = {"pk_cleaned": t, "f32_pk_cleaned": np.stack(res["f"])}
+    keep = populated_bins(grid, dev)
+    for name in ("step", "single"):
+        card, floor = per_seed(truth, np.asarray(res[name]), keep)
+        rel = tg._rel(np.asarray(res[name]), t).max(axis=0)
+        log(f"step truth: {name} per bin, pk_cleaned: "
+            + " ".join(f"{v:.2e}" for v in rel))
+        log(f"step truth: {name} per seed, largest pk_cleaned error / CPU f32 "
+            "floor: " + " ".join(f"{c:.2e}/{f:.2e}" for c, f in
+                                 zip(card, floor)))
+    spread = tg._rel(np.asarray(res["step"]), np.asarray(res["single"]))
+    log(f"step truth: step vs single, largest per-bin pk_cleaned rel diff "
+        f"{spread.max():.3e}")
+
+
+def bin1_source(dev, grid, cosmo, cosmo_cpu, key: int) -> None:
+    """Where the card's pk_cleaned error in the first retained bin of
+    realisation ``key`` arises: the f32 data cube (stages 1-7) or the f32
+    clean (8-9).  Each f32 half is swapped for the f64 oracle's, on the
+    card and on the CPU, and the result held to the oracle."""
+    import dataclasses
+
+    from fastbox_tpu_torch import truth_gate as tg
+    from fastbox_tpu_torch.pipeline import PipelineConfig, make_pipeline
+
+    draws = tg.gate_draws(grid, key)
+    cfg = PipelineConfig()
+    f64 = make_pipeline(grid, cosmo_cpu, dataclasses.replace(
+        cfg, dtype="float64"), device="cpu")
+    card = make_pipeline(grid, cosmo, cfg, device=dev)
+    cpu32 = make_pipeline(grid, cosmo_cpu, cfg, device="cpu")
+    pre64, pre_g, pre_c = (f.pre(draws=draws) for f in (f64, card, cpu32))
+    t = f64.post(pre64)["pk_cleaned"].numpy()
+    err_g = norm_err(pre_g["data"].cpu(), pre64["data"])
+    log(f"bin-1 source, key {key}: f32 data cube vs f64, max|diff| / "
+        f"max|data|: card {err_g:.2e}, "
+        f"CPU {norm_err(pre_c['data'], pre64['data']):.2e}")
+    runs = {
+        "card, f32 data and clean": lambda: card.post(pre_g),
+        "CPU, f32 data and clean": lambda: cpu32.post(pre_c),
+        "f64 clean of the card's f32 data": lambda: f64.post(
+            {**pre64, "data": pre_g["data"].double().cpu()}),
+        "f64 clean of the CPU's f32 data": lambda: f64.post(
+            {**pre64, "data": pre_c["data"].double()}),
+        "card f32 clean of the f64 data": lambda: card.post(
+            {**pre_g, "data": pre64["data"].float().to(dev)}),
+        "CPU f32 clean of the f64 data": lambda: cpu32.post(
+            {**pre_c, "data": pre64["data"].float()}),
+    }
+    for label, run in runs.items():
+        got = run()["pk_cleaned"].double().cpu().numpy()
+        signed = (got[0] - t[0]) / abs(t[0])
+        log(f"bin-1 source, key {key}, {label}: bin 1 {signed:+.2e}, bins "
+            f"2-5 largest {tg._rel(got, t)[1:5].max():.2e}")
+
+
+def truth_256(dev) -> None:
+    """``--truth-256``: the gate at the bench size, the anisotropic box,
+    and the step against the single rows-mode pipeline.  Reports; fails
+    only if a pk_density or a finite result is off."""
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.grid import GridSpec
+
+    cube = GridSpec.create(box_scale=BOX, nsamp=N_MAIN, redshift=Z)
+    truth, summary, spectra, _ = run_gate(dev, cube, GATE256_KEYS,
+                                          label=f"gate {N_MAIN}^3 cube")
+    for name, v in summary["variants"].items():
+        if "skipped" not in v:
+            check(v["pk_density_max"] <= TRUTH_BOUND["pk_density"],
+                  f"gate 256^3 {name}: pk_density {v['pk_density_max']}")
+    # the first retained bin, signed, per key: card and CPU f32 floor
+    t = truth["pk_cleaned"][:, 0]
+    card = (spectra["native_highest"]["pk_cleaned"][:, 0] - t) / np.abs(t)
+    floor = (truth["f32_pk_cleaned"][:, 0] - t) / np.abs(t)
+    log("gate 256^3 cube, bin 1 signed error per key, card / CPU f32: "
+        + " ".join(f"{c:+.2e}/{f:+.2e}" for c, f in zip(card, floor)))
+    cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
+    cosmo_cpu = build_cosmology(COSMO, redshift=Z)
+    bin1_source(dev, cube, cosmo, cosmo_cpu,
+                int(truth["keys"][np.argmax(np.abs(card))]))
+    ga = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_MAIN, redshift=Z)
+    truth, _, spectra, _ = run_gate(dev, ga, GATE256_KEYS, ["native_highest"],
+                                    label=f"gate {N_MAIN}^3 anisotropic")
+    full = populated_bins(ga, dev)
+    _, moved = moved_modes(ga, dev)
+    keep = full & ~moved
+    card, floor = per_seed(truth, spectra["native_highest"]["pk_cleaned"],
+                           keep)
+    log("anisotropic gate, bins of unchanged membership, per seed: card "
+        "largest pk_cleaned error / CPU f32 floor = ratio: "
+        + " ".join(f"{c:.2e}/{f:.2e}={c / f:.2f}" for c, f in
+                   zip(card, floor)))
+    check(bool(np.all(np.isfinite(card))), "anisotropic gate: not finite")
+    step_truth(dev, cube, cosmo, cosmo_cpu)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1590,15 +1940,19 @@ def main() -> None:
     if "--step-1024" in sys.argv[1:]:
         explore_1024(dev)
         return
+    if "--truth-256" in sys.argv[1:]:
+        truth_256(dev)
+        return
     grid = GridSpec.create(box_scale=BOX, nsamp=256, redshift=Z)
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
     kernels = [phase_k1(dev), phase_k2(dev, grid, cosmo),
                phase_k3(dev, grid, cosmo), phase_k4(dev, grid)]
+    k4t = phase_k4t(dev, grid)
     k11 = phase_k11(dev)
     others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
     k7 = phase_k7(dev, grid, cosmo)
     k10 = phase_k10(dev)
-    for r in kernels + k11 + others + [k7, k10]:
+    for r in kernels + [k4t] + k11 + others + [k7, k10]:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -1656,15 +2010,16 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     truth_aniso(dev, cosmo_cpu, cosmo)
 
-    k8, launches = phase_sharded(dev, cosmo, grid)
-    for r in [k7] + k8:
+    k8, launches = phase_sharded(dev, cosmo, grid, fn256)
+    for r in [k7, k4t] + k8:
         r["launches"] = launches[r["name"]]
     cola = phase_cola(dev, k11)
 
     # The K10 route: the pipeline, then COLA, counted apart
     k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)
     phase_cola_route(dev, *cola)
-    kernels += k11 + others + [k7] + k8 + [k10]
+    phase_gate(dev)
+    kernels += [k4t] + k11 + others + [k7] + k8 + [k10]
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I64, _INT, _INT, _INT, _P),
+    "fbx_binned_pk_v2t": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                          _I64, _INT, _INT, _INT, _P),
     "fbx_binned_pk_half_dual": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                 _I64, _I64, _INT, _INT, _INT, _P),
     "fbx_binned_pk_full": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,

@@ -19,8 +19,10 @@ Every field is drawn with the row-keyed scheme (``parallel.rng``), so a
 realisation is a function of its seed alone, and the single pipeline in
 ``noise_scheme='rows'`` draws the same fields.  The kernels on the card:
 K8 (K3 beyond the band) in the RSD remap, K1 in supplied-normals mode for
-the radiometer noise, and K4 per slab for P(k) on cubic grids (K5 off
-them), with the per-slab sums all-reduced and the counts hoisted.
+the radiometer noise, and K4 per slab for P(k) on cubic grids (K4t with
+``pallas_pk='v2t'``; K5 off them), with the per-slab sums all-reduced and
+the counts hoisted.  ``pk_debias`` is subtracted from the retained cleaned
+bins, as the single pipeline does.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from ..ops.cuda.binned_pk import binned_pk_half_dual
 from ..ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
 from ..ops.reduce import binned_weighted_dual
 from ..ops.rsd import add_scaled_normal, remap_los_batched
-from ..pipeline import (PipelineConfig, _hi_bias, _hi_tb, _NoClock, _pk_route,
-                        amp_half_table)
+from ..pipeline import (PipelineConfig, _hi_bias, _hi_tb, _NoClock, _pk_debias,
+                        _pk_route, amp_half_table)
 from .fft import pfft2_local, pifft2_local, pirfft3_local, prfft3_local
 from .mesh import axis_group, ens_share, gather_ens
 from .rng import TAGS, row_normal
@@ -169,11 +171,13 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
     kzw_j = dev_tensor(kz_weight)
     kbins = np.asarray(spectra_ops.default_kbins(grid, config.nbins))
     nb = kbins.size
+    debias = _pk_debias(config, nb, device, dtype)
     e_ = np.concatenate([[0.0], kbins])
     kcent = dev_tensor(0.5 * (e_[1:] + e_[:-1])[1:])
     thr = spectra_ops.kbin_thresholds(grid, kbins)
     pk_route = _pk_route(config.pallas_pk, thr is not None)
-    if pk_route == "v2":
+    hoisted = pk_route in ("v2", "v2t")
+    if hoisted:
         fi2 = spectra_ops._index_sq(grid)
         fi2_j = dev_tensor(fi2, torch.int32)
         fi2_loc = fi2_j[rows].contiguous()
@@ -194,10 +198,13 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
 
     def bin_slab(p1, p2):
         """(sum w p1, sum w p1^2, sum w p2, count) per bin over this slab;
-        the count is the full cube's where it is hoisted (None)."""
-        if pk_route == "v2":
-            return (*binned_pk_half_dual_v2(p1, p2, fi2_loc, fi2_j, fi2h_j,
-                                            kzw_j, thr_j), None)
+        the count is the full cube's where it is hoisted (None).  K4t's
+        differences are linear, so this slab's share of each bin sums with
+        the other slabs' as K4's does."""
+        if hoisted:
+            return (*binned_pk_half_dual_v2(
+                p1, p2, fi2_loc, fi2_j, fi2h_j, kzw_j, thr_j,
+                telescoped=pk_route == "v2t"), None)
         if pk_route == "v1":
             return binned_pk_half_dual(p1, p2, kx2_loc, ky2_b, kz2h_b, kzw_j,
                                        edges2_j)
@@ -343,7 +350,7 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
             sums.append(torch.stack([s1, q1, s2]))
             cnts.append(cnt)
         sums = all_reduce(torch.stack(sums))                 # (B_loc, 3, nb)
-        cnt = cnt_j if pk_route == "v2" else all_reduce(torch.stack(cnts))
+        cnt = cnt_j if hoisted else all_reduce(torch.stack(cnts))
         s1, q1, s2 = sums.unbind(1)
         pk_mean = s1 / cnt
         var = torch.clamp(q1 / cnt - pk_mean ** 2, min=0.0)
@@ -358,7 +365,10 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         sigma = torch.sqrt(torch.clamp(dsq / N ** 3 - dmean ** 2, min=0.0))
         clock.mark("pk")
 
-        local = {"pk_cleaned": pk_mean[:, 1:], "pk_cleaned_err": pk_err[:, 1:],
+        pk_clean = pk_mean[:, 1:]
+        if debias is not None:
+            pk_clean = pk_clean - debias
+        local = {"pk_cleaned": pk_clean, "pk_cleaned_err": pk_err[:, 1:],
                  "pk_density": (s2 / cnt)[:, 1:], "sigma_data": sigma.to(dtype)}
         out = {k: gather_ens(mesh, v) for k, v in local.items()}
         out["k"] = kcent

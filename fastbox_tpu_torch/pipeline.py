@@ -15,7 +15,7 @@ cubic and anisotropic boxes.  The stages:
   7. radiometer noise                                          (K1)
   7b. instrument response: Gaussian beam in k_perp, k_par high-pass
   8. PCA foreground clean (FP32 GEMMs, eigh or subspace iteration)
-  9. binned P(k) of the cleaned cube and of the density       (K4 | K5)
+  9. binned P(k) of the cleaned cube and of the density  (K4 | K4t | K5)
 
 The host set-up (cosmology, instrument scalars, sqrt(P) on the half grid,
 the bin plan) runs once in ``make_pipeline``; the returned function runs
@@ -148,8 +148,9 @@ class PipelineConfig:
     draw_dtype: str | None = None
     threefry_noise: bool = False
     # P(k) reduction: 'auto' takes K4 on cubic grids and K5 elsewhere, 'v2'
-    # K4 (K5 with a warning off cubes), 'on' K5, 'off' the plain reduction
-    # (on any device); kernels on a GPU, their twins on the CPU
+    # K4 and 'v2t' its telescoped mode K4t (both K5 with a warning off
+    # cubes), 'on' K5, 'off' the plain reduction (on any device); kernels on
+    # a GPU, their twins on the CPU
     pallas_pk: str = "auto"
     # Density draw: 'auto'/'on' the fused colored draw K9a, 'vz' K9b (the
     # velocity spectrum from the same pass), 'off' the plain draw
@@ -185,10 +186,6 @@ class PipelineConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported "
                     f"(ROADMAP.md {item})")
-        if self.pallas_pk == "v2t":
-            raise NotImplementedError(
-                "pallas_pk='v2t' (K4's telescoped digitize) is not ported "
-                "(ROADMAP.md B4)")
 
 
 def _hi_bias(z):
@@ -207,12 +204,14 @@ class _NoClock:
 
 
 def draw_inputs(grid: GridSpec, generator: torch.Generator,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, method: str = "erfinv") -> dict:
     """The five ``draws`` arrays, drawn on ``generator.device`` in the
-    order the pipeline function consumes them."""
+    order the pipeline function consumes them; ``method`` is the density
+    draw's (``PipelineConfig.draw_method``)."""
     N = grid.N
     dev = generator.device
-    out = {"dens": gaussian.hermitian_half_noise(generator, grid, dtype)}
+    out = {"dens": gaussian.hermitian_half_noise(generator, grid, dtype,
+                                                 method=method)}
     out["rsd"] = torch.randn(grid.shape, generator=generator, dtype=dtype,
                              device=dev)
     out["fg"] = gaussian._complex_normal(generator, (N, N), dtype)
@@ -255,19 +254,35 @@ def vz_vectors(grid: GridSpec, vel_fac: float, dtype=torch.float32,
 
 
 def _pk_route(pallas_pk: str, cubic: bool) -> str:
-    """'v2' (K4, hoisted counts), 'v1' (K5) or 'plain', as fastbox_tpu
-    routes step (9) on a TPU (fastbox_tpu/pipeline.py:376-400)."""
+    """'v2' (K4, hoisted counts), 'v2t' (K4t, telescoped), 'v1' (K5) or
+    'plain', as fastbox_tpu routes step (9) on a TPU
+    (fastbox_tpu/pipeline.py:376-400)."""
     if pallas_pk == "off":
         return "plain"
     if pallas_pk == "on":
         return "v1"
     if cubic:
-        return "v2"
-    if pallas_pk == "v2":
+        return "v2t" if pallas_pk == "v2t" else "v2"
+    if pallas_pk in ("v2", "v2t"):
         warnings.warn(
-            "pallas_pk='v2' requires a cubic-exact grid (kbin_thresholds "
-            "returned None); falling back to the v1 kernel", stacklevel=3)
+            f"pallas_pk='{pallas_pk}' requires a cubic-exact grid "
+            "(kbin_thresholds returned None); falling back to the v1 kernel"
+            + (" and dropping telescoping" if pallas_pk == "v2t" else ""),
+            stacklevel=3)
     return "v1"
+
+
+def _pk_debias(config: PipelineConfig, nb: int, device, dtype):
+    """``config.pk_debias`` as a tensor (None when unset), checked to hold
+    one value per retained bin."""
+    if config.pk_debias is None:
+        return None
+    if len(config.pk_debias) != nb - 1:
+        raise ValueError(
+            f"pk_debias must have length {nb - 1} (the retained bins); "
+            f"got {len(config.pk_debias)}")
+    return torch.as_tensor(np.asarray(config.pk_debias), dtype=dtype,
+                           device=device)
 
 
 def make_pipeline(grid: GridSpec, cosmology: Cosmology,
@@ -379,18 +394,13 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     kzw_j = dev_tensor(kz_weight)
     kbins_edges = np.asarray(spectra_ops.default_kbins(grid, config.nbins))
     nb = kbins_edges.size
-    if config.pk_debias is not None and len(config.pk_debias) != nb - 1:
-        raise ValueError(
-            f"pk_debias must have length {nb - 1} (the retained bins); "
-            f"got {len(config.pk_debias)}")
-    debias_j = (None if config.pk_debias is None
-                else dev_tensor(config.pk_debias))
+    debias_j = _pk_debias(config, nb, device, dtype)
     e_ = np.concatenate([[0.0], kbins_edges])
     kcent_j = dev_tensor(0.5 * (e_[1:] + e_[:-1])[1:])
     thr = spectra_ops.kbin_thresholds(grid, kbins_edges)
     pk_route = _pk_route(config.pallas_pk, thr is not None)
-    if pk_route == "v2":
-        # the exact integer-lattice plan and its counts (K4)
+    if pk_route in ("v2", "v2t"):
+        # the exact integer-lattice plan and its counts (K4, K4t)
         fi2 = spectra_ops._index_sq(grid)
         fi2_j = dev_tensor(fi2, torch.int32)
         fi2h_j = dev_tensor(fi2[:H], torch.int32)
@@ -606,10 +616,10 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
         del ck
         # (cuFFT may hand back permuted strides; the kernels read C order)
         p_dens = pre_out["p_dens"]
-        if pk_route == "v2":
+        if pk_route in ("v2", "v2t"):
             s1, q1, s2 = binned_pk_half_dual_v2(
                 p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j,
-                fi2h_j, kzw_j, thr_j)
+                fi2h_j, kzw_j, thr_j, telescoped=pk_route == "v2t")
             cnt = cnt_j
         elif pk_route == "v1":
             s1, q1, s2, cnt = binned_pk_half_dual(

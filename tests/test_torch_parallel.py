@@ -189,6 +189,33 @@ def test_rows_pipeline_draws_from_a_seed(inputs):
         half(seed=31)
 
 
+def test_step_applies_pk_debias(inputs, mesh1):
+    """The step subtracts pk_debias from the retained cleaned bins, as the
+    single pipeline does, and refuses a wrong length with its message."""
+    kw = CONFIGS["instrument"][1]
+    d = tuple(np.linspace(-1e-3, 1e-3, kw["nbins"] - 1))
+    args = (mesh1, inputs["grid"], inputs["cosmo"])
+    cfg = PipelineConfig(**kw, pk_debias=d)
+    seeds = [21, 22]
+    plain = make_sharded_ensemble_step(*args, PipelineConfig(**kw), "cpu",
+                                       inputs["amp"])(seeds=seeds)
+    got = make_sharded_ensemble_step(*args, cfg, "cpu",
+                                     inputs["amp"])(seeds=seeds)
+    want = plain["pk_cleaned"] - torch.tensor(d, dtype=torch.float64)
+    assert torch.equal(got["pk_cleaned"].nan_to_num(), want.nan_to_num())
+    for k in OUTPUTS[1:]:
+        assert torch.equal(got[k].nan_to_num(), plain[k].nan_to_num()), k
+    single = make_pipeline(inputs["grid"], inputs["cosmo"], cfg,
+                           device="cpu", amp_half=inputs["amp"])
+    for i, seed in enumerate(seeds):
+        assert_outputs_close({k: got[k][i] for k in OUTPUTS},
+                             single(seed=seed))
+    with pytest.raises(ValueError, match="pk_debias must have length 7"):
+        make_sharded_ensemble_step(*args, PipelineConfig(**kw,
+                                                         pk_debias=(0.0,)),
+                                   "cpu", inputs["amp"])
+
+
 def spec(name: str, **kw) -> dict:
     """A ``parallel.local`` task spec of configuration ``name``."""
     box, config = CONFIGS[name]

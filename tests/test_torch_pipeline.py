@@ -180,9 +180,11 @@ def cosmo_port():
     ("rsd_method", "nearest"),
 ])
 def test_unported_knobs_raise(knob, value):
-    """Knobs of unported paths raise; the row-keyed draws and the
-    'nearest' remap are ported, and those two values are accepted."""
-    if (knob, value) in (("noise_scheme", "rows"), ("rsd_method", "nearest")):
+    """Knobs of unported paths raise; the row-keyed draws, the 'nearest'
+    remap and K4's telescoped mode are ported, and those values are
+    accepted."""
+    if (knob, value) in (("noise_scheme", "rows"), ("rsd_method", "nearest"),
+                         ("pallas_pk", "v2t")):
         assert getattr(PipelineConfig(**{knob: value}), knob) == value
         return
     with pytest.raises(NotImplementedError):
