@@ -13,23 +13,29 @@ failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
-     the 256^3 pipeline and the 256^3 COLA engine give it, with CUDA-event
-     times (median of 11); K4t (K4's telescoped mode) against its f64 twin
-     and against K4 on the same inputs; K11 (lattice CIC paint, gather, three-mesh
-     gather) for bands B = 1, 2, 3, and in f64 against the exact index_add_
-     scatter and gather; K5 on the anisotropic 256^3 half spectra and K6 on
-     a 256^3 cube, also in f64 against an f64 index_add_ reduction; K9a/b
-     in supplied mode bitwise, in generated mode by the moments of the
-     normals; K7 at bands 2 and 4 in f32 and f64; K10 (the factored DFT)
-     at the K10 route's planar shapes (256, 256, 129) and (512, 512, 257),
-     both axes and signs, against its twin and complex128 torch.fft.  Each
+     the 256^3 pipeline and the 256^3 COLA engine give it, with device
+     times per call (median_ms: CUDA events around back-to-back calls,
+     median of 11); K4t (K4's telescoped mode) against its f64
+     twin and against K4 on the same inputs; K11 (lattice CIC paint,
+     gather, three-mesh gather) for bands B = 1, 2, 3, and in f64 against
+     the exact index_add_ scatter and gather, the paint bitwise equal to its
+     twin and repeatable (f32 and f64, weighted and not, clustered
+     displacements) and timed at every B beside the index_add_ paint; K5 on
+     the anisotropic 256^3 half spectra and K6 on a 256^3 cube, also in f64
+     against an f64 index_add_ reduction; K9a/b in supplied mode bitwise, in
+     generated mode by the moments of the normals; K7 at bands 2 and 4 in
+     f32 and f64; K10 (the axis FFT) at every supported length, both axes
+     and signs, f32 and f64, then at the K10 route's planar shapes (256,
+     256, 129) and (512, 512, 257) against its twin and complex128
+     torch.fft, timed beside torch.fft.fft along the same axis.  Each
      kernel's row also carries its bound (bytes or operations over the
      H100's published peaks) and, where one PyTorch call computes the same
      function, that call's time (library_ms);
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
-     launch counters reset just before and read just after;
+     launch counters reset just before and read just after, and the pca
+     stage's ms;
   5. a truth check: the 256^3 pipeline in f32 on the card against the port
      on the CPU in f64 (plain twins), on the same supplied draws;
   6. the pipeline's other entry points and configurations, each with launch
@@ -60,8 +66,8 @@ failure:
      per-component gathers), then 512^3 in the same box and in an 8 Gpc box,
      with launch counters reset just before and read just after; then, on
      the same white noise, the engine with the plain twins on the card: the
-     first force evaluation per particle, the final std(delta) and the
-     binned P(k), and bench_cola.py's health bounds;
+     first force evaluation per particle, the final field (bitwise equal),
+     std(delta) and the binned P(k), and bench_cola.py's health bounds;
   9. the K10 route of the cube transforms (ops/mmfft.PALLAS_DFT on, and
      off again after): the pipeline at 256^3 (three realisations) and 512^3
      (two), each with launch counters reset just before and read just
@@ -83,7 +89,8 @@ failure:
 ``--truth-256`` runs the gate at the bench size instead: the 256^3 cube in
 the 4 Gpc box over 8 keys with every variant, the anisotropic 4 x 4 x 2 Gpc
 box over 8 keys (native_highest; per seed, the card's largest pk_cleaned
-error over the CPU f32 floor's), and the sharded step (B = 8) and the
+error over the CPU f32 floor's; the cube's bin-1 worst over the keys for
+the card and the floor), and the sharded step (B = 8) and the
 single pipeline in noise_scheme='rows' against their f64 CPU run on the
 same rows; its f64 CPU oracles take minutes.
 
@@ -170,6 +177,7 @@ TRUTH_BOUND = {"pk_density": 1e-4, "pk_cleaned": 5e-2}
 # bound of fastbox_tpu's own test (tests/test_pallas_dft.py), of max|y|.
 K10_BOUND = 2e-6
 K10 = "dft_c2c_axis"
+K10_LENGTHS = (256, 512, 768, 1024, 1536, 2048)   # supported_length's
 # K10 launches per 'half' pipeline realisation on the route: the delta_x
 # and vel_z inverses and the cleaned cube's forward, each on axes 0 and 1.
 K10_PER_PIPELINE = 2 * 3
@@ -193,17 +201,27 @@ def check(cond: bool, what: str) -> None:
 
 
 def median_ms(fn) -> float:
-    """Median CUDA-event time of ``fn`` over REPS calls, after one warm-up."""
+    """Device time of one call of ``fn`` in ms: the median over REPS
+    samples, after one warm-up, of CUDA events around a run of back-to-back
+    calls (enough for ~2 ms of device work, at most 50) over their number.
+    The queued calls hide the host's launch overhead, as on the main path;
+    one call alone between two events would count it."""
     fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    calls = max(1, min(50, int(2.0 / max(a.elapsed_time(b), 1e-3))))
     times = []
     for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -463,10 +481,30 @@ def phase_k4t(dev, grid) -> dict:
                            p1.numel() * 13))
 
 
+def clustered_disp(d, B: int) -> tuple:
+    """``d`` with every site within B - 1/2 cells of three centres (one on
+    the periodic corner) pulled onto one point near its centre, as in a
+    collapsed halo: up to ~(2B)^3 sources in one cell, |d| < B."""
+    N = d[0].shape[0]
+    site = torch.arange(N, device=d[0].device, dtype=d[0].dtype)
+    out = [a.clone() for a in d]
+    for cen in ((N // 2,) * 3, (2, N - 3, 5), (N - 1, 0, N - 1)):
+        off = [((site - c + N // 2) % N - N // 2).reshape(
+            [N if i == ax else 1 for i in range(3)])
+            for ax, c in enumerate(cen)]
+        near = (off[0] ** 2 + off[1] ** 2 + off[2] ** 2) <= (B - 0.5) ** 2
+        for a, o in zip(out, off):
+            a.copy_(torch.where(near, 0.3 - o, a))
+    return tuple(out)
+
+
 def phase_k11(dev) -> list[dict]:
     """K11's three entry points against their twins at 256^3, B = 1, 2, 3
     (open band, displacements uniform in (-B, B)), and in f64 against the
-    exact scatter; times at B = 3, the band the late COLA steps take."""
+    exact scatter.  The paint must equal its twin bit for bit (f32 and f64,
+    weighted and not, on clustered displacements too) and repeat bit for
+    bit; its time at every B beside the index_add_ paint at that B.  The
+    rows' times are at B = 3, the band the late COLA steps take."""
     from fastbox_tpu_torch.fields.cola import cic_gather, cic_paint_particles
     from fastbox_tpu_torch.ops.cuda import lattice_cic as k
 
@@ -474,7 +512,7 @@ def phase_k11(dev) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(11)
     errs = {n: [] for n in ("cic_paint_lattice", "cic_gather_lattice",
                             "cic_gather3_lattice")}
-    times = {}
+    times, lib_paint = {}, {}
     site = torch.meshgrid(*(torch.arange(N, device=dev, dtype=torch.float64),)
                           * 3, indexing="ij")
     for B in (1, 2, 3):
@@ -501,13 +539,30 @@ def phase_k11(dev) -> list[dict]:
             log(f"K11 {name} B={B}: vs twin {e:.3e} of max|value| "
                 f"(bitwise equal: {same})")
             check(e <= K11_TWIN_BOUND, f"K11 {name} B={B}: {e} from the twin")
+        del pairs
+        # the paint: bitwise its twin and itself, clustered and in f64
+        dc = clustered_disp(d, B)
+        d64, dc64, w64 = (tuple(a.double() for a in t) for t in (d, dc, (w,)))
+        for label, disp, wts in (("f32", d, (None, w)),
+                                 ("f32 clustered", dc, (None, w)),
+                                 ("f64", d64, (None, w64[0])),
+                                 ("f64 clustered", dc64, (None, w64[0]))):
+            for wt in wts:
+                got = k.cic_paint_lattice_cuda(disp, B, wt)
+                same = torch.equal(got, k.cic_paint_lattice_plain(disp, B, wt))
+                again = torch.equal(got, k.cic_paint_lattice_cuda(disp, B, wt))
+                what = (f"K11a paint B={B} {label} "
+                        f"{'weighted' if wt is not None else 'unweighted'}")
+                check(same and again, f"{what}: bitwise equal to the twin "
+                      f"{same}, repeatable {again}")
+        log(f"K11a paint B={B}: bitwise equal to its twin and repeatable, "
+            "f32 and f64, weighted and not, uniform and clustered")
         # f64 against the exact scatter/gather at the positions l + d
-        d64 = tuple(a.double() for a in d)
         u = tuple((s + a).reshape(-1) for s, a in zip(site, d64))
-        w64 = w.double()
         e_paint = max(norm_err(k.cic_paint_lattice_cuda(d64, B, wt),
                                cic_paint_particles(u, N, wr))
-                      for wt, wr in ((None, None), (w64, w64.reshape(-1))))
+                      for wt, wr in ((None, None),
+                                     (w64[0], w64[0].reshape(-1))))
         m64 = meshes[0].double()
         e_gather = norm_err(k.cic_gather_lattice_cuda(m64, d64, B).reshape(-1),
                             cic_gather(m64, u))
@@ -518,7 +573,7 @@ def phase_k11(dev) -> list[dict]:
             f"gather {e_gather:.3e}, gather3 {e_g3:.3e}")
         check(max(e_paint, e_gather, e_g3) <= K11_EXACT_BOUND,
               f"K11 B={B}: off the exact scatter")
-        del d64, u, w64, m64
+        del d64, dc64, u, w64, m64
         for name, kern, plain in (
                 ("cic_paint_lattice", lambda: k.cic_paint_lattice_cuda(d, B),
                  lambda: k.cic_paint_lattice_plain(d, B)),
@@ -531,12 +586,16 @@ def phase_k11(dev) -> list[dict]:
             times[(name, B)] = (median_ms(kern), median_ms(plain))
             log(f"K11 {name} B={B}: kernel {times[(name, B)][0]:.4f} ms, "
                 f"plain {times[(name, B)][1]:.4f} ms")
-    # library: the paint as one index_add_ of the 8 corner weights on
-    # corner indices computed beforehand, at B = 3's displacements
-    idx8, w8 = cic_corners(d, N)
-    lib_paint = median_ms(lambda: torch.zeros(N ** 3, device=dev)
-                          .index_add_(0, idx8, w8))
-    del idx8, w8
+        # library: the paint as one index_add_ of the 8 corner weights on
+        # corner indices computed beforehand, at this B's displacements
+        idx8, w8 = cic_corners(d, N)
+        lib_paint[B] = median_ms(lambda: torch.zeros(N ** 3, device=dev)
+                                 .index_add_(0, idx8, w8))
+        del idx8, w8
+        ms_c = median_ms(lambda: k.cic_paint_lattice_cuda(dc, B))
+        log(f"K11a paint B={B}: kernel {times[('cic_paint_lattice', B)][0]:.4f}"
+            f" ms (clustered {ms_c:.4f} ms), index_add_ {lib_paint[B]:.4f} ms")
+        del dc
     n3 = N ** 3
     # per particle: 8 corner weights (3 products each) and 8 adds
     bounds = {"cic_paint_lattice": roofline(4 * 4 * n3, 32 * n3),
@@ -544,7 +603,7 @@ def phase_k11(dev) -> list[dict]:
               "cic_gather3_lattice": roofline(9 * 4 * n3, 3 * 32 * n3)}
     return [dict(name=n, max_abs_err=max(errs[n]), ms=times[(n, 3)][0],
                  plain_ms=times[(n, 3)][1],
-                 library_ms=lib_paint if n == "cic_paint_lattice" else None,
+                 library_ms=lib_paint[3] if n == "cic_paint_lattice" else None,
                  **bounds[n]) for n in errs]
 
 
@@ -918,6 +977,9 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     log(f"COLA kernels vs plain, same white noise: std(delta) {s_k:.6f} vs "
         f"{s_p:.6f} (bitwise equal fields: {torch.equal(d1, dp)})")
     check(abs(s_k / s_p - 1) <= 5e-3, "COLA std(delta): kernels vs plain")
+    # K11 sums in its twins' order with explicit rounding: the two engines
+    # give the same field bit for bit
+    check(torch.equal(d1, dp), "COLA kernels vs plain: fields differ")
     kc, pk_k, _ = binned_power_spectrum(grid, delta_x=d1)
     _, pk_p, _ = binned_power_spectrum(grid, delta_x=dp)
     kc, pk_k, pk_p = (t.cpu().numpy() for t in (kc, pk_k, pk_p))
@@ -947,7 +1009,7 @@ def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     check(bool(torch.isfinite(out["sigma_data"])), f"{label}: sigma_data")
     log(f"{label}: {wall * 1e3:.2f} ms wall; stages ms "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    return dict(out=out, wall=wall)
+    return dict(out=out, wall=wall, stages=stages)
 
 
 def counted(label: str, expect: tuple, body):
@@ -1525,12 +1587,48 @@ def complex_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def phase_k10(dev) -> dict:
-    """K10 against its twin and complex128 torch.fft at the route's planar
-    shapes, both axes and signs; times at both shapes, forward.  The row
-    is the (256, 256, 129) axis-1 forward call."""
+def k10_every_length(dev) -> None:
+    """K10 at every supported length on both axes and signs, f32 and f64,
+    against complex128 torch.fft and its twin; each length also on a
+    column count that leaves the kernel's last tile ragged."""
     from fastbox_tpu_torch.ops.cuda import mmdft as k
 
+    g = torch.Generator(device=dev).manual_seed(100)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for C in K10_LENGTHS:
+        check(k.supported_length(C), f"K10: {C} is not a supported length")
+        for shape, axis in (((C, 6, 40), 0), ((6, C, 40), 1), ((C, 3, 7), 0),
+                            ((5, C, 3), 1)):
+            for dt in (torch.float32, torch.float64):
+                xr = torch.randn(shape, generator=g, device=dev, dtype=dt)
+                xi = torch.randn(shape, generator=g, device=dev, dtype=dt)
+                x = torch.complex(xr.double(), xi.double())
+                for sign in (-1, 1):
+                    got = torch.complex(*k.dft_c2c_axis_cuda(xr, xi, axis,
+                                                             sign, sign > 0))
+                    ref = (torch.fft.fft(x, dim=axis) if sign < 0
+                           else torch.fft.ifft(x, dim=axis))
+                    twin = torch.complex(*k.dft_c2c_axis_plain(
+                        xr, xi, axis, sign, sign > 0))
+                    e = max(complex_err(got, ref), complex_err(got, twin))
+                    worst[dt] = max(worst[dt], e)
+                    check(e <= K10_BOUND, f"K10 C={C} {shape} axis {axis} "
+                          f"{dt} sign {sign:+d}: {e}")
+    log(f"K10 at every supported length {K10_LENGTHS}, both axes and signs, "
+        "ragged tiles: largest error of max|y| vs complex128 torch.fft and "
+        f"the twin: f32 {worst[torch.float32]:.2e}, f64 "
+        f"{worst[torch.float64]:.2e}")
+
+
+def phase_k10(dev) -> dict:
+    """K10 at every supported length, then against its twin and complex128
+    torch.fft at the route's planar shapes, both axes and signs; the
+    kernel, torch.fft.fft along the same axis and the bound at both shapes
+    and axes, forward.  The row is the (256, 256, 129) axis-1 forward
+    call."""
+    from fastbox_tpu_torch.ops.cuda import mmdft as k
+
+    k10_every_length(dev)
     g = torch.Generator(device=dev).manual_seed(10)
     row = None
     for N in (N_MAIN, N_BIG):
@@ -1568,7 +1666,9 @@ def phase_k10(dev) -> dict:
                 log(f"{what}: {e_ref:.2e} of max|y| vs complex128 torch.fft, "
                     f"{e_twin:.2e} vs twin; kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f}, torch.fft.fft {library_ms:.4f}, bound "
-                    f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
+                    f"{bound['bound_ms']:.4f} ({bound['bound_by']}; the "
+                    f"kernel at {bound['bound_ms'] / ms:.0%} of it); kernel "
+                    f"<= torch.fft.fft: {ms <= library_ms}")
                 if N == N_MAIN and axis == 1:
                     row = dict(name=K10, max_abs_err=e_ref, ms=ms,
                                plain_ms=plain_ms, library_ms=library_ms,
@@ -1885,6 +1985,16 @@ def truth_256(dev) -> None:
     floor = (truth["f32_pk_cleaned"][:, 0] - t) / np.abs(t)
     log("gate 256^3 cube, bin 1 signed error per key, card / CPU f32: "
         + " ".join(f"{c:+.2e}/{f:+.2e}" for c, f in zip(card, floor)))
+    worst_card, worst_floor = np.abs(card).max(), np.abs(floor).max()
+    log(f"gate 256^3 cube, bin 1 worst over keys {GATE256_KEYS[0]}-"
+        f"{GATE256_KEYS[-1]}: card {worst_card:.3e}, CPU f32 floor "
+        f"{worst_floor:.3e} (ratio {worst_card / worst_floor:.2f}); mean "
+        f"signed card {card.mean():+.2e}, CPU f32 {floor.mean():+.2e}")
+    # the card's f32 clean runs in f64 as the CPU's does (filters/pca.py):
+    # its bin-1 worst stays of the floor's size
+    check(worst_card <= 1.5 * worst_floor,
+          f"gate 256^3 cube: bin 1 worst {worst_card} above 1.5x the CPU f32 "
+          f"floor's {worst_floor}")
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
     cosmo_cpu = build_cosmology(COSMO, redshift=Z)
     bin1_source(dev, cube, cosmo, cosmo_cpu,
@@ -1982,6 +2092,10 @@ def main() -> None:
         r["launches"] = counts.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the main path")
     steady = statistics.median(r["wall"] for r in runs256[1:])
+    log("pca stage ms (the f32 cube cleaned in f64: mean, covariance, eigh, "
+        "projection): 256^3 " + " ".join(f"{r['stages']['pca']:.3f}"
+                                         for r in runs256)
+        + "; 512^3 " + " ".join(f"{r['stages']['pca']:.3f}" for r in run512))
     log(f"256^3: {1.0 / steady:.3f} pipelines/s (median of realisations 1-2, "
         f"{steady * 1e3:.2f} ms); 512^3: {1.0 / run512[1]['wall']:.3f} "
         f"pipelines/s (realisation 1, {run512[1]['wall'] * 1e3:.2f} ms; "

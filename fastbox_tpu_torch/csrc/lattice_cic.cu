@@ -18,16 +18,36 @@
 // rounded explicitly, so kernel and twin agree bit for bit.  Offsets outside
 // [lo, hi] contribute nothing, as in the twin, even when the bound fails.
 //
-// Paint is output-centric, as on the TPU, and needs no atomics: one thread
-// per mesh cell c sums the contributions of the source particles c - o over
-// the band, nested ox { oy { oz } } as the twin nests its rolls.  A block
-// owns a tx x 8 x 32 tile of cells and stages its source tile (the tile plus
-// the band's halo) in shared memory as per-axis fractions, the optional
-// weight and one packed word of the three floors, so the (hi-lo+1)^3
-// candidate tests per cell cost one shared load each.  At B=3 (open band,
-// weighted, f32) the 10 x 14 x 38 source tile takes 106 KB of dynamic shared
-// memory; the launcher shrinks tx where a tile would not fit.  Bound on the
-// card: the candidate scan, ~(2B+1)^3 shared loads and integer tests per cell.
+// Paint gathers per cell, without atomics in the sums.  A particle at
+// lattice site l with floors fl has its lower-corner cell L = l + fl and
+// reaches only cells L + e, e in {0,1}^3, on offset o = fl + e.  A block
+// owns a tx x ty x tz tile of cells (8^3 where it fits) and
+//   1. stages its source tile (the cell tile plus the band's halo, the
+//      sources l = c - o with o in [lo, hi]) in shared memory as per-axis
+//      fractions, the optional weight and one packed word of the floors,
+//      and counts each source into the bucket of its L, over the cell tile
+//      plus one layer below (shared-memory atomics);
+//   2. scans the counts into bucket starts and fills the buckets (atomics
+//      again: the order within a bucket is arbitrary);
+//   3. sorts each bucket by source index, descending (insertion sort, one
+//      thread per bucket);
+//   4. gives each cell c one thread, which merges its 8 buckets L = c - e
+//      by source index, descending.  That is the twin's order: for a fixed
+//      cell, o = c - l, so descending l is ascending (ox, oy, oz).  Each
+//      contribution with o inside [lo, hi] is summed as the twin nests its
+//      rolls, ox { oy { oz } }: partial sums sy -> sx -> acc, every product
+//      and sum rounded explicitly.  Terms the twin adds with weight zero
+//      add exactly nothing, so kernel and twin agree bit for bit.
+// A cell reads ~8 candidates whatever the band, where the TPU kernel tests
+// all (hi-lo+1)^3 offsets (343 at B = 3); clustered particles only lengthen
+// a cell's merge.  The bound by bytes (one read of d, one write of the
+// mesh) is far below what this takes: the block's phases are serial, each
+// behind a __syncthreads, and the source tile's staging reads each
+// displacement ~(1 + span/8)^3 times (mostly from L2).  At 256^3 the paint
+// takes 1.7 ms at B = 1 and 2.5 ms at B = 3, under the index_add_ paint
+// from B = 2 (H100 80GB HBM3, 700 W; PERF.md).  The launcher shrinks the
+// tile where it would not fit in shared memory and refuses a band beyond
+// that.
 //
 // Gather is particle-centric: under the bound the banded sum has exactly
 // eight non-zero weights, so one thread per particle reads the eight cells
@@ -39,11 +59,13 @@
 
 namespace {
 
-constexpr int kTileY = 8;
-constexpr int kTileZ = 32;
-constexpr int kThreads = kTileY * kTileZ;
-constexpr int kBias = 64;  // a packed floor byte is fl + kBias; 0 never matches
+constexpr int kThreads = 256;  // paint block
+constexpr int kStage = 4;      // sources a paint thread loads at once
 constexpr int kMaxB = 16;
+// A staged paint source's code: fl + kFlBias in 6 bits per axis (|fl| <=
+// kMaxB + 1 < kFlBias), its bucket from bit 18; 0 for a source that
+// reaches no cell of the tile.
+constexpr int kFlBias = 32;
 
 __device__ __forceinline__ float floor_t(float a) { return floorf(a); }
 __device__ __forceinline__ double floor_t(double a) { return floor(a); }
@@ -53,79 +75,227 @@ __device__ __forceinline__ int wrap(int a, int n) {
   return a < 0 ? a + n : a;
 }
 
+// wrap() without the division where a is within one period of [0, n)
+__device__ __forceinline__ int wrap_near(int a, int n) {
+  if (a < 0) a += n;
+  else if (a >= n) a -= n;
+  return (a < 0 || a >= n) ? wrap(a, n) : a;
+}
+
+// Shared memory of a paint block: the staged sources (fractions, weight,
+// packed floors, the bucket list), the bucket starts and cursors, and the
+// scan's per-warp scratch.
 template <typename T>
-__host__ __device__ constexpr size_t paint_bytes_per_particle(bool weighted) {
-  return (weighted ? 4 : 3) * sizeof(T) + sizeof(int);
+__host__ __device__ size_t paint_smem(int S, int nb, bool weighted) {
+  return static_cast<size_t>(S) * ((weighted ? 4 : 3) * sizeof(T) + 2 * sizeof(int)) +
+         static_cast<size_t>(2 * nb + 1 + 32) * sizeof(int);
+}
+
+// start[0..n] = exclusive prefix sums of cnt[0..n); cnt[i] becomes start[i]
+// (the fill's cursor).  Every thread of the block calls it.
+__device__ void block_exclusive_scan(int* cnt, int* start, int n, int* scratch) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int i0 = threadIdx.x * per, i1 = min(i0 + per, n);
+  int local = 0;
+  for (int i = i0; i < i1; ++i) local += cnt[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  int v = local;
+  for (int off = 1; off < 32; off *= 2) {
+    const int u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? scratch[lane] : 0;
+    for (int off = 1; off < 32; off *= 2) {
+      const int u = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += u;
+    }
+    scratch[lane] = w;
+  }
+  __syncthreads();
+  int offset = (warp > 0 ? scratch[warp - 1] : 0) + v - local;
+  for (int i = i0; i < i1; ++i) {
+    const int c = cnt[i];
+    start[i] = offset;
+    cnt[i] = offset;
+    offset += c;
+  }
+  if (threadIdx.x == blockDim.x - 1) start[n] = offset;
 }
 
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
-             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi, int tx) {
+             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi, int tx, int ty,
+             int tz) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int span = hi - lo;
-  const int SY = kTileY + span, SZ = kTileZ + span;
-  const int S = (tx + span) * SY * SZ;
+  const int WX = tx + span, WY = ty + span, WZ = tz + span;
+  const int S = WX * WY * WZ;
+  const int BY = ty + 1, BZ = tz + 1;
+  const int nb = (tx + 1) * BY * BZ;
   T* fr = reinterpret_cast<T*>(smem_raw);  // [3][S]
   T* wsh = fr + 3 * S;                     // [S] when weighted
-  int* code = reinterpret_cast<int*>(wsh + (kWeighted ? S : 0));
-  const int cx0 = blockIdx.x * tx, cy0 = blockIdx.y * kTileY, cz0 = blockIdx.z * kTileZ;
+  int* code = reinterpret_cast<int*>(wsh + (kWeighted ? S : 0));  // [S]
+  int* list = code + S;                    // [S]
+  int* start = list + S;                   // [nb + 1]
+  int* cursor = start + nb + 1;            // [nb]
+  int* scratch = cursor + nb;              // [32]
+  // z tiles fastest in launch order, so blocks that share halo rows along
+  // the contiguous axis run together and find them in L2
+  const int cx0 = blockIdx.z * tx, cy0 = blockIdx.y * ty, cz0 = blockIdx.x * tz;
 
-  // Source particle l = c - o with o in [lo, hi]: the tile starts at c0 - hi.
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int a = s / (SY * SZ);
-    const int r = s - a * SY * SZ;
-    const int b = r / SZ;
-    const int c = r - b * SZ;
-    const int64_t g = (static_cast<int64_t>(wrap(cx0 - hi + a, N)) * N +
-                       wrap(cy0 - hi + b, N)) * N + wrap(cz0 - hi + c, N);
-    const T v[3] = {dx[g], dy[g], dz[g]};
-    int packed = 0;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) cursor[b] = 0;
+  __syncthreads();
+
+  // 1. Source p = (a, b, c) of the tile is particle (c0 - hi + (a, b, c))
+  // mod N; its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
+  // steps p by blockDim.x, carrying (a, b, c) along without divisions, and
+  // loads kStage sources before it uses any, to keep loads in flight.
+  const int WYZ = WY * WZ;
+  const int da = blockDim.x / WYZ, db = (blockDim.x / WZ) % WY, dc = blockDim.x % WZ;
+  int pa = threadIdx.x / WYZ, pb = (threadIdx.x / WZ) % WY, pc = threadIdx.x % WZ;
+  for (int p0 = threadIdx.x; p0 < S; p0 += kStage * blockDim.x) {
+    T v[kStage][3], wv[kStage];
+    int pos[kStage][3];
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const T f = floor_t(v[ax]);
-      fr[ax * S + s] = v[ax] - f;  // exact
-      // a weight can be non-zero on some o in [lo, hi] only if fl in [lo-1, hi]
-      const int byte = (f >= T(lo - 1) && f <= T(hi)) ? static_cast<int>(f) + kBias : 0;
-      packed |= byte << (8 * ax);
+    for (int u = 0; u < kStage; ++u) {
+      if (p0 + u * static_cast<int>(blockDim.x) >= S) break;
+      pos[u][0] = pa;
+      pos[u][1] = pb;
+      pos[u][2] = pc;
+      const int64_t g = (static_cast<int64_t>(wrap_near(cx0 - hi + pa, N)) * N +
+                         wrap_near(cy0 - hi + pb, N)) * N + wrap_near(cz0 - hi + pc, N);
+      v[u][0] = dx[g];
+      v[u][1] = dy[g];
+      v[u][2] = dz[g];
+      if (kWeighted) wv[u] = w[g];
+      pc += dc;
+      pb += db;
+      pa += da;
+      if (pc >= WZ) {
+        pc -= WZ;
+        ++pb;
+      }
+      if (pb >= WY) {
+        pb -= WY;
+        ++pa;
+      }
     }
-    code[s] = packed;
-    if (kWeighted) wsh[s] = w[g];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int p = p0 + u * blockDim.x;
+      if (p >= S) break;
+      const int ext[3] = {tx, ty, tz};
+      int packed = 0, bkt = 0;
+      bool ok = true;
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        const T f = floor_t(v[u][ax]);
+        fr[ax * S + p] = v[u][ax] - f;  // exact
+        // a weight can be non-zero on some o in [lo, hi] only if fl in [lo-1, hi]
+        ok = ok && f >= T(lo - 1) && f <= T(hi);
+        const int fl = ok ? static_cast<int>(f) : 0;
+        const int l = pos[u][ax] + fl - hi + 1;
+        ok = ok && l >= 0 && l <= ext[ax];
+        packed |= (fl + kFlBias) << (6 * ax);
+        bkt = bkt * (ext[ax] + 1) + l;
+      }
+      code[p] = ok ? packed | (bkt << 18) : 0;
+      if (kWeighted) wsh[p] = wv[u];
+      if (ok) atomicAdd(&cursor[bkt], 1);
+    }
   }
   __syncthreads();
 
-  const int ty = threadIdx.x / kTileZ, tz = threadIdx.x % kTileZ;
-  const int cy = cy0 + ty, cz = cz0 + tz;
-  if (cy >= N || cz >= N) return;
-  for (int ix = 0; ix < tx && cx0 + ix < N; ++ix) {
-    T acc = T(0);
-    for (int ox = lo; ox <= hi; ++ox) {
-      const int ax = ix - ox + hi;
-      T sx = T(0);
-      for (int oy = lo; oy <= hi; ++oy) {
-        const int base = (ax * SY + ty - oy + hi) * SZ + tz + hi;
-        T sy = T(0);
-        for (int oz = lo; oz <= hi; ++oz) {
-          const int s = base - oz;
-          const int cd = code[s];
-          // 0: fl == o (weight 1 - fr), 1: fl == o - 1 (weight fr)
-          const unsigned ex = static_cast<unsigned>(ox + kBias - (cd & 0xff));
-          const unsigned ey = static_cast<unsigned>(oy + kBias - ((cd >> 8) & 0xff));
-          const unsigned ez = static_cast<unsigned>(oz + kBias - ((cd >> 16) & 0xff));
-          if ((ex | ey | ez) <= 1u) {
-            const T frx = fr[s], fry = fr[S + s], frz = fr[2 * S + s];
-            const T wx = ex ? frx : fbx::sub_rn(T(1), frx);
-            const T wy = ey ? fry : fbx::sub_rn(T(1), fry);
-            const T wz = ez ? frz : fbx::sub_rn(T(1), frz);
-            const T px = kWeighted ? fbx::mul_rn(wx, wsh[s]) : wx;
-            sy = fbx::add_rn(sy, fbx::mul_rn(fbx::mul_rn(px, wy), wz));
-          }
-        }
-        sx = fbx::add_rn(sx, sy);
+  // 2. bucket starts, then the fill
+  block_exclusive_scan(cursor, start, nb, scratch);
+  __syncthreads();
+  for (int p = threadIdx.x; p < S; p += blockDim.x) {
+    const int cd = code[p];
+    if (cd) list[atomicAdd(&cursor[cd >> 18], 1)] = p;
+  }
+  __syncthreads();
+
+  // 3. each bucket in descending source index
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    const int b0 = start[b], b1 = start[b + 1];
+    for (int i = b0 + 1; i < b1; ++i) {
+      const int key = list[i];
+      int j = i - 1;
+      while (j >= b0 && list[j] < key) {
+        list[j + 1] = list[j];
+        --j;
       }
-      acc = fbx::add_rn(acc, sx);
+      list[j + 1] = key;
     }
-    out[(static_cast<int64_t>(cx0 + ix) * N + cy) * N + cz] = acc;
+  }
+  __syncthreads();
+
+  // 4. one thread per cell: merge the 8 buckets c - e, sum in the twin's order
+  const int ncell = tx * ty * tz;
+  for (int cell = threadIdx.x; cell < ncell; cell += blockDim.x) {
+    const int ix = cell / (ty * tz), iy = (cell / tz) % ty, iz = cell % tz;
+    const int cx = cx0 + ix, cy = cy0 + iy, cz = cz0 + iz;
+    if (cx >= N || cy >= N || cz >= N) continue;
+    int at[8], end[8], head[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int b = ((ix + 1 - (e >> 2)) * BY + iy + 1 - ((e >> 1) & 1)) * BZ + iz + 1 - (e & 1);
+      at[e] = start[b];
+      end[e] = start[b + 1];
+      head[e] = at[e] < end[e] ? list[at[e]] : -1;
+    }
+    T acc = T(0), sx = T(0), sy = T(0);
+    int cur_ox = lo - 2, cur_oy = lo - 2;
+    while (true) {
+      int best = -1, p = -1;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (head[e] > p) {
+          p = head[e];
+          best = e;
+        }
+      }
+      if (best < 0) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e == best) {
+          ++at[e];
+          head[e] = at[e] < end[e] ? list[at[e]] : -1;
+        }
+      }
+      // o = fl + e; e = 0: weight 1 - fr, e = 1: weight fr
+      const int cd = code[p];
+      const int ex = best >> 2, ey = (best >> 1) & 1, ez = best & 1;
+      const int ox = (cd & 63) - kFlBias + ex;
+      const int oy = ((cd >> 6) & 63) - kFlBias + ey;
+      const int oz = ((cd >> 12) & 63) - kFlBias + ez;
+      if (ox < lo || ox > hi || oy < lo || oy > hi || oz < lo || oz > hi) continue;
+      const T frx = fr[p], fry = fr[S + p], frz = fr[2 * S + p];
+      const T wx = ex ? frx : fbx::sub_rn(T(1), frx);
+      const T wy = ey ? fry : fbx::sub_rn(T(1), fry);
+      const T wz = ez ? frz : fbx::sub_rn(T(1), frz);
+      const T px = kWeighted ? fbx::mul_rn(wx, wsh[p]) : wx;
+      const T term = fbx::mul_rn(fbx::mul_rn(px, wy), wz);
+      if (ox != cur_ox) {
+        sx = fbx::add_rn(sx, sy);
+        acc = fbx::add_rn(acc, sx);
+        sx = sy = T(0);
+        cur_ox = ox;
+        cur_oy = oy;
+      } else if (oy != cur_oy) {
+        sx = fbx::add_rn(sx, sy);
+        sy = T(0);
+        cur_oy = oy;
+      }
+      sy = fbx::add_rn(sy, term);
+    }
+    sx = fbx::add_rn(sx, sy);
+    acc = fbx::add_rn(acc, sx);
+    out[(static_cast<int64_t>(cx) * N + cy) * N + cz] = acc;
   }
 }
 
@@ -208,15 +378,21 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     return e;
   const bool weighted = w != nullptr;
   const int span = hi - lo;
-  // widest x extent of the cell tile whose source tile fits in shared memory
-  int tx = 4;
+  // the largest cell tile, from 8^3 down to one cell, whose blocks fit
+  static const int kTiles[][3] = {{8, 8, 8}, {4, 8, 8}, {4, 4, 8}, {4, 4, 4}, {2, 4, 4},
+                                  {2, 2, 4}, {2, 2, 2}, {1, 2, 2}, {1, 1, 2}, {1, 1, 1}};
+  const int* tile = nullptr;
   size_t smem = 0;
-  for (; tx >= 1; tx /= 2) {
-    smem = static_cast<size_t>(tx + span) * (kTileY + span) * (kTileZ + span) *
-           paint_bytes_per_particle<T>(weighted);
-    if (smem <= static_cast<size_t>(max_smem)) break;
+  for (const auto& t : kTiles) {
+    const int S = (t[0] + span) * (t[1] + span) * (t[2] + span);
+    const int nb = (t[0] + 1) * (t[1] + 1) * (t[2] + 1);
+    smem = paint_smem<T>(S, nb, weighted);
+    if (smem <= static_cast<size_t>(max_smem)) {
+      tile = t;
+      break;
+    }
   }
-  if (tx < 1) return cudaErrorInvalidValue;
+  if (tile == nullptr) return cudaErrorInvalidValue;
   auto kernel = weighted ? &paint_kernel<T, true> : &paint_kernel<T, false>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -224,8 +400,11 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     if (e != cudaSuccess) return e;
   }
   const int n = static_cast<int>(N);
-  const dim3 grid((n + tx - 1) / tx, (n + kTileY - 1) / kTileY, (n + kTileZ - 1) / kTileZ);
-  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, tx);
+  const dim3 grid((n + tile[2] - 1) / tile[2], (n + tile[1] - 1) / tile[1],
+                  (n + tile[0] - 1) / tile[0]);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, tile[0], tile[1],
+                                            tile[2]);
   return cudaGetLastError();
 }
 

@@ -7,10 +7,24 @@ mean.  ``pca_filter`` takes the exact ``torch.linalg.eigh``;
 ``pca_filter_subspace`` the oversampled subspace iteration with a
 Rayleigh-Ritz step (``topk_eigvecs_subspace``); ``pca_project`` applies the
 clean for eigenvectors found elsewhere (the chained pipeline's batched
-eigh).  The covariance and projection are ``torch.matmul`` GEMMs; on a GPU
-they run in full FP32 as long as the caller leaves TF32 off (PyTorch's
-default, ``torch.get_float32_matmul_precision() == 'highest'``).  The
-cleaned field is invariant to the eigenvector sign.
+eigh).  The covariance and projection are ``torch.matmul`` GEMMs in the
+working dtype below.  The cleaned field is invariant to the eigenvector
+sign.
+
+For a float32 field the clean runs in float64 on every device (``_work``):
+the mean spectrum, the centring, the covariance GEMM, the eigh (as for
+every dtype, ``top_eigvecs``) and the two projection GEMMs; only the
+cleaned cube is rounded to float32.  This departs on purpose from
+``fastbox_tpu``, whose GEMMs run in f32 at HIGHEST precision.  Under a
+foreground monopole ~1e4 times the signal, an f32 mean spectrum is off by
+up to ~1 ulp of 1e4 per channel, and the cleaned cube keeps that offset
+on every pixel of its channel: a coherent error that the FFT sums into the
+k_perp = 0 modes of the first retained P(k) bin.  On an H100 80GB HBM3
+at 700 W it biased that bin by +6.1e-3 on average over 8 keys at 256^3,
+with a worst of 3.8x the CPU f32 floor's; moving only the covariance, or
+the covariance and the projection, to f64 left it in place, and the whole
+clean in f64 brought the card to the floor (PERF.md §6, ROADMAP C2).
+Float64 fields are unchanged.
 """
 from __future__ import annotations
 
@@ -18,6 +32,11 @@ import torch
 
 __all__ = ["pca_filter", "pca_filter_subspace", "pca_project",
            "topk_eigvecs_subspace", "top_eigvecs", "covariance"]
+
+
+def _work(field: torch.Tensor) -> torch.Tensor:
+    """The field in the dtype the clean computes in: float64 for float32."""
+    return field.double() if field.dtype == torch.float32 else field
 
 
 def _centre(field: torch.Tensor):
@@ -32,8 +51,9 @@ def _cov(x: torch.Tensor) -> torch.Tensor:
 
 
 def covariance(field: torch.Tensor) -> torch.Tensor:
-    """The frequency-frequency covariance ``pca_filter`` decomposes."""
-    return _cov(_centre(field)[1])
+    """The frequency-frequency covariance ``pca_filter`` decomposes, in the
+    dtype the clean computes in (float64 for a float32 field)."""
+    return _cov(_centre(_work(field))[1])
 
 
 def top_eigvecs(cov: torch.Tensor, nmodes: int) -> torch.Tensor:
@@ -63,8 +83,9 @@ def _project_out(field, U, d_mean, x):
 def pca_project(field: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """Subtract the projection onto the columns of ``U`` (Nfreq, nmodes)
     plus the mean spectrum: ``pca_filter``'s clean for given modes."""
-    d_mean, x = _centre(field)
-    return _project_out(field, U, d_mean, x)[0]
+    f = _work(field)
+    d_mean, x = _centre(f)
+    return _project_out(f, U.to(f.dtype), d_mean, x)[0].to(field.dtype)
 
 
 def pca_filter(field: torch.Tensor, nmodes: int, return_filter: bool = False):
@@ -76,11 +97,13 @@ def pca_filter(field: torch.Tensor, nmodes: int, return_filter: bool = False):
         return_filter: also return (U_fg (Nfreq, nmodes), fg_amps
             (nmodes, Npix)) like the reference.
     """
-    d_mean, x = _centre(field)
+    f = _work(field)
+    d_mean, x = _centre(f)
     U_fg = top_eigvecs(_cov(x), nmodes)
-    cleaned, fg_amps = _project_out(field, U_fg, d_mean, x)
+    cleaned, fg_amps = _project_out(f, U_fg, d_mean, x)
+    cleaned = cleaned.to(field.dtype)
     if return_filter:
-        return cleaned, U_fg, fg_amps
+        return cleaned, U_fg.to(field.dtype), fg_amps.to(field.dtype)
     return cleaned
 
 
@@ -111,6 +134,7 @@ def pca_filter_subspace(field: torch.Tensor, nmodes: int, iters: int = 8,
     only on the span of the top eigenvectors; where the last kept mode is
     degenerate with the next, that span is ill-conditioned for any method,
     so use ``pca_filter`` where parity with the reference matters."""
-    d_mean, x = _centre(field)
+    f = _work(field)
+    d_mean, x = _centre(f)
     U = topk_eigvecs_subspace(_cov(x), nmodes, iters, oversample)
-    return _project_out(field, U, d_mean, x)[0]
+    return _project_out(f, U, d_mean, x)[0].to(field.dtype)

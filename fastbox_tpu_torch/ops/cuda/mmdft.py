@@ -1,9 +1,13 @@
-"""K10: factored (Cooley-Tukey) C2C DFT along axis 0 or 1 of a planar
-rank-3 pair (csrc/mmdft.cu) and its plain twin.
+"""K10: C2C DFT along axis 0 or 1 of a planar rank-3 pair: a Stockham FFT
+in shared memory (csrc/mmdft.cu) and its plain twin, the factored DFT.
 
 Counterpart of ``fastbox_tpu/ops/pallas/mmdft.py::dft_c2c_axis_pallas``.
-A length C = n1 * n2 transform (n1 in {2, 4}, n2 a multiple of 128 up to
-512) is, with j = j1*n2 + j2 and k = k1 + n1*k2 (decimation in time),
+The kernel computes the transform by the mixed-radix plan of
+``_fft_plan`` with the twiddle table of ``_fft_twiddles`` (both built
+here, on the host, and tested on the CPU).  The twin keeps the TPU
+kernel's algorithm: a length C = n1 * n2 transform (n1 in {2, 4}, n2 a
+multiple of 128 up to 512) is, with j = j1*n2 + j2 and k = k1 + n1*k2
+(decimation in time),
 
     A[k1, j2]     = sum_j1 x[j1*n2 + j2] W_n1^(s j1 k1)   (butterflies)
     B[k1, j2]     = A[k1, j2] * W_C^(s k1 j2)             (twiddle)
@@ -63,6 +67,38 @@ def _consts(C: int, sign: int, inverse_scale: bool,
             W2.real.astype(dt), W2.imag.astype(dt),
             T.real.astype(dt).reshape(C, 1),
             T.imag.astype(dt).reshape(C, 1))
+
+
+def _fft_plan(C: int):
+    """(radices, E) of the kernel's Stockham passes for a supported length
+    C: the radices' product is C, and each thread of the kernel holds E
+    values, which every radix divides.  Powers of two take two radix-16
+    passes and at most one of 2, 4 or 8 (E = 16; at 512 E = 32, the product
+    of the last two radices, so the last pass runs in registers); 768 and
+    1536 take 8, 8, 4 or 8 and a radix-3 pass with E = 24."""
+    if C % 3 == 0:
+        return (8, 8, C // 192, 3), 24
+    rest = C // 256
+    return ((16, 16) if rest == 1 else (16, 16, rest)), (32 if C == 512 else 16)
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_twiddles(C: int, sign: int, dtype_name: str = "float32"):
+    """(re, im) of exp(sign 2 pi i m / C), m in [0, C): the kernel's one
+    twiddle table, built in numpy float64 and rounded to ``dtype_name``."""
+    w = np.exp(sign * 2j * np.pi * np.arange(C) / C)
+    dt = np.dtype(dtype_name)
+    return w.real.astype(dt), w.imag.astype(dt)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_twiddles(C: int, sign: int, dtype: torch.dtype,
+                     device: torch.device):
+    """The kernel's twiddle table on ``device``, moved once per (length,
+    sign, dtype, device) and reused by every call."""
+    re, im = _fft_twiddles(C, sign, str(dtype).removeprefix("torch."))
+    return (torch.as_tensor(re, device=device).contiguous(),
+            torch.as_tensor(im, device=device).contiguous())
 
 
 @functools.lru_cache(maxsize=64)
@@ -152,16 +188,17 @@ def dft_c2c_axis_cuda(xr, xi, axis: int, sign: int,
                       inverse_scale: bool = False):
     C = _check(xr, xi, axis, sign)
     _build.require_cuda(NAME, xr, xi, dtype=xr.dtype)
-    n1, _, w2r, w2i, tr, ti = _device_consts(C, sign, inverse_scale,
-                                             xr.dtype, xr.device)
+    twr, twi = _device_twiddles(C, sign, xr.dtype, xr.device)
+    radices, E = _fft_plan(C)
+    packed = sum(r << (8 * p) for p, r in enumerate(radices))
     O, _, I = _ocio(xr.shape, axis)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     fn = _build.kernel_fn("fbx_dft_c2c_axis", xr.dtype)
     with torch.cuda.device(xr.device):
-        err = fn(xr.data_ptr(), xi.data_ptr(), w2r.data_ptr(),
-                 w2i.data_ptr(), tr.data_ptr(), ti.data_ptr(), yr.data_ptr(),
-                 yi.data_ptr(), O, C, I, n1, int(sign),
+        err = fn(xr.data_ptr(), xi.data_ptr(), twr.data_ptr(),
+                 twi.data_ptr(), yr.data_ptr(), yi.data_ptr(), O, C, I,
+                 packed, E, int(sign), int(bool(inverse_scale)),
                  _build.stream_ptr(xr.device))
     _build.check(err, NAME)
     _build.count_launch(NAME)

@@ -50,8 +50,8 @@ Precision.  The TPU-only knobs ``mm3d_precision``, ``vel_precision``,
 counts and have no meaning on cuFFT or a FP32 GEMM: they are accepted and
 ignored.  The port always computes in full FP32 (TF32 off, PyTorch's
 default), or in float64 for a float64 config; the one exception is the
-PCA's frequency-covariance eigendecomposition, which always runs in
-float64 (``filters.pca.top_eigvecs``).
+PCA clean, which always runs in float64 and rounds the cleaned cube to
+the config's dtype (``filters.pca``).
 """
 from __future__ import annotations
 

@@ -121,3 +121,46 @@ def test_top_eigvecs_decomposes_in_f64(rng):
     for i in range(2):
         torch.testing.assert_close(batched[i], top_eigvecs(covs[i], 4),
                                    rtol=0, atol=0)
+
+
+def test_f32_clean_runs_in_f64(rng):
+    """The port departs on purpose from fastbox_tpu here: for a float32
+    field the whole clean (mean spectrum, centring, covariance, eigh,
+    projection) runs in float64 and only the cleaned cube is rounded to
+    float32, where fastbox_tpu computes it in f32.  Under a foreground
+    monopole far above the signal, the f32 mean spectrum's rounding stays
+    in every pixel of its channel and biased the card's cleaned P(k) in the
+    first retained bin (ROADMAP C2); a float64 covariance alone, or with
+    float64 projections, left that bias in place on the card.
+    ``covariance`` is the float64 product of the float64-centred data, kept
+    in float64 (not rounded to float32) so that the chained pipeline's
+    hoisted eigh decomposes the very matrix ``pca_filter`` does.  The f32
+    clean is the f64 clean of the same f32 data rounded once; it sits no
+    farther from fastbox_tpu's f64 clean than fastbox_tpu's own f32 clean
+    does."""
+    from fastbox_tpu_torch.filters.pca import covariance
+
+    nfreq = 32
+    freqs = np.linspace(1.0, 0.8, nfreq)
+    fg = rng.uniform(5e3, 1e4, (N, N, 1)) * freqs ** -2.7 \
+        * (1.0 + 0.02 * rng.standard_normal((N, N, 1)) * np.log(freqs))
+    cube = (fg + rng.standard_normal((N, N, nfreq))).astype(np.float32)
+    d = torch.as_tensor(cube, dtype=torch.float64).reshape(-1, nfreq).T
+    x = d - d.mean(dim=-1, keepdim=True)
+    got = covariance(T(cube))
+    assert got.dtype == torch.float64
+    assert torch.equal(got, torch.matmul(x, x.T) / (N * N - 1))
+
+    nmodes = 2
+    port32 = pca_filter(T(cube), nmodes)
+    assert port32.dtype == torch.float32
+    assert torch.equal(port32, pca_filter(T(cube).double(), nmodes).float())
+    ref = np.asarray(jax_pca(jnp.asarray(cube, jnp.float64), nmodes,
+                             precision="HIGHEST"))
+    jax32 = np.asarray(jax_pca(jnp.asarray(cube), nmodes,
+                               precision="HIGHEST"))
+    assert jax32.dtype == np.float32
+    scale = np.abs(ref).max()
+    err_port = np.abs(port32.numpy() - ref).max() / scale
+    err_jax = np.abs(jax32 - ref).max() / scale
+    assert err_port <= err_jax, (err_port, err_jax)

@@ -50,6 +50,23 @@ def displacements(rng, B, openband):
     return tuple(d)
 
 
+def clustered(rng, B, n):
+    """Displacements uniform inside the open band, except that every site
+    within B - 1/2 cells of three centres is pulled onto one point near
+    the centre: up to ~(2B)^3 sources land in one cell, as in a collapsed
+    halo.  Three centres, one near a corner, so clusters straddle the
+    periodic edge."""
+    d = [rng.uniform(-B, B, (n, n, n)) * 0.999 for _ in range(3)]
+    site = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    for cen in ((n // 2, n // 2, n // 2), (2, n - 3, 5), (n - 1, 0, n - 1)):
+        # periodic offset of each site from the centre, in [-n/2, n/2)
+        off = [(s - c + n // 2) % n - n // 2 for s, c in zip(site, cen)]
+        near = sum(o ** 2 for o in off) <= (B - 0.5) ** 2
+        for a, o in zip(d, off):
+            a[near] = 0.3 - o[near]
+    return tuple(d)
+
+
 def tt(arrs):
     return tuple(torch.as_tensor(a) for a in arrs)
 
@@ -160,6 +177,28 @@ def test_lattice_equals_exact_scatter_in_band(rng, B):
           cola.cic_gather(torch.as_tensor(mesh), u))
 
 
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_clustered_twin_equals_exact_scatter(rng, B):
+    """Many sources in one cell: the open-band twin is still the exact CIC
+    scatter at the positions l + d, weighted and not."""
+    d = clustered(rng, B, N)
+    assert max(np.abs(a).max() for a in d) < B
+    site = np.meshgrid(*(np.arange(N),) * 3, indexing="ij")
+    u = tuple(torch.as_tensor((s + a).reshape(-1)) for s, a in zip(site, d))
+    # the clusters put more than 8 sources on one cell
+    counts = np.bincount(np.ravel_multi_index(
+        [np.floor(a.numpy()).astype(int) % N for a in u], (N,) * 3))
+    assert counts.max() >= {1: 4, 2: 20, 3: 60}[B]
+    w = rng.uniform(0.5, 1.5, (N, N, N))
+    for weights in (None, w):
+        close(lattice_cic.cic_paint_lattice(
+            tt(d), B, None if weights is None else torch.as_tensor(weights),
+            True).numpy(),
+            cola.cic_paint_particles(
+                u, N, None if weights is None
+                else torch.as_tensor(weights.reshape(-1))))
+
+
 def test_band_edge_and_beyond(rng):
     """d == B exactly still paints exactly in the open band (its far cell
     has weight 0); d beyond B loses mass there and needs band B+1, the step
@@ -222,3 +261,18 @@ def test_kernels_equal_twins(cuda, rng, B, dtype):
     dc = tuple(torch.clamp(a / 0.999, -B, B) for a in d)
     assert torch.equal(k11.cic_paint_lattice_cuda(dc, B, w, openband=False),
                        k11.cic_paint_lattice_plain(dc, B, w, openband=False))
+    # clustered sources, many in one cell; and |d| just under B on ~30%
+    dcl = tuple(torch.as_tensor(a, dtype=dtype, device=cuda)
+                for a in clustered(rng, B, n))
+    under = torch.nextafter(torch.tensor(float(B), dtype=dtype),
+                            torch.tensor(0.0, dtype=dtype)).to(cuda)
+    du = tuple(torch.where(torch.rand_like(a) < 0.3,
+                           torch.where(a > 0, under, -under), a).contiguous()
+               for a in d)
+    for disp in (dcl, du):
+        for weights in (None, w):
+            got = k11.cic_paint_lattice_cuda(disp, B, weights)
+            assert torch.equal(got, k11.cic_paint_lattice_plain(disp, B,
+                                                                weights))
+            assert torch.equal(got, k11.cic_paint_lattice_cuda(disp, B,
+                                                               weights))

@@ -4,7 +4,10 @@ fastbox_tpu's factored-DFT Pallas kernel in interpret mode and numpy.
 The cases of tests/test_pallas_dft.py: both supported radix splits, both
 axes, both signs (the inverse with its 1/C), shape [6, 8, 40] with C on
 the axis, and the ragged (256, 4, 257).  The bound, 2e-6 of max|y|, is that
-file's.  The ``cuda``-marked tests hold the kernel to the twin on a GPU.
+file's.  The kernel's host plan (radices and twiddle table of its Stockham
+FFT) is checked here on the CPU, with a numpy emulation of its passes; the
+``cuda``-marked tests hold the kernel to the twin and complex128
+``torch.fft`` on a GPU at every supported length.
 """
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from fastbox_tpu.ops.pallas import mmdft as jmmdft
 from fastbox_tpu_torch.ops.cuda import mmdft
 
 BOUND = 2e-6
+LENGTHS = [256, 512, 768, 1024, 1536, 2048]
 
 
 @pytest.fixture
@@ -54,7 +58,7 @@ def test_supported_length_matches_jax():
     assert mmdft._split(512) == (4, 128) and mmdft._split(256) == (2, 128)
 
 
-@pytest.mark.parametrize("C", [256, 512, 768, 1024, 2048])
+@pytest.mark.parametrize("C", LENGTHS)
 @pytest.mark.parametrize("sign, inverse_scale",
                          [(-1, False), (1, True), (1, False)])
 def test_consts_bitwise_equal_jax(C, sign, inverse_scale):
@@ -153,23 +157,120 @@ def test_device_consts_cached_once():
     assert a[2].shape == (128 * 128,) and a[4].shape == (256,)
 
 
+@pytest.mark.parametrize("C", LENGTHS)
+def test_fft_plan_every_length(C):
+    """Radices of the kernel's passes multiply to C, each divides the E
+    values a thread holds, and the block (C / E threads per column) fits
+    the kernel's 512 threads."""
+    radices, E = mmdft._fft_plan(C)
+    assert int(np.prod(radices)) == C
+    assert set(radices) <= {2, 3, 4, 8, 16}
+    assert all(E % r == 0 for r in radices) and C % E == 0
+    assert C // E <= 512 and len(radices) <= 8
+
+
+@pytest.mark.parametrize("C", LENGTHS)
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fft_twiddles_equal_numpy(C, sign, dtype):
+    re, im = mmdft._fft_twiddles(C, sign, dtype)
+    w = np.exp(sign * 2j * np.pi * np.arange(C) / C)
+    assert re.dtype == im.dtype == np.dtype(dtype) and re.shape == (C,)
+    assert np.array_equal(re, w.real.astype(dtype))
+    assert np.array_equal(im, w.imag.astype(dtype))
+
+
+def stockham(x, sign, inverse_scale):
+    """The kernel's passes (csrc/mmdft.cu) in numpy, thread by thread: per
+    pass of radix R, thread t's butterfly b (j = t + b Tc) reads rows
+    j + r C/R, twiddles by table entry r (j % Ns) C/(Ns R), takes a radix-R
+    DFT and writes rows (j / Ns) Ns R + j % Ns + r Ns.  The first pass reads
+    x, the last writes y, the others go through the shared tile, except
+    that when E is the product of the last two radices the last pass takes
+    its inputs from the thread's registers, v[b + r E/R]."""
+    C = x.shape[0]
+    radices, E = mmdft._fft_plan(C)
+    re, im = mmdft._fft_twiddles(C, sign, "float64")
+    tw = re + 1j * im
+    Tc, P = C // E, len(radices)
+    fuse = P >= 3 and E == radices[-2] * radices[-1]
+    v = np.zeros((Tc, E) + x.shape[1:], complex)   # each thread's registers
+    tile, y, Ns = None, np.full_like(x, np.nan), 1
+    for p, R in enumerate(radices):
+        dft = np.exp(sign * 2j * np.pi * np.outer(np.arange(R), np.arange(R))
+                     / R)
+        r = np.arange(R)
+        if fuse and p == P - 1:
+            assert Ns == Tc * (E // R)
+            v = v[:, (np.arange(E // R)[:, None] + r * (E // R)).ravel()]
+        else:
+            src = x if p == 0 else tile
+            v = np.stack([np.concatenate([src[t + b * Tc + r * (C // R)]
+                                          for b in range(E // R)])
+                          for t in range(Tc)])
+        out = np.full_like(x, np.nan)
+        for t in range(Tc):
+            for b in range(E // R):
+                j = t + b * Tc
+                w = tw[r * (j % Ns) * (C // (Ns * R))]
+                v[t, b * R:(b + 1) * R] = dft @ (v[t, b * R:(b + 1) * R]
+                                                 * w[:, None])
+                out[(j // Ns) * Ns * R + j % Ns + r * Ns] = \
+                    v[t, b * R:(b + 1) * R]
+        if p == P - 1:
+            y = out
+        elif not (fuse and p == P - 2):
+            tile = out
+        Ns *= R
+    return y / C if inverse_scale else y
+
+
+@pytest.mark.parametrize("C", LENGTHS)
+def test_fft_plan_emulated_matches_numpy(C, rng):
+    x = rng.standard_normal((C, 3)) + 1j * rng.standard_normal((C, 3))
+    for sign in (-1, 1):
+        want = np.fft.fft(x, axis=0) if sign < 0 else np.fft.ifft(x, axis=0)
+        got = stockham(x, sign, sign > 0)
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-13
+
+
+def _kernel_cases():
+    """The earlier cases (both radix splits of the twin, both axes, a
+    ragged 257-wide tile), then every supported length on both axes, each
+    also on a column count that the kernel's tile width does not divide."""
+    yield from [((256, 6, 40), 0), ((6, 256, 40), 1), ((512, 4, 257), 0),
+                ((3, 512, 129), 1)]
+    for C in LENGTHS:
+        yield (C, 6, 40), 0
+        yield (6, C, 40), 1
+        yield (C, 3, 7), 0
+        yield (5, C, 3), 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape, axis", [((256, 6, 40), 0), ((6, 256, 40), 1),
-                                         ((512, 4, 257), 0),
-                                         ((3, 512, 129), 1)])
+@pytest.mark.parametrize("shape, axis", list(_kernel_cases()))
 @pytest.mark.parametrize("sign", [-1, +1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_twin_and_fft(cuda, rng, shape, axis, sign, dtype):
+    """Within 2e-6 of max|y| (f32) or 1e-13 (f64) of complex128 torch.fft
+    and of the twin.  The twin's factored f64 DFT is itself up to ~1.6e-13
+    off at 768 and 1536 (measured on the CPU), so in f64 the kernel-twin
+    distance is held to the bound plus the twin's own error."""
     xr, xi = planes(rng, shape)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
     kr, ki = mmdft.dft_c2c_axis_cuda(t(xr), t(xi), axis, sign, sign > 0)
     pr, pi = mmdft.dft_c2c_axis_plain(t(xr), t(xi), axis, sign, sign > 0)
     got = as_complex(kr.cpu(), ki.cpu())
-    ref = numpy_ref(xr, xi, axis, sign)
+    twin = as_complex(pr.cpu(), pi.cpu())
+    x = torch.complex(t(xr).double(), t(xi).double())
+    ref = (torch.fft.fft(x, dim=axis) if sign < 0
+           else torch.fft.ifft(x, dim=axis)).cpu().numpy()
     scale = np.abs(ref).max()
     bound = BOUND if dtype == torch.float32 else 1e-13
+    twin_own = 0.0 if dtype == torch.float32 else \
+        np.abs(twin - ref).max() / scale
     assert np.abs(got - ref).max() / scale < bound
-    assert np.abs(got - as_complex(pr.cpu(), pi.cpu())).max() / scale < bound
+    assert np.abs(got - twin).max() / scale < bound + twin_own
 
 
 @pytest.mark.cuda
