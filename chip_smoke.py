@@ -20,7 +20,14 @@ failure:
      gather, three-mesh gather) for bands B = 1, 2, 3, and in f64 against
      the exact index_add_ scatter and gather, the paint bitwise equal to its
      twin and repeatable (f32 and f64, weighted and not, clustered
-     displacements) and timed at every B beside the index_add_ paint; K5 on
+     displacements) and timed at every B beside the index_add_ paint, the
+     gathers bitwise equal to their twins and repeatable (f32 and f64,
+     uniform, clustered and COLA's displacements, a closed band, and wide
+     bands at 64^3 that take the launcher's direct-read path) and timed at
+     every B and on the force meshes and displacements of a 256^3 COLA run
+     (its first band-1 and its last force evaluation) beside grid_sample,
+     one and three channels; K1's supplied-normals form beside
+     torch.addcmul; K5 on
      the anisotropic 256^3 half spectra and K6 on a 256^3 cube, also in f64
      against an f64 index_add_ reduction; K9a/b in supplied mode bitwise, in
      generated mode by the moments of the normals; K7 at bands 2 and 4 in
@@ -92,7 +99,9 @@ box over 8 keys (native_highest; per seed, the card's largest pk_cleaned
 error over the CPU f32 floor's; the cube's bin-1 worst over the keys for
 the card and the floor), and the sharded step (B = 8) and the
 single pipeline in noise_scheme='rows' against their f64 CPU run on the
-same rows; its f64 CPU oracles take minutes.
+same rows; its f64 CPU oracles take minutes.  It fails when the cube's
+bin-1 worst, or the step's worst over the keys, exceeds 1.5x the CPU f32
+floor's.
 
 The last two lines of standard output are the per-kernel JSON and the
 device JSON.  Imports nothing of JAX.
@@ -154,10 +163,15 @@ KERNELS = {
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
+K11_WIDE_N = 64          # the gathers' closed and wide bands
 # K11 against its twin: the kernels sum in the twin's order with explicit
 # rounding, so they should agree exactly; the bound allows f32 reordering
 # of a few terms (a few ulp of the largest value).
 K11_TWIN_BOUND = 1e-6
+# grid_sample (the gathers' library yardstick) in f32 against K11b: its
+# normalised coordinates round each position to ~N 2^-23 cells, and a
+# white-noise mesh changes by its own size from one cell to the next.
+GRID_SAMPLE_BOUND = 1e-4
 # In f64 against the exact scatter/gather: summation order only.
 K11_EXACT_BOUND = 1e-12
 # K5/K6 in f64 against the f64 index_add_ twin, whose bins each add up to
@@ -317,10 +331,15 @@ def phase_k1(dev) -> dict:
         x, scale, seed=k.draw_seed(gen, dev), return_max=True))
     plain_ms = median_ms(lambda: k.add_scaled_normal_plain(
         x, scale, generator=gen, return_max=True))
-    # x + s n: 2 operations per element (the draw's own work not counted);
-    # no single library call draws the normals and scales them in
+    # the supplied-normals form (the radiometer noise) is one library call,
+    # x + s n with the per-channel scale broadcast; no call draws the normals
+    ms_sup = median_ms(lambda: k.add_scaled_normal_cuda(x, scale, normals=n))
+    lib_ms = median_ms(lambda: torch.addcmul(x, n, scale))
+    log(f"K1 supplied normals: kernel {ms_sup:.4f} ms, torch.addcmul "
+        f"{lib_ms:.4f} ms")
+    # x + s n: 2 operations per element (the draw's own work not counted)
     return dict(name="add_scaled_normal", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
+                plain_ms=plain_ms, library_ms=lib_ms,
                 **roofline(2 * nbytes(x) + nbytes(scale) + 4, 2 * x.numel()))
 
 
@@ -498,13 +517,108 @@ def clustered_disp(d, B: int) -> tuple:
     return tuple(out)
 
 
+def grid_sample_operands(meshes, d) -> tuple:
+    """The operands of the one library call that computes the lattice CIC
+    gather of ``meshes`` at the sites plus ``d``: the meshes as channels,
+    padded circularly by one cell at the high end of each axis, and the
+    wrapped positions normalised for ``grid_sample(align_corners=True)``
+    (its last axis orders them z, y, x).  Made outside any timing, as the
+    paint's index_add_ takes its corner indices precomputed."""
+    N = d[0].shape[0]
+    inp = torch.nn.functional.pad(torch.stack(tuple(meshes))[None],
+                                  (0, 1) * 3, mode="circular")
+    site = torch.arange(N, dtype=d[0].dtype, device=d[0].device)
+    pos = []
+    for ax, da in enumerate(d):
+        shape = [1, 1, 1]
+        shape[ax] = N
+        pos.append(torch.remainder(site.reshape(shape) + da, N) * (2.0 / N)
+                   - 1.0)
+    return inp, torch.stack(pos[::-1], dim=-1)[None]
+
+
+def grid_sample_gather(inp, grid):
+    """The gather of each channel, (C, N, N, N), in one grid_sample call."""
+    return torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True)[0]
+
+
+def gathers_bitwise(meshes, d, B: int, what: str, openband: bool = True):
+    """K11b and K11c equal to their twins bit for bit, and to themselves."""
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    g1 = k.cic_gather_lattice_cuda(meshes[0], d, B, openband)
+    g3 = k.cic_gather3_lattice_cuda(meshes, d, B, openband)
+    same = torch.equal(g1, k.cic_gather_lattice_plain(meshes[0], d, B,
+                                                      openband))
+    same3 = all(torch.equal(a, b) for a, b in zip(
+        g3, k.cic_gather3_lattice_plain(meshes, d, B, openband)))
+    again = (torch.equal(g1, k.cic_gather_lattice_cuda(meshes[0], d, B,
+                                                       openband))
+             and all(torch.equal(a, b) for a, b in zip(
+                 g3, k.cic_gather3_lattice_cuda(meshes, d, B, openband))))
+    check(same and same3 and again, f"K11b/K11c {what} B={B}: bitwise equal "
+          f"to the twin {same}/{same3}, repeatable {again}")
+
+
+def grid_sample_ms(meshes, d, B: int) -> tuple:
+    """grid_sample's ms per call for the gather of the first mesh (one
+    channel) and of all three (K11c's yardstick), after holding it to K11b
+    at band B on the same inputs."""
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    inp3, grid = grid_sample_operands(meshes, d)
+    inp1 = inp3[:, :1].contiguous()
+    err = norm_err(grid_sample_gather(inp1, grid)[0],
+                   k.cic_gather_lattice_cuda(meshes[0], d, B))
+    check(err <= GRID_SAMPLE_BOUND, f"grid_sample off the gather: {err}")
+    return (median_ms(lambda: grid_sample_gather(inp1, grid)),
+            median_ms(lambda: grid_sample_gather(inp3, grid)))
+
+
+def cola_gather_inputs(dev) -> dict:
+    """The force meshes and displacements of a 256^3 COLA run's fused force
+    gathers (K11c): the first at band 1 and the last, captured by wrapping
+    the engine's _gather3 (fields/cola.py is unchanged)."""
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.fields.cola import ColaEngine
+    from fastbox_tpu_torch.fields.gaussian import white_noise
+    from fastbox_tpu_torch.grid import GridSpec
+
+    grid = GridSpec.create(box_scale=BOX, nsamp=COLA_N[0])
+    eng = ColaEngine(grid, build_cosmology(COSMO, redshift=0.0, device=dev),
+                     redshift_init=COLA_Z_INIT, lattice_B=3, device=dev,
+                     keep_velocities=False)
+    seen, inner = {}, eng._gather3
+
+    def capture(meshes, d, b, openband, **kw):
+        copy = (tuple(m.clone() for m in meshes), tuple(a.clone() for a in d),
+                b)
+        if b == 1 and "early, band 1" not in seen:
+            seen["early, band 1"] = copy
+        seen["last"] = copy
+        return inner(meshes, d, b, openband, **kw)
+
+    eng._gather3 = capture
+    eng.run(white_noise(torch.Generator(device=dev).manual_seed(2028), grid))
+    check("early, band 1" in seen and "last" in seen,
+          f"COLA force gathers captured: {list(seen)}")
+    return seen
+
+
 def phase_k11(dev) -> list[dict]:
     """K11's three entry points against their twins at 256^3, B = 1, 2, 3
     (open band, displacements uniform in (-B, B)), and in f64 against the
     exact scatter.  The paint must equal its twin bit for bit (f32 and f64,
     weighted and not, on clustered displacements too) and repeat bit for
     bit; its time at every B beside the index_add_ paint at that B.  The
-    rows' times are at B = 3, the band the late COLA steps take."""
+    gathers (K11b, K11c) must equal their twins bit for bit and repeat, on
+    uniform, clustered and COLA displacements, f32 and f64, B = 1, 2, 3, a
+    closed band, and wide bands at 64^3 that take the launcher's other
+    path; their times at every B and on COLA's displacements beside
+    grid_sample's.  The rows' times are at B = 3 on uniform draws, the band
+    the late COLA steps take."""
     from fastbox_tpu_torch.fields.cola import cic_gather, cic_paint_particles
     from fastbox_tpu_torch.ops.cuda import lattice_cic as k
 
@@ -512,7 +626,7 @@ def phase_k11(dev) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(11)
     errs = {n: [] for n in ("cic_paint_lattice", "cic_gather_lattice",
                             "cic_gather3_lattice")}
-    times, lib_paint = {}, {}
+    times, lib_paint, lib_gather = {}, {}, {}
     site = torch.meshgrid(*(torch.arange(N, device=dev, dtype=torch.float64),)
                           * 3, indexing="ij")
     for B in (1, 2, 3):
@@ -539,6 +653,8 @@ def phase_k11(dev) -> list[dict]:
             log(f"K11 {name} B={B}: vs twin {e:.3e} of max|value| "
                 f"(bitwise equal: {same})")
             check(e <= K11_TWIN_BOUND, f"K11 {name} B={B}: {e} from the twin")
+            check(same or name == "cic_paint_lattice",
+                  f"K11 {name} B={B}: not bitwise equal to the twin")
         del pairs
         # the paint: bitwise its twin and itself, clustered and in f64
         dc = clustered_disp(d, B)
@@ -557,6 +673,15 @@ def phase_k11(dev) -> list[dict]:
                       f"{same}, repeatable {again}")
         log(f"K11a paint B={B}: bitwise equal to its twin and repeatable, "
             "f32 and f64, weighted and not, uniform and clustered")
+        m64 = tuple(m.double() for m in meshes)
+        for label, disp, mm in (("f32", d, meshes),
+                                ("f32 clustered", dc, meshes),
+                                ("f64", d64, m64),
+                                ("f64 clustered", dc64, m64)):
+            gathers_bitwise(mm, disp, B, label)
+        del m64
+        log(f"K11b/K11c gathers B={B}: bitwise equal to their twins and "
+            "repeatable, f32 and f64, uniform and clustered")
         # f64 against the exact scatter/gather at the positions l + d
         u = tuple((s + a).reshape(-1) for s, a in zip(site, d64))
         e_paint = max(norm_err(k.cic_paint_lattice_cuda(d64, B, wt),
@@ -574,6 +699,9 @@ def phase_k11(dev) -> list[dict]:
         check(max(e_paint, e_gather, e_g3) <= K11_EXACT_BOUND,
               f"K11 B={B}: off the exact scatter")
         del d64, dc64, u, w64, m64
+        lib_gather[B] = grid_sample_ms(meshes, d, B)
+        log(f"K11 gathers B={B}, uniform: grid_sample 1 channel "
+            f"{lib_gather[B][0]:.4f} ms, 3 channels {lib_gather[B][1]:.4f} ms")
         for name, kern, plain in (
                 ("cic_paint_lattice", lambda: k.cic_paint_lattice_cuda(d, B),
                  lambda: k.cic_paint_lattice_plain(d, B)),
@@ -596,6 +724,47 @@ def phase_k11(dev) -> list[dict]:
         log(f"K11a paint B={B}: kernel {times[('cic_paint_lattice', B)][0]:.4f}"
             f" ms (clustered {ms_c:.4f} ms), index_add_ {lib_paint[B]:.4f} ms")
         del dc
+    # a closed band; wide bands at 64^3: at B = 8 in f32 K11b stages its
+    # rings and K11c reads its corners from global memory; in f64, and at
+    # B = 16, both read from global memory; ragged faces (60^3), and rows
+    # that are not whole 16-byte chunks in f32 (62^3: global memory)
+    for B, ob, n, what in ((2, False, K11_WIDE_N, "closed band"),
+                           (8, True, K11_WIDE_N, "wide band"),
+                           (16, True, K11_WIDE_N, "wide band"),
+                           (3, True, 60, "ragged faces"),
+                           (3, True, 62, "unaligned rows")):
+        for dt in (torch.float32, torch.float64):
+            gd = torch.Generator(device=dev).manual_seed(100 + B)
+            d = tuple(((torch.rand((n, n, n), generator=gd, device=dev,
+                                   dtype=dt) * 2 - 1) * B).contiguous()
+                      for _ in range(3))
+            if not ob:
+                d = tuple(torch.where(a.abs() > B - 0.1, torch.sign(a) * B, a)
+                          for a in d)
+            meshes_n = tuple(torch.randn((n, n, n), generator=gd, device=dev,
+                                         dtype=dt) for _ in range(3))
+            cases = [(d, "uniform")]
+            if ob and B == 8:
+                cases.append((clustered_disp(d, B), "clustered"))
+            for disp, kind in cases:
+                gathers_bitwise(meshes_n, disp, B, f"{n}^3 {what} {dt} {kind}",
+                                openband=ob)
+        log(f"K11b/K11c gathers {n}^3 {what} B={B}: bitwise equal to their "
+            "twins and repeatable, f32 and f64")
+    # COLA's own displacements and force meshes
+    for label, (meshes_c, d, B) in cola_gather_inputs(dev).items():
+        gathers_bitwise(meshes_c, d, B, f"COLA {label} f32")
+        gathers_bitwise(tuple(m.double() for m in meshes_c),
+                        tuple(a.double() for a in d), B, f"COLA {label} f64")
+        ms_b = median_ms(lambda: k.cic_gather_lattice_cuda(meshes_c[0], d, B))
+        ms_c = median_ms(lambda: k.cic_gather3_lattice_cuda(meshes_c, d, B))
+        lib1, lib3 = grid_sample_ms(meshes_c, d, B)
+        log(f"K11 gathers on COLA {COLA_N[0]}^3's {label} force evaluation "
+            f"(band {B}, max|d| {max(a.abs().max().item() for a in d):.3f}): "
+            f"bitwise equal to their twins (f32, f64); K11b {ms_b:.4f} ms, "
+            f"K11c {ms_c:.4f} ms; grid_sample 1 channel {lib1:.4f} ms, 3 "
+            f"channels {lib3:.4f} ms")
+        del meshes_c, d
     n3 = N ** 3
     # per particle: 8 corner weights (3 products each) and 8 adds
     bounds = {"cic_paint_lattice": roofline(4 * 4 * n3, 32 * n3),
@@ -603,7 +772,9 @@ def phase_k11(dev) -> list[dict]:
               "cic_gather3_lattice": roofline(9 * 4 * n3, 3 * 32 * n3)}
     return [dict(name=n, max_abs_err=max(errs[n]), ms=times[(n, 3)][0],
                  plain_ms=times[(n, 3)][1],
-                 library_ms=lib_paint[3] if n == "cic_paint_lattice" else None,
+                 library_ms={"cic_paint_lattice": lib_paint[3],
+                             "cic_gather_lattice": lib_gather[3][0],
+                             "cic_gather3_lattice": lib_gather[3][1]}[n],
                  **bounds[n]) for n in errs]
 
 
@@ -1353,6 +1524,7 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     from fastbox_tpu_torch.pipeline import (PipelineConfig,
                                             make_ensemble_pipeline,
                                             make_pipeline)
+    from fastbox_tpu_torch.timing import StageClock
 
     _build.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
     init_single_rank(dev, tempfile.mkdtemp(prefix="pg_",
@@ -1404,6 +1576,20 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
         f"{counts.get('interp_sorted', 0)}, K4 "
         f"{counts.get('binned_pk_half_dual_v2', 0)}, K1 "
         f"{counts.get('add_scaled_normal', 0)}")
+    # the clean in f64 (ROADMAP C3) against the f32 clean it replaced: the
+    # same step with the f64 working copy taken out, in turns
+    work, pca_ms = sharded._work, {"f32": [], "f64": []}
+    for kind in ("f32", "f64", "f64", "f32"):
+        clock = StageClock(dev)
+        sharded._work = work if kind == "f64" else (lambda t: t)
+        try:
+            step256(seeds=list(range(100, 108)), clock=clock)
+        finally:
+            sharded._work = work
+        pca_ms[kind].append(clock.ms()["pca"])
+    log("sharded 256^3 B=8, pca stage ms in turns: f64 clean "
+        + " ".join(f"{v:.3f}" for v in pca_ms["f64"]) + ", f32 clean "
+        + " ".join(f"{v:.3f}" for v in pca_ms["f32"]))
     ratio = mid_k_ratio([{"k": out["k"], "pk_density": p}
                          for p in out["pk_density"]], cosmo, grid)
     log("sharded 256^3: mean pk_density/P_nl over 8 realisations on the "
@@ -1911,6 +2097,7 @@ def step_truth(dev, grid, cosmo, cosmo_cpu) -> None:
     t = np.stack(res["t"])
     truth = {"pk_cleaned": t, "f32_pk_cleaned": np.stack(res["f"])}
     keep = populated_bins(grid, dev)
+    worst = {}
     for name in ("step", "single"):
         card, floor = per_seed(truth, np.asarray(res[name]), keep)
         rel = tg._rel(np.asarray(res[name]), t).max(axis=0)
@@ -1919,6 +2106,15 @@ def step_truth(dev, grid, cosmo, cosmo_cpu) -> None:
         log(f"step truth: {name} per seed, largest pk_cleaned error / CPU f32 "
             "floor: " + " ".join(f"{c:.2e}/{f:.2e}" for c, f in
                                  zip(card, floor)))
+        worst[name] = (card.max(), floor.max())
+        log(f"step truth: {name} worst over seeds {seeds[0]}-{seeds[-1]}: "
+            f"{worst[name][0]:.3e}, CPU f32 floor {worst[name][1]:.3e} (ratio "
+            f"{worst[name][0] / worst[name][1]:.2f})")
+    # the step's f32 clean runs in f64 as the single pipeline's does
+    # (ROADMAP C3): its worst stays of the floor's size, the cube's bar
+    check(worst["step"][0] <= 1.5 * worst["step"][1],
+          f"step truth: worst {worst['step'][0]} above 1.5x the CPU f32 "
+          f"floor's {worst['step'][1]}")
     spread = tg._rel(np.asarray(res["step"]), np.asarray(res["single"]))
     log(f"step truth: step vs single, largest per-bin pk_cleaned rel diff "
         f"{spread.max():.3e}")
@@ -1967,8 +2163,9 @@ def bin1_source(dev, grid, cosmo, cosmo_cpu, key: int) -> None:
 
 def truth_256(dev) -> None:
     """``--truth-256``: the gate at the bench size, the anisotropic box,
-    and the step against the single rows-mode pipeline.  Reports; fails
-    only if a pk_density or a finite result is off."""
+    and the step against the single rows-mode pipeline.  Fails if a
+    pk_density or a finite result is off, or if the cube's bin-1 worst or
+    the step's worst over the keys exceeds 1.5x the CPU f32 floor's."""
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
 

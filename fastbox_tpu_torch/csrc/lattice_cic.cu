@@ -49,12 +49,32 @@
 // tile where it would not fit in shared memory and refuses a band beyond
 // that.
 //
-// Gather is particle-centric: under the bound the banded sum has exactly
-// eight non-zero weights, so one thread per particle reads the eight cells
-// (l + floor(d) + {0,1}) mod N directly (oz outer, oy inner, as the twin).
-// The three-mesh gather computes the indices and weights once for the three
-// PM force components.  Bound on the card: memory, one read of d and of the
-// meshes' neighbourhoods, one write per particle and mesh.
+// Gather: under the bound a particle's banded sum has at most eight
+// non-zero weights, on the corners (l + floor(d) + {0,1}) mod N, summed oz
+// outer, oy, then ox, as the twin nests its rolls; the three-mesh gather
+// (the PM force components) computes the floors and weights once.  The
+// bound on the card is bytes: one read of d and of each mesh, one write
+// per particle and mesh.  Read straight from global memory, the corners of
+// a warp's 32 particles fall in ~32 sectors per load wherever the
+// displacements are uncorrelated, so sector traffic from L2, not bytes,
+// bounds such a kernel.  Instead a block owns a face of sites, face_y x 32
+// (warp = y, lane = z; no division by N), and marches along x over 32
+// planes.  The mesh planes its corners can reach, the face grown by the
+// band, stream through a ring of span + 1 + ahead planes per mesh in
+// shared memory: cp.async copies of 16-byte chunks, coalesced along z and
+// wrapped periodically, issued ahead of the plane being summed, while the
+// next plane's d is loaded.  Each mesh plane is read from L2 ~(1 +
+// span/face_y)(1 + span/32)^2 times, and the sums read shared memory.  The
+// copies and the sums' shared-memory loads share the SM's load/store
+// pipe: timed apart, each added about as much time as the d-in, out-out
+// traffic alone, and copying 16 bytes at a time instead of 4 cut K11c by
+// 15%.  Where the
+// rings do not fit a block's shared memory (open band: f32 K11b beyond
+// B = 8 and K11c beyond B = 5, f64 beyond 5 and 3), or N is not a multiple
+// of a 16-byte chunk, one thread per particle reads its corners from
+// global memory.  Only where a corner is loaded from differs: the
+// arithmetic and its order, and the band tests, are the twin's, so kernel
+// and twin agree bit for bit (H100 80GB HBM3, 700 W; PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -299,11 +319,226 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   }
 }
 
+// cp.async of one element into shared memory (sm_80+): no register staging,
+// many copies in flight per thread
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
+               "n"(sizeof(T)));
+}
+
+// cp.async of 16 bytes, both addresses 16-byte aligned; cached in L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most kPending of this thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The staged gather's block: a face_y x kFaceZ face of sites (warp = y,
+// lane = z; rows sites per thread along y) that marches along x over kRun
+// planes, with ahead mesh planes staged ahead of the plane it sums.
+constexpr int kFaceZ = 32, kRun = 32;
+
+// K11b takes two sites per thread; K11c's three rings leave room for two
+// blocks of one site per thread, staged two planes ahead.
+template <int kMeshes>
+struct GatherShape {
+  static constexpr int warps = 16;                    // per block
+  static constexpr int rows = kMeshes == 1 ? 2 : 1;   // sites per thread along y
+  static constexpr int ahead = kMeshes == 1 ? 4 : 2;  // mesh planes staged ahead
+  static constexpr int face_y = warps * rows, threads = warps * 32;
+};
+
+// one site's floors, fractions and band tests; bit 2 ax + e of the mask:
+// corner offset floor + e lies in [lo, hi]
+template <typename T>
+__device__ __forceinline__ unsigned corners(const T v[3], int lo, int hi, T fr[3], int fl[3]) {
+  unsigned ok = 0;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const T f = floor_t(v[ax]);
+    fr[ax] = v[ax] - f;  // exact
+    fl[ax] = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const T o = f + T(e);  // exact: |f| <= N
+      if (o >= T(lo) && o <= T(hi)) {
+        ok |= 1u << (2 * ax + e);
+        fl[ax] = static_cast<int>(o) - e;
+      }
+    }
+  }
+  return ok;
+}
+
+// The banded sum of one site in the twin's order, oz outer, oy, then ox,
+// over its in-band corners; at(cx, cy, cz) loads corner floor + (cx, cy, cz).
+template <typename T, typename At>
+__device__ __forceinline__ T corner_sum(unsigned ok, const T fr[3], At&& at) {
+  T acc = T(0);
+#pragma unroll
+  for (int cz = 0; cz < 2; ++cz) {
+    if (!((ok >> (4 + cz)) & 1u)) continue;
+    const T wz = cz ? fr[2] : fbx::sub_rn(T(1), fr[2]);
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy) {
+      if (!((ok >> (2 + cy)) & 1u)) continue;
+      const T wyz = fbx::mul_rn(cy ? fr[1] : fbx::sub_rn(T(1), fr[1]), wz);
+      T sx = T(0);
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        if ((ok >> cx) & 1u) {
+          const T wx = cx ? fr[0] : fbx::sub_rn(T(1), fr[0]);
+          sx = fbx::add_rn(sx, fbx::mul_rn(wx, at(cx, cy, cz)));
+        }
+      }
+      acc = fbx::add_rn(acc, fbx::mul_rn(wyz, sx));
+    }
+  }
+  return acc;
+}
+
+// A staged row of a mesh plane starts at the 16-byte boundary at or below
+// z0 + lo (every z0 is a multiple of 32): shift elements before the
+// face's band, row pitch pitch elements, in whole 16-byte chunks.
+template <typename T>
+__host__ __device__ void gather_row(int lo, int hi, int* shift, int* pitch) {
+  constexpr int kVec = 16 / sizeof(T);
+  *shift = ((lo % kVec) + kVec) % kVec;
+  *pitch = (*shift + kFaceZ + hi - lo + kVec - 1) / kVec * kVec;
+}
+
+// Shared memory of a staged gather block: kMeshes rings of span + 1 +
+// ahead mesh planes, each (face_y + span) rows of pitch elements.
 template <typename T, int kMeshes>
-__global__ void __launch_bounds__(256)
+size_t gather_smem(int lo, int hi) {
+  using S = GatherShape<kMeshes>;
+  int shift, pitch;
+  gather_row<T>(lo, hi, &shift, &pitch);
+  const int span = hi - lo;
+  return static_cast<size_t>(kMeshes) * (span + 1 + S::ahead) * (S::face_y + span) * pitch *
+         sizeof(T);
+}
+
+template <typename T, int kMeshes>
+__global__ void __launch_bounds__(GatherShape<kMeshes>::threads)
 gather_kernel(const T* __restrict__ m0, const T* __restrict__ m1, const T* __restrict__ m2,
               const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
               T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, int N, int lo, int hi) {
+  using S = GatherShape<kMeshes>;
+  constexpr int kWarps = S::warps, kRows = S::rows, kAhead = S::ahead;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  const int span = hi - lo;
+  int shift, PZ;
+  gather_row<T>(lo, hi, &shift, &PZ);
+  const int PY = S::face_y + span, plane = PY * PZ, nchunk = PZ / kVec;
+  const int R = span + 1 + kAhead;            // ring depth, planes
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [kMeshes][R][PY][PZ]
+  const T* mesh[3] = {m0, m1, m2};
+  T* outp[3] = {o0, o1, o2};
+  const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
+  // z faces fastest in launch order, so blocks whose planes share rows
+  // along the contiguous axis run together and find them in L2
+  const int z0 = blockIdx.x * kFaceZ, y0 = blockIdx.y * S::face_y, xs = blockIdx.z * kRun;
+  const int nrun = min(kRun, N - xs);
+  const int sz = z0 + lane;
+
+  // Mesh plane q (global x = xs + lo + q, q < nrun + span) of every mesh
+  // into ring slot q mod R as one cp.async group of 16-byte chunks,
+  // coalesced along z and wrapped periodically (N is a multiple of kVec,
+  // so no chunk crosses the periodic edge); an empty group past the end
+  // keeps the count.
+  const int za = z0 + lo - shift;
+  auto stage = [&](int q) {
+    if (q < nrun + span) {
+      const int64_t gx = static_cast<int64_t>(wrap_near(xs + lo + q, N)) * N;
+      T* slot = ring + static_cast<size_t>(q % R) * plane;
+      for (int p = threadIdx.x; p < PY * nchunk; p += S::threads) {
+        const int r = p / nchunk, c = p - r * nchunk;
+        const int64_t g = (gx + wrap_near(y0 + lo + r, N)) * N + wrap_near(za + c * kVec, N);
+#pragma unroll
+        for (int m = 0; m < kMeshes; ++m)
+          cp_async16(slot + static_cast<size_t>(m) * R * plane + r * PZ + c * kVec, mesh[m] + g);
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's sites (xs + j, y0 + wy + kWarps t, sz), t < kRows
+  auto live = [&](int t) { return y0 + wy + kWarps * t < N && sz < N; };
+  auto site = [&](int j, int t) {
+    return (static_cast<int64_t>(xs + j) * N + y0 + wy + kWarps * t) * N + sz;
+  };
+  auto load_d = [&](int j, T v[kRows][3]) {
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      if (live(t) && j < nrun) {
+        const int64_t g = site(j, t);
+        v[t][0] = dx[g];
+        v[t][1] = dy[g];
+        v[t][2] = dz[g];
+      }
+    }
+  };
+
+  // plane q is group q: the first span + kAhead, then one per step
+  for (int q = 0; q < span + kAhead; ++q) stage(q);
+  T v[kRows][3] = {};
+  load_d(0, v);
+  for (int j = 0, jr = 0; j < nrun; ++j, jr = jr + 1 == R ? 0 : jr + 1) {
+    T vn[kRows][3] = {};
+    load_d(j + 1, vn);            // the next step's d, in flight meanwhile
+    cp_async_wait<kAhead - 1>();  // planes up to j + span have landed
+    __syncthreads();
+    // every thread has summed plane j - 1: its slot takes plane j + span +
+    // kAhead
+    stage(j + span + kAhead);
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      if (!live(t)) continue;
+      T fr[3];
+      int fl[3];
+      const unsigned ok = corners(v[t], lo, hi, fr, fl);
+      // where in band, corner plane j + fl + cx - lo lies in [j, j + span]
+      int s0 = jr + fl[0] - lo;
+      s0 = s0 < 0 ? s0 + R : (s0 >= R ? s0 - R : s0);
+      const int s1 = s0 + 1 == R ? 0 : s0 + 1;
+      const int row = (wy + kWarps * t + fl[1] - lo) * PZ + lane + fl[2] - lo + shift;
+      const int64_t g = site(j, t);
+#pragma unroll
+      for (int m = 0; m < kMeshes; ++m) {
+        const T* r0 = ring + static_cast<size_t>(m * R + s0) * plane + row;
+        const T* r1 = ring + static_cast<size_t>(m * R + s1) * plane + row;
+        outp[m][g] = corner_sum(ok, fr, [&](int cx, int cy, int cz) {
+          return (cx ? r1 : r0)[cy * PZ + cz];
+        });
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kRows; ++t)
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) v[t][ax] = vn[t][ax];
+  }
+}
+
+// The gather where the staged rings do not fit (wide bands): one thread per
+// particle reads its corners from global memory.
+template <typename T, int kMeshes>
+__global__ void __launch_bounds__(256)
+gather_direct_kernel(const T* __restrict__ m0, const T* __restrict__ m1,
+                     const T* __restrict__ m2, const T* __restrict__ dx,
+                     const T* __restrict__ dy, const T* __restrict__ dz, T* __restrict__ o0,
+                     T* __restrict__ o1, T* __restrict__ o2, int N, int lo, int hi) {
   const int64_t NN = static_cast<int64_t>(N) * N;
   const int64_t n3 = NN * N;
   const T* mesh[3] = {m0, m1, m2};
@@ -313,48 +548,17 @@ gather_kernel(const T* __restrict__ m0, const T* __restrict__ m1, const T* __res
     const int site[3] = {static_cast<int>(g / NN), static_cast<int>((g / N) % N),
                          static_cast<int>(g % N)};
     const T v[3] = {dx[g], dy[g], dz[g]};
-    int idx[3][2];
-    T wt[3][2];
-    bool ok[3][2];
+    T fr[3];
+    int fl[3];
+    const unsigned ok = corners(v, lo, hi, fr, fl);
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const T f = floor_t(v[ax]);
-      const T frac = v[ax] - f;
-      wt[ax][0] = fbx::sub_rn(T(1), frac);
-      wt[ax][1] = frac;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const T o = f + T(e);  // exact: |f| <= N
-        ok[ax][e] = o >= T(lo) && o <= T(hi);
-        idx[ax][e] = ok[ax][e] ? wrap(site[ax] + static_cast<int>(o), N) : 0;
-      }
+    for (int m = 0; m < kMeshes; ++m) {
+      const T* src = mesh[m];
+      outp[m][g] = corner_sum(ok, fr, [&](int cx, int cy, int cz) {
+        return src[wrap(site[0] + fl[0] + cx, N) * NN + wrap(site[1] + fl[1] + cy, N) * N +
+                   wrap(site[2] + fl[2] + cz, N)];
+      });
     }
-    T acc[kMeshes];
-#pragma unroll
-    for (int m = 0; m < kMeshes; ++m) acc[m] = T(0);
-#pragma unroll
-    for (int ez = 0; ez < 2; ++ez) {
-      if (!ok[2][ez]) continue;
-#pragma unroll
-      for (int ey = 0; ey < 2; ++ey) {
-        if (!ok[1][ey]) continue;
-        const T wyz = fbx::mul_rn(wt[1][ey], wt[2][ez]);
-        const int64_t row = static_cast<int64_t>(idx[1][ey]) * N + idx[2][ez];
-#pragma unroll
-        for (int m = 0; m < kMeshes; ++m) {
-          T sx = T(0);
-#pragma unroll
-          for (int ex = 0; ex < 2; ++ex) {
-            if (ok[0][ex]) {
-              sx = fbx::add_rn(sx, fbx::mul_rn(wt[0][ex], mesh[m][idx[0][ex] * NN + row]));
-            }
-          }
-          acc[m] = fbx::add_rn(acc[m], fbx::mul_rn(wyz, sx));
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kMeshes; ++m) outp[m][g] = acc[m];
   }
 }
 
@@ -415,12 +619,33 @@ cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, co
   int lo, hi;
   cudaError_t e = band(N, B, openband, &lo, &hi);
   if (e != cudaSuccess) return e;
+  int dev, max_smem;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return e;
+  const int n = static_cast<int>(N);
+  using S = GatherShape<kMeshes>;
+  const size_t smem = gather_smem<T, kMeshes>(lo, hi);
+  if (smem <= static_cast<size_t>(max_smem) && N % (16 / sizeof(T)) == 0) {
+    auto kernel = &gather_kernel<T, kMeshes>;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    const dim3 grid((n + kFaceZ - 1) / kFaceZ, (n + S::face_y - 1) / S::face_y,
+                    (n + kRun - 1) / kRun);
+    if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+    kernel<<<grid, S::threads, smem, stream>>>(m0, m1, m2, dx, dy, dz, o0, o1, o2, n, lo, hi);
+    return cudaGetLastError();
+  }
   const int64_t n3 = N * N * N;
   const int threads = 256;
   int64_t blocks = (n3 + threads - 1) / threads;
   if (blocks > (1 << 22)) blocks = 1 << 22;
-  gather_kernel<T, kMeshes><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      m0, m1, m2, dx, dy, dz, o0, o1, o2, static_cast<int>(N), lo, hi);
+  gather_direct_kernel<T, kMeshes><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      m0, m1, m2, dx, dy, dz, o0, o1, o2, n, lo, hi);
   return cudaGetLastError();
 }
 

@@ -396,8 +396,12 @@ class ColaEngine:
             comps = tuple(comp(ax) for ax in range(3))
             if clock:
                 clock.mark("solve")
-            for i, g in enumerate(self._gather3(comps, d, b, True)):
-                F[i] = g
+            if self.lattice_impl == "cuda":
+                # K11c gathers straight into the force rows
+                self._gather3(comps, d, b, True, out=F.unbind(0))
+            else:
+                for i, g in enumerate(self._gather3(comps, d, b, True)):
+                    F[i] = g
             if clock:
                 clock.mark("gather")
             return F, diag

@@ -68,12 +68,22 @@ def cic_gather_lattice_cuda(mesh, disp, B: int, openband: bool = True):
     return out
 
 
-def cic_gather3_lattice_cuda(meshes, disp, B: int, openband: bool = True):
+def cic_gather3_lattice_cuda(meshes, disp, B: int, openband: bool = True,
+                             out=None):
+    """``out``: three (N, N, N) tensors to gather into (the rows of the COLA
+    engine's force array), else new ones; they must not overlap the
+    inputs."""
     meshes = tuple(meshes)
     if len(meshes) != 3:
         raise ValueError(f"{GATHER3}: needs three meshes")
-    d, N = _check(GATHER3, meshes, disp, B)
-    outs = tuple(torch.empty_like(m) for m in meshes)
+    outs = tuple(torch.empty_like(m) for m in meshes) if out is None \
+        else tuple(out)
+    if len(outs) != 3:
+        raise ValueError(f"{GATHER3}: out must be three tensors")
+    d, N = _check(GATHER3, meshes + outs, disp, B)
+    ins = {t.untyped_storage().data_ptr() for t in meshes + d}
+    if any(o.untyped_storage().data_ptr() in ins for o in outs):
+        raise ValueError(f"{GATHER3}: out shares storage with an input")
     _launch(GATHER3, "fbx_cic_gather3_lattice", outs[0].dtype,
             outs[0].device, *(m.data_ptr() for m in meshes),
             *(t.data_ptr() for t in d), *(o.data_ptr() for o in outs), N,

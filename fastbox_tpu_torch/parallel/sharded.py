@@ -33,7 +33,7 @@ import torch.distributed as dist
 from ..constants import C_MS
 from ..device import resolve
 from ..fields.gaussian import complex_dtype
-from ..filters.pca import top_eigvecs, topk_eigvecs_subspace
+from ..filters.pca import _work, top_eigvecs, topk_eigvecs_subspace
 from ..grid import GridSpec
 from ..models import noise as noise_mod
 from ..models.foregrounds import _scipy_gaussian_kernel1d
@@ -317,9 +317,11 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         if beam_fac is not None or kpar_filter is not None:
             clock.mark("instrument")
 
-        # (7) PCA clean, the mean spectrum and covariance all-reduced
+        # (7) PCA clean, the mean spectrum and covariance all-reduced; a
+        # float32 cube is cleaned in float64 as pca_filter cleans it, and
+        # only the cleaned cube is rounded (ROADMAP C3)
         npix = N * N
-        d2 = data.reshape(B_loc, Np * N, N)
+        d2 = _work(data.reshape(B_loc, Np * N, N))
         mean_spec = all_reduce(torch.sum(d2, dim=1)) / npix
         x = d2 - mean_spec[:, None, :]
         cov = all_reduce(torch.matmul(x.transpose(1, 2), x)) / (npix - 1)
@@ -331,8 +333,8 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         fg_fit = torch.matmul(torch.matmul(x, U), U.transpose(1, 2)) \
             + mean_spec[:, None, :]
         del x
-        cleaned = (d2 - fg_fit).reshape(B_loc, Np, N, N)
-        del fg_fit
+        cleaned = (d2 - fg_fit).to(dtype).reshape(B_loc, Np, N, N)
+        del d2, fg_fit
         clock.mark("pca")
 
         # (8) binned P(k) of the cleaned cube and of the density, per slab;

@@ -38,12 +38,12 @@ def close(got, want, rtol=RTOL):
                                atol=rtol * np.abs(want).max())
 
 
-def displacements(rng, B, openband):
+def displacements(rng, B, openband, n=N):
     """(dx, dy, dz) numpy arrays inside the band: |d| < B for the open band,
     |d| <= B with some values exactly +-B for the closed one."""
     if openband:
-        return tuple(rng.uniform(-B, B, (N, N, N)) * 0.999 for _ in range(3))
-    d = [rng.uniform(-B, B, (N, N, N)) for _ in range(3)]
+        return tuple(rng.uniform(-B, B, (n, n, n)) * 0.999 for _ in range(3))
+    d = [rng.uniform(-B, B, (n, n, n)) for _ in range(3)]
     for a in d:
         a.reshape(-1)[::97] = B
         a.reshape(-1)[5::97] = -B
@@ -276,3 +276,85 @@ def test_kernels_equal_twins(cuda, rng, B, dtype):
                                                                 weights))
             assert torch.equal(got, k11.cic_paint_lattice_cuda(disp, B,
                                                                weights))
+
+
+@pytest.mark.parametrize("nmesh", [1, 3])
+def test_grid_sample_yardstick_is_the_gather(rng, nmesh):
+    """chip_smoke.py times the gathers beside one grid_sample call on the
+    meshes padded circularly by one cell (its library yardstick).  In f64
+    that call is the twin gather, channel by channel, to rounding."""
+    import chip_smoke
+
+    B = 3
+    d = tt(displacements(rng, B, True))
+    meshes = tt([rng.standard_normal((N, N, N)) for _ in range(nmesh)])
+    inp, grid = chip_smoke.grid_sample_operands(meshes, d)
+    assert inp.shape == (1, nmesh, N + 1, N + 1, N + 1)
+    got = chip_smoke.grid_sample_gather(inp, grid)
+    assert got.shape == (nmesh, N, N, N)
+    for g, m in zip(got, meshes):
+        close(g.numpy(), lattice_cic.cic_gather_lattice(m, d, B,
+                                                        True).numpy())
+
+
+def test_gather3_out_is_checked(rng):
+    """K11c's optional outputs (the COLA force rows) are checked before
+    anything launches."""
+    d = tt(displacements(rng, 2, True))
+    meshes = tt([rng.standard_normal((N, N, N)) for _ in range(3)])
+    with pytest.raises(ValueError, match="three tensors"):
+        k11.cic_gather3_lattice_cuda(meshes, d, 2, out=meshes[:2])
+    with pytest.raises(ValueError, match="CUDA"):
+        k11.cic_gather3_lattice_cuda(meshes, d, 2,
+                                     out=torch.empty((3, N, N, N)).unbind(0))
+
+
+def smooth(rng, B, n):
+    """Displacements like COLA's: smooth fields (a few long waves) with
+    max|d| just under B."""
+    site = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    out = []
+    for _ in range(3):
+        f = sum(np.sin(2 * np.pi * sum(k * s for k, s in
+                                       zip(rng.integers(-2, 3, 3), site)) / n
+                       + rng.uniform(0, 2 * np.pi)) for _ in range(4))
+        out.append(f * (0.99 * B / np.abs(f).max()))
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, openband, n", [(1, True, 64), (2, True, 64),
+                                            (3, True, 64), (2, False, 64),
+                                            (3, True, 60), (3, True, 30),
+                                            (8, True, 32), (16, True, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gathers_equal_twins_bitwise(cuda, rng, B, openband, n, dtype):
+    """K11b and K11c stream mesh planes through shared memory, or read
+    their corners from global memory where the rings do not fit (K11c at
+    B = 8 in f32, both at B = 8 in f64 and at B = 16) or N is not a
+    multiple of a 16-byte chunk (n = 30 in f32); ragged faces at n = 60; either
+    way they sum in the twins' order:
+    bitwise equal to the twins and repeatable on uniform, clustered and
+    smooth (COLA-like) displacements, into new tensors or given ones."""
+    def on(arrs):
+        return tuple(torch.as_tensor(a, dtype=dtype, device=cuda)
+                     for a in arrs)
+
+    meshes = on([rng.standard_normal((n, n, n)) for _ in range(3)])
+    cases = [displacements(rng, B, openband, n)]
+    if openband:
+        cases += [clustered(rng, B, n), smooth(rng, B, n)]
+    for d in map(on, cases):
+        g1 = k11.cic_gather_lattice_cuda(meshes[0], d, B, openband)
+        assert torch.equal(g1, k11.cic_gather_lattice_plain(meshes[0], d, B,
+                                                            openband))
+        assert torch.equal(g1, k11.cic_gather_lattice_cuda(meshes[0], d, B,
+                                                           openband))
+        g3 = k11.cic_gather3_lattice_cuda(meshes, d, B, openband)
+        out = torch.empty((3, n, n, n), dtype=dtype, device=cuda)
+        k11.cic_gather3_lattice_cuda(meshes, d, B, openband,
+                                     out=out.unbind(0))
+        for a, b, c in zip(g3, k11.cic_gather3_lattice_plain(meshes, d, B,
+                                                             openband), out):
+            assert torch.equal(a, b)
+            assert torch.equal(a, c)
