@@ -26,15 +26,20 @@ failure:
      bands at 64^3 that take the launcher's direct-read path) and timed at
      every B and on the force meshes and displacements of a 256^3 COLA run
      (its first band-1 and its last force evaluation) beside grid_sample,
-     one and three channels; K1's supplied-normals form beside
-     torch.addcmul; K5 on
+     one and three channels; K1 0 ulp from its twin with supplied normals
+     (vector and direct paths, f32 and f64), its generated normals by their
+     moments and lag-1 and lag-C autocorrelations, timed beside
+     torch.addcmul (supplied) and torch.normal (generated); K2 and K7
+     bitwise equal to their twins at bands 2 and 4, f32 and f64, on the
+     cube's rows, 512-cell rows, the anisotropic box's and 62-cell rows
+     (the direct path, as are unaligned rows and K7 at band 3); K5 on
      the anisotropic 256^3 half spectra and K6 on a 256^3 cube, also in f64
      against an f64 index_add_ reduction; K9a/b in supplied mode bitwise, in
-     generated mode by the moments of the normals; K7 at bands 2 and 4 in
-     f32 and f64; K10 (the axis FFT) at every supported length, both axes
-     and signs, f32 and f64, then at the K10 route's planar shapes (256,
-     256, 129) and (512, 512, 257) against its twin and complex128
-     torch.fft, timed beside torch.fft.fft along the same axis.  Each
+     generated mode by the moments of the normals; K10 (the axis FFT) at
+     every supported length, both axes and signs, f32 and f64, then at the
+     K10 route's planar shapes (256, 256, 129) and (512, 512, 257) against
+     its twin and complex128 torch.fft, timed beside torch.fft.fft along
+     the same axis.  Each
      kernel's row also carries its bound (bytes or operations over the
      H100's published peaks) and, where one PyTorch call computes the same
      function, that call's time (library_ms);
@@ -178,9 +183,9 @@ K11_EXACT_BOUND = 1e-12
 # millions of terms one after another: the sum of n positive terms in that
 # order is within n unit roundoffs of exact.
 F64_SUM_BOUND = 2.0 ** -53
-# K7 and K8 sum in their twins' order with explicit rounding: equal but for
-# a reordering of a few terms (a few ulp of the largest value).
-K7_K8_TWIN_BOUND = 1e-6
+# K8 sums in its twin's order with explicit rounding: equal but for a
+# reordering of a few terms (a few ulp of the largest value).
+K8_TWIN_BOUND = 1e-6
 # Per-bin truth bounds, f32 on the card against f64 on the CPU, same
 # draws.  pk_cleaned's is a sanity bound: the clean's 4th and 5th
 # eigenvalues lie within ~1% of each other, which amplifies f32 rounding of
@@ -269,18 +274,20 @@ def index_add_ms(idx, terms, nb: int) -> float:
                      .index_add_(0, idx, src))
 
 
-def rsd_inputs(grid, cosmo, cells: float, dev, seed: int):
-    """(vals, vel, z, fill, wrap) at the pipeline's (N^2, N) RSD shapes, with
-    velocities uniform in +-cells*dz*H (displacements up to ``cells``)."""
+def rsd_inputs(grid, cosmo, cells: float, dev, seed: int, rows=None):
+    """(vals, vel, z, fill, wrap) at the pipeline's (N^2, N) RSD shapes (or
+    ``rows`` lines of sight of N cells), with velocities uniform in
+    +-cells*dz*H (displacements up to ``cells``)."""
     from fastbox_tpu_torch.ops.cuda.rsd_fused import wrap_params
 
     N = grid.N
+    M = N * N if rows is None else rows
     g = torch.Generator(device=dev).manual_seed(seed)
     z = torch.as_tensor(grid.z, dtype=torch.float32, device=dev)
     dz = float(grid.z[1] - grid.z[0])
     Hz = 100.0 * cosmo.h * cosmo.Ea
-    vals = torch.randn((N * N, N), generator=g, device=dev)
-    vel = (torch.rand((N * N, N), generator=g, device=dev) * 2 - 1) \
+    vals = torch.randn((M, N), generator=g, device=dev)
+    vel = (torch.rand((M, N), generator=g, device=dev) * 2 - 1) \
         * (cells * dz * Hz)
     fill = 0.5 * (vals[:, 0] + vals[:, -1])
     inv_hz = 1.0 / torch.tensor(Hz, dtype=torch.float32, device=dev)
@@ -288,25 +295,56 @@ def rsd_inputs(grid, cosmo, cells: float, dev, seed: int):
     return vals, vel, z, fill, wrap, inv_hz, dz
 
 
+def unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: the kernels' direct paths."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ulp_diff(a, b) -> int:
+    """Largest distance in units in the last place between a and b."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.view(it).long() - b.view(it).long()).abs().max().item()
+
+
 def phase_k1(dev) -> dict:
+    """K1 at the rows' shapes (65536, 256), f32: supplied normals 0 ulp from
+    the twin with the max exact, on the vector path, in f64, at 62 columns
+    and on an unaligned copy (the direct path); generated normals: the same
+    bits for one seed on both paths, others for another seed, moments and
+    lag-1 and lag-C autocorrelations within 5 sigma over 2^24 values, max
+    exact also at 62 columns; times beside torch.addcmul (supplied) and
+    torch.normal (generated)."""
     from fastbox_tpu_torch.ops.cuda import noise as k
 
     N = 256
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((N * N, N), generator=g, device=dev) * 300.0
-    scale = torch.full((N,), 120.0, device=dev)
+    scale = 60.0 + 120.0 * torch.rand(N, generator=g, device=dev)
     n = torch.randn((N * N, N), generator=g, device=dev)
-    # supplied normals: exact to 1 ulp (the kernel rounds as the twin does)
-    out_k, mx_k = k.add_scaled_normal_cuda(x, scale, normals=n,
-                                           return_max=True)
-    out_p, mx_p = k.add_scaled_normal_plain(x, scale, normals=n,
-                                            return_max=True)
-    ulps = (out_k.view(torch.int32).long()
-            - out_p.view(torch.int32).long()).abs().max().item()
-    check(ulps <= 1, f"K1 supplied mode: {ulps} ulp from the twin")
-    check(mx_k.item() == mx_p.item(), "K1 supplied mode: max differs")
-    err = (out_k - out_p).abs().max().item()
-    # generated normals: moments within 5 sigma, seed determinism, exact max
+    x62, n62 = x[:4096, :62].contiguous(), n[:4096, :62].contiguous()
+    supplied = [("rows", x, scale, n, True),
+                ("rows f64", x.double(), scale.double(), n.double(), True),
+                ("62 columns", x62, scale[:62].contiguous(), n62, False),
+                ("62 columns f64", x62.double(), scale[:62].double(),
+                 n62.double(), False),
+                ("unaligned rows", unaligned(x), scale, unaligned(n), False)]
+    for what, xs, ss, ns, vec in supplied:
+        check(k.vector_path(xs.shape[1], xs, ss, ns) == vec,
+              f"K1 {what}: not on the {'vector' if vec else 'direct'} path")
+        out_k, mx_k = k.add_scaled_normal_cuda(xs, ss, normals=ns,
+                                               return_max=True)
+        out_p, mx_p = k.add_scaled_normal_plain(xs, ss, normals=ns,
+                                                return_max=True)
+        ulps = ulp_diff(out_k, out_p)
+        log(f"K1 supplied, {what} {tuple(xs.shape)}: {ulps} ulp from the "
+            f"twin, max {mx_k.item()!r} vs {mx_p.item()!r}")
+        check(ulps == 0, f"K1 supplied {what}: {ulps} ulp from the twin")
+        check(mx_k.item() == mx_p.item(), f"K1 supplied {what}: max differs")
+    # generated normals
     zero = torch.zeros_like(x)
     one = torch.ones_like(scale)
     s1 = torch.tensor([12345], dtype=torch.int64, device=dev)
@@ -314,69 +352,134 @@ def phase_k1(dev) -> dict:
     a, amax = k.add_scaled_normal_cuda(zero, one, seed=s1, return_max=True)
     b = k.add_scaled_normal_cuda(zero, one, seed=s1)
     c = k.add_scaled_normal_cuda(zero, one, seed=s2)
+    d = k.add_scaled_normal_cuda(unaligned(zero), one, seed=s1)
     check(torch.equal(a, b), "K1: same seed, different bits")
     check(not torch.equal(a, c), "K1: different seeds, same bits")
+    check(torch.equal(a, d), "K1: the direct path drew other bits")
     check(amax.item() == a.abs().max().item(), "K1: max != out.abs().max()")
-    m = a.double().numel()
-    mean = a.double().mean().item()
-    var = a.double().var(correction=0).item()
-    kurt = (a.double() ** 4).mean().item() / var**2
+    a62, a62max = k.add_scaled_normal_cuda(zero[:4096, :62].contiguous(),
+                                           one[:62].contiguous(), seed=s1,
+                                           return_max=True)
+    check(a62max.item() == a62.abs().max().item(),
+          "K1 at 62 columns: max != out.abs().max()")
+    check(torch.equal(a62, a[:4096, :62]),
+          "K1 at 62 columns: not the rows' bits")
+    f = a.double().reshape(-1)
+    m = f.numel()
+    mean = f.mean().item()
+    var = f.var(correction=0).item()
+    kurt = ((f - mean) ** 4).mean().item() / var**2
+    lags = {lag: ((f[:-lag] - mean) * (f[lag:] - mean)).mean().item() / var
+            for lag in (1, N)}
     check(abs(mean) < 5 / m**0.5, f"K1 mean {mean}")
     check(abs(var - 1) < 5 * (2 / m) ** 0.5, f"K1 variance {var}")
     check(abs(kurt - 3) < 5 * (96 / m) ** 0.5, f"K1 kurtosis {kurt}")
-    log(f"K1 add_scaled_normal: supplied {ulps} ulp, max exact; generated "
-        f"mean {mean:.3e} var {var:.6f} kurtosis {kurt:.5f} (n={m})")
+    for lag, r in lags.items():
+        check(abs(r) < 5 / (m - lag) ** 0.5, f"K1 lag-{lag} autocorr {r}")
+    log(f"K1 generated: mean {mean:.3e} var {var:.6f} kurtosis {kurt:.5f} "
+        f"lag-1 {lags[1]:.3e} lag-C {lags[N]:.3e} (n={m}); direct path "
+        "draws the vector path's bits; max exact at 62 columns")
     gen = torch.Generator(device=dev).manual_seed(2)
     ms = median_ms(lambda: k.add_scaled_normal_cuda(
         x, scale, seed=k.draw_seed(gen, dev), return_max=True))
+    ms_gen = median_ms(lambda: k.add_scaled_normal_cuda(
+        x, scale, seed=k.draw_seed(gen, dev)))
     plain_ms = median_ms(lambda: k.add_scaled_normal_plain(
         x, scale, generator=gen, return_max=True))
-    # the supplied-normals form (the radiometer noise) is one library call,
-    # x + s n with the per-channel scale broadcast; no call draws the normals
+    # one library call for each form: x + s N(0,1) with the per-column
+    # scale broadcast, drawn (torch.normal) or supplied (torch.addcmul)
+    std = scale.expand_as(x)
+    lib_gen = median_ms(lambda: torch.normal(x, std, generator=gen))
     ms_sup = median_ms(lambda: k.add_scaled_normal_cuda(x, scale, normals=n))
-    lib_ms = median_ms(lambda: torch.addcmul(x, n, scale))
-    log(f"K1 supplied normals: kernel {ms_sup:.4f} ms, torch.addcmul "
-        f"{lib_ms:.4f} ms")
+    lib_sup = median_ms(lambda: torch.addcmul(x, n, scale))
+    log(f"K1 generated: kernel {ms:.4f} ms with the max, {ms_gen:.4f} ms "
+        f"without; torch.normal {lib_gen:.4f} ms. Supplied normals: kernel "
+        f"{ms_sup:.4f} ms, torch.addcmul {lib_sup:.4f} ms (bound "
+        f"{roofline(3 * nbytes(x) + nbytes(scale), 2 * x.numel())['bound_ms']:.4f})")
     # x + s n: 2 operations per element (the draw's own work not counted)
-    return dict(name="add_scaled_normal", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(name="add_scaled_normal", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_gen,
                 **roofline(2 * nbytes(x) + nbytes(scale) + 4, 2 * x.numel()))
 
 
-def phase_k2(dev, grid, cosmo) -> dict:
+# K2 and K7 are held to their twins on these lines of sight: (name, box,
+# cells per line, lines): the cube's rows, 512 cells, the anisotropic box's
+# (2 Gpc deep), and a length that is not a multiple of 4 (the direct path).
+RSD_CASES = (("cube", BOX, N_MAIN, None), ("512 cells", BOX, N_BIG, 65536),
+             ("anisotropic", ANISO_BOX, N_MAIN, None),
+             ("62 cells", BOX, 62, None))
+
+
+def rsd_case_inputs(cosmo, dev, case, cells, seed):
+    from fastbox_tpu_torch.grid import GridSpec
+
+    _, box, n, rows = case
+    grid = GridSpec.create(box_scale=box, nsamp=n, redshift=Z)
+    return rsd_inputs(grid, cosmo, cells, dev, seed, rows)
+
+
+def phase_k2(dev, cosmo) -> dict:
+    """K2 bitwise equal to its twin at bands 2 and 4, f32 and f64, on every
+    line of RSD_CASES and on unaligned copies of the cube's rows (the direct
+    path); in f32 on the cube also against the exact sort + K3 tier; timed
+    on the cube at both bands."""
     from fastbox_tpu_torch.ops.cuda import rsd_fused as k
     from fastbox_tpu_torch.ops.cuda.rsd_interp import interp_sorted_cuda
 
-    errs = []
+    errs, ms, cube = [], {}, {}
     for band, cells in ((2, 1.9), (4, 3.9)):
-        vals, vel, z, fill, wrap, inv_hz, dz = rsd_inputs(grid, cosmo, cells,
-                                                          dev, seed=band)
-        got = k.rsd_remap_wrap_cuda(vals, vel, z, fill, wrap, band)
-        want = k.rsd_remap_wrap_plain(vals, vel, z, fill, wrap, band)
-        e = norm_err(got, want)
-        # and the band scan equals the exact sort + interpolation, except
-        # where two wrapped coordinates tie exactly in f32 with a periodic
-        # image involved: there the scan order and the stable sort pick
-        # different duplicates, as on the TPU (rsd_fused.py:37-40, ~1 voxel
-        # in 10^7)
-        s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0], wrap[1]) \
-            + wrap[0]
-        ss, order = torch.sort(s, dim=1, stable=True)
-        exact = interp_sorted_cuda(ss, torch.gather(vals, 1, order), z, fill)
-        off = ((got - exact).abs() > 1e-5 * exact.abs().max()).sum().item()
-        log(f"K2 rsd_remap_wrap band {band}: vs twin {e:.3e}; "
-            f"{off} of {got.numel()} values off the exact tier (ties)")
-        check(e <= 1e-5, f"K2 band {band}: {e} from the twin")
-        check(off <= 1e-6 * got.numel(), f"K2 band {band}: {off} off exact")
-        errs.append((got - want).abs().max().item())
-    vals, vel, z, fill, wrap, _, _ = rsd_inputs(grid, cosmo, 1.9, dev, seed=2)
-    ms = median_ms(lambda: k.rsd_remap_wrap_cuda(vals, vel, z, fill, wrap, 2))
-    plain_ms = median_ms(lambda: k.rsd_remap_wrap_plain(vals, vel, z, fill,
-                                                        wrap, 2))
+        for case in RSD_CASES:
+            vals, vel, z, fill, wrap, inv_hz, _ = rsd_case_inputs(
+                cosmo, dev, case, cells, seed=band)
+            C = vals.shape[1]
+            runs = [(dt, tuple(t.to(dt).contiguous()
+                               for t in (vals, vel, z, fill, wrap)))
+                    for dt in (torch.float32, torch.float64)]
+            if case[0] == "cube":
+                runs.append(("unaligned", (unaligned(vals), unaligned(vel),
+                                           z, fill, wrap)))
+            for dt, args in runs:
+                staged = k.staged_path(C, band, args[0], args[1])
+                got = k.rsd_remap_wrap_cuda(*args, band)
+                want = k.rsd_remap_wrap_plain(*args, band)
+                same = torch.equal(got, want)
+                log(f"K2 band {band} {case[0]} {tuple(got.shape)} {dt} "
+                    f"({'staged' if staged else 'direct'}): bitwise "
+                    f"{same}, {norm_err(got, want):.3e}")
+                check(same, f"K2 band {band} {case[0]} {dt}: not bitwise "
+                      "equal to the twin")
+                errs.append((got - want).abs().max().item())
+            if case[0] != "cube":
+                continue
+            check(k.staged_path(C, band, vals, vel), "K2: cube not staged")
+            # the band scan equals the exact sort + interpolation, except
+            # where two wrapped coordinates tie exactly in f32 with a
+            # periodic image involved: there the scan order and the stable
+            # sort pick different duplicates, as on the TPU
+            # (rsd_fused.py:37-40, ~1 voxel in 10^7)
+            got = k.rsd_remap_wrap_cuda(vals, vel, z, fill, wrap, band)
+            s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0],
+                                wrap[1]) + wrap[0]
+            ss, order = torch.sort(s, dim=1, stable=True)
+            exact = interp_sorted_cuda(ss, torch.gather(vals, 1, order), z,
+                                       fill)
+            off = ((got - exact).abs() > 1e-5 * exact.abs().max()).sum() \
+                .item()
+            log(f"K2 band {band}: {off} of {got.numel()} values off the "
+                "exact tier (ties)")
+            check(off <= 1e-6 * got.numel(), f"K2 band {band}: {off} off exact")
+            cube[band] = (vals, vel, z, fill, wrap)
+            ms[band] = (median_ms(lambda: k.rsd_remap_wrap_cuda(
+                            *cube[band], band)),
+                        median_ms(lambda: k.rsd_remap_wrap_plain(
+                            *cube[band], band)))
+            log(f"K2 band {band} f32 cube: kernel {ms[band][0]:.4f} ms, "
+                f"plain {ms[band][1]:.4f} ms")
+    vals, vel, z, fill, wrap = cube[2]
     # per target: the wrap (4), two one-sided selects over 6B+4 offsets (4
     # each) and the interpolation (5), at band 2
-    return dict(name="rsd_remap_wrap", max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms, library_ms=None,
+    return dict(name="rsd_remap_wrap", max_abs_err=max(errs), ms=ms[2][0],
+                plain_ms=ms[2][1], library_ms=None,
                 **roofline(nbytes(vals, vel, z, fill, wrap, vals),
                            vals.numel() * (4 + 4 * (6 * 2 + 4) + 5)))
 
@@ -1431,31 +1534,37 @@ def truth_aniso(dev, cosmo_cpu, cosmo) -> None:
               f"anisotropic truth {name}, moved bin vs CPU f32: {m}")
 
 
-def phase_k7(dev, grid, cosmo) -> dict:
-    """K7 at the pipeline's (N^2, N) RSD shapes, bands 2 and 4, f32 and
-    f64, against its twin on coordinates wrapped beforehand."""
+def phase_k7(dev, cosmo) -> dict:
+    """K7 bitwise equal to its twin on coordinates wrapped beforehand, at
+    bands 2 and 4, f32 and f64, on every line of RSD_CASES, and at band 3
+    on the cube (the direct path); timed on the cube at both bands."""
     from fastbox_tpu_torch.ops.cuda import rsd_fused as k
 
     errs, ms = [], {}
-    for band, cells in ((2, 1.9), (4, 3.9)):
-        vals, vel, z, fill, wrap, inv_hz, _ = rsd_inputs(grid, cosmo, cells,
-                                                         dev, seed=70 + band)
-        s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0], wrap[1]) \
-            + wrap[0]
-        for dt in (torch.float32, torch.float64):
-            args = tuple(t.to(dt).contiguous() for t in (s, vals, z, fill))
-            got = k.rsd_bracket_interp_cuda(*args, band)
-            want = k.rsd_bracket_interp_plain(*args, band)
-            e = norm_err(got, want)
-            log(f"K7 rsd_bracket_interp band {band} {dt}: vs twin {e:.3e} "
-                f"(bitwise equal: {torch.equal(got, want)})")
-            check(e <= K7_K8_TWIN_BOUND, f"K7 band {band} {dt}: {e}")
-            errs.append((got - want).abs().max().item())
-        args = (s, vals, z, fill, band)
-        ms[band] = (median_ms(lambda: k.rsd_bracket_interp_cuda(*args)),
-                    median_ms(lambda: k.rsd_bracket_interp_plain(*args)))
-        log(f"K7 band {band} f32: kernel {ms[band][0]:.4f} ms, plain "
-            f"{ms[band][1]:.4f} ms")
+    for band, cells in ((2, 1.9), (4, 3.9), (3, 2.9)):
+        for case in RSD_CASES if band != 3 else RSD_CASES[:1]:
+            vals, vel, z, fill, wrap, inv_hz, _ = rsd_case_inputs(
+                cosmo, dev, case, cells, seed=70 + band)
+            s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0],
+                                wrap[1]) + wrap[0]
+            for dt in (torch.float32, torch.float64):
+                args = tuple(t.to(dt).contiguous() for t in (s, vals, z, fill))
+                staged = k.staged_path(s.shape[1], band, args[0], args[1])
+                got = k.rsd_bracket_interp_cuda(*args, band)
+                want = k.rsd_bracket_interp_plain(*args, band)
+                same = torch.equal(got, want)
+                log(f"K7 band {band} {case[0]} {tuple(got.shape)} {dt} "
+                    f"({'staged' if staged else 'direct'}): bitwise "
+                    f"{same}, {norm_err(got, want):.3e}")
+                check(same, f"K7 band {band} {case[0]} {dt}: not bitwise "
+                      "equal to the twin")
+                errs.append((got - want).abs().max().item())
+            if case[0] == "cube" and band != 3:
+                args = (s, vals, z, fill, band)
+                ms[band] = (median_ms(lambda: k.rsd_bracket_interp_cuda(*args)),
+                            median_ms(lambda: k.rsd_bracket_interp_plain(*args)))
+                log(f"K7 band {band} f32 cube: kernel {ms[band][0]:.4f} ms, "
+                    f"plain {ms[band][1]:.4f} ms")
     # per target: two one-sided selects over 6B+4 offsets (4 each) and the
     # interpolation (5), at band 2
     return dict(name="rsd_bracket_interp", max_abs_err=max(errs),
@@ -1474,7 +1583,7 @@ def phase_k8(dev, ss, vv, z, fill) -> dict:
     e = norm_err(got, want)
     log(f"K8 banded_interp on the step's sorted nodes {tuple(ss.shape)}: vs "
         f"twin {e:.3e} (bitwise equal: {torch.equal(got, want)})")
-    check(e <= K7_K8_TWIN_BOUND, f"K8 vs twin {e}")
+    check(e <= K8_TWIN_BOUND, f"K8 vs twin {e}")
     err = (got - want).abs().max().item()
     del want
     ms = median_ms(lambda: k.banded_interp_cuda(ss, vv, z, fill, 4))
@@ -2252,12 +2361,12 @@ def main() -> None:
         return
     grid = GridSpec.create(box_scale=BOX, nsamp=256, redshift=Z)
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
-    kernels = [phase_k1(dev), phase_k2(dev, grid, cosmo),
+    kernels = [phase_k1(dev), phase_k2(dev, cosmo),
                phase_k3(dev, grid, cosmo), phase_k4(dev, grid)]
     k4t = phase_k4t(dev, grid)
     k11 = phase_k11(dev)
     others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
-    k7 = phase_k7(dev, grid, cosmo)
+    k7 = phase_k7(dev, cosmo)
     k10 = phase_k10(dev)
     for r in kernels + [k4t] + k11 + others + [k7, k10]:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"

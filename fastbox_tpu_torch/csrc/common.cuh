@@ -123,6 +123,14 @@ __global__ void sum_partials_kernel(const double* __restrict__ partial, double* 
   if (threadIdx.x == 0) out[k] = sh[0];
 }
 
+// Warp-wide reduction for an idempotent op (min, max) by butterfly
+// shuffles: every lane of the (full) warp gets the result.
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_reduce(T v, Op op) {
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Block-wide reduction over blockDim.x threads (a multiple of 32, at most
 // 1024) for an idempotent op (min, max): lanes past the last warp repeat
 // scratch[0].  `scratch` holds 32 values; every thread gets the result.
@@ -131,17 +139,34 @@ __device__ T block_reduce(T v, T* scratch, Op op) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+  v = warp_reduce(v, op);
   __syncthreads();  // scratch may still be read by a previous call
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < nwarps ? scratch[lane] : scratch[0];
-    for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+    v = warp_reduce(lane < nwarps ? scratch[lane] : scratch[0], op);
     if (lane == 0) scratch[0] = v;
   }
   __syncthreads();
   return scratch[0];
+}
+
+// cp.async of 16 bytes into shared memory (sm_80+), both addresses 16-byte
+// aligned, cached in L2 only; a thread's copies are grouped by commit and
+// waited for by group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most kPending of this thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 }  // namespace fbx

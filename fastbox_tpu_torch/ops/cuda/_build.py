@@ -45,9 +45,11 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _SIGNATURES = {
-    "fbx_add_scaled_normal": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
-    "fbx_rsd_remap_wrap": (_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
-    "fbx_rsd_bracket_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "fbx_add_scaled_normal": (_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "fbx_rsd_remap_wrap": (_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
+                           _P),
+    "fbx_rsd_bracket_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
+                               _P),
     "fbx_banded_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
     "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,

@@ -14,9 +14,16 @@ import torch
 from . import _build
 
 __all__ = ["add_scaled_normal_2d", "add_scaled_normal_cuda",
-           "add_scaled_normal_plain"]
+           "add_scaled_normal_plain", "vector_path"]
 
 NAME = "add_scaled_normal"
+
+
+def vector_path(C: int, *tensors) -> bool:
+    """Whether K1 reads and writes in 16-byte vectors: rows of a multiple of
+    4 elements, and every array starting on a 16-byte boundary.  Else it
+    takes the direct path, element by element; both draw the same bits."""
+    return C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def add_scaled_normal_plain(x2d, scale_row, generator=None, normals=None,
@@ -54,11 +61,12 @@ def add_scaled_normal_cuda(x2d, scale_row, seed=None, normals=None,
     out = torch.empty_like(x2d)
     mx = (torch.zeros(1, dtype=x2d.dtype, device=x2d.device)
           if return_max else None)
+    vec = vector_path(C, x2d, scale_row, out, *extra)
     fn = _build.kernel_fn("fbx_add_scaled_normal", x2d.dtype)
     with torch.cuda.device(x2d.device):
         err = fn(x2d.data_ptr(), scale_row.data_ptr(), _build.ptr(normals),
                  _build.ptr(seed if normals is None else None), out.data_ptr(),
-                 _build.ptr(mx), R, C, _build.stream_ptr(x2d.device))
+                 _build.ptr(mx), R, C, int(vec), _build.stream_ptr(x2d.device))
     _build.check(err, NAME)
     _build.count_launch(NAME)
     if return_max:

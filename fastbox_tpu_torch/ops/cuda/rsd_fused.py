@@ -14,10 +14,23 @@ from . import _build
 
 __all__ = ["rsd_remap_wrap", "rsd_remap_wrap_cuda", "rsd_remap_wrap_plain",
            "rsd_bracket_interp", "rsd_bracket_interp_cuda",
-           "rsd_bracket_interp_plain", "wrap_params"]
+           "rsd_bracket_interp_plain", "staged_path", "wrap_params"]
 
 NAME = "rsd_remap_wrap"
 NAME_K7 = "rsd_bracket_interp"
+# The staged layout (csrc/rsd_fused.cu): one warp per row, 16-byte vectors,
+# a register window per band; rows up to STAGED_MAX_C cells fit one warp's
+# two row buffers in shared memory in float64 at band 4.
+STAGED_BANDS = (2, 4)
+STAGED_MAX_C = 4096
+
+
+def staged_path(C: int, band: int, *tensors) -> bool:
+    """Whether K2/K7 take the staged path: C a multiple of 4, band 2 or 4,
+    at most STAGED_MAX_C cells, and every (M, C) array starting on a 16-byte
+    boundary.  Else the direct path, one block per row."""
+    return (C % 4 == 0 and band in STAGED_BANDS and C <= STAGED_MAX_C
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def wrap_params(z0, length_z, inv_hz, dtype, device) -> torch.Tensor:
@@ -74,11 +87,12 @@ def rsd_remap_wrap_cuda(vals, vel, ztarget, fill, wrap, band: int = 4):
     _build.require_cuda(NAME, vals, vel, ztarget, fill, wrap,
                         dtype=vals.dtype)
     out = torch.empty_like(vals)
+    staged = staged_path(C, band, vals, vel, out)
     fn = _build.kernel_fn("fbx_rsd_remap_wrap", vals.dtype)
     with torch.cuda.device(vals.device):
         err = fn(vals.data_ptr(), vel.data_ptr(), ztarget.data_ptr(),
                  fill.data_ptr(), wrap.data_ptr(), out.data_ptr(), M, C,
-                 int(band), _build.stream_ptr(vals.device))
+                 int(band), int(staged), _build.stream_ptr(vals.device))
     _build.check(err, NAME)
     _build.count_launch(NAME)
     return out
@@ -95,11 +109,12 @@ def rsd_bracket_interp_cuda(s, vals, ztarget, fill, band: int = 4):
         raise ValueError(f"{NAME_K7}: band must be >= 0")
     _build.require_cuda(NAME_K7, s, vals, ztarget, fill, dtype=s.dtype)
     out = torch.empty_like(s)
+    staged = staged_path(C, band, s, vals, out)
     fn = _build.kernel_fn("fbx_rsd_bracket_interp", s.dtype)
     with torch.cuda.device(s.device):
         err = fn(s.data_ptr(), vals.data_ptr(), ztarget.data_ptr(),
                  fill.data_ptr(), out.data_ptr(), M, C, int(band),
-                 _build.stream_ptr(s.device))
+                 int(staged), _build.stream_ptr(s.device))
     _build.check(err, NAME_K7)
     _build.count_launch(NAME_K7)
     return out

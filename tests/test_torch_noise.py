@@ -26,7 +26,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(16, 16, 16), (8, 32)])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (8, 32), (8, 62)])
 @pytest.mark.parametrize("return_max", [False, True])
 def test_supplied_normals_match_jax(rng, shape, return_max):
     x = rng.standard_normal(shape) * 300.0
@@ -68,6 +68,19 @@ def test_cpu_tensor_takes_the_twin_and_needs_a_source():
     assert launch_counts().get(k1.NAME, 0) == before
     with pytest.raises(ValueError):
         add_scaled_normal(x, torch.ones(8))
+
+
+def test_vector_path_rule():
+    """K1 reads and writes 16-byte vectors for 16-byte aligned rows of a
+    multiple of 4 elements; else it takes the direct path."""
+    for C in (4, 32, 256, 512, 1028):
+        for dtype in (torch.float32, torch.float64):
+            x = torch.empty((4, C), dtype=dtype)
+            assert k1.vector_path(C, x, torch.empty(C, dtype=dtype), x)
+    for C in (1, 2, 30, 62, 257):
+        assert not k1.vector_path(C, torch.empty((4, C)))
+    shifted = torch.empty(4 * 256 + 1)[1:].view(4, 256)
+    assert not k1.vector_path(256, torch.empty((4, 256)), shifted)
 
 
 def test_cuda_launcher_refuses_cpu_tensors():
@@ -112,3 +125,63 @@ def test_kernel_generated_mode(cuda):
     assert abs(a.double().mean().item()) < 5 / n**0.5
     assert abs(a.double().var().item() - 1) < 5 * (2 / n) ** 0.5
     assert _build.launch_counts()[k1.NAME] >= 2
+
+
+def _shifted(a, shift):
+    """A contiguous copy of ``a`` starting ``shift`` elements past the
+    allocation (off the 16-byte boundary for shift 1)."""
+    flat = torch.empty(a.numel() + shift, dtype=a.dtype, device=a.device)
+    out = flat[shift:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C, shift", [(256, 0), (132, 0), (62, 0), (256, 1)])
+def test_kernel_supplied_mode_equals_twin_per_shape(cuda, dtype, C, shift):
+    """Vector rows (256, 132) and direct ones (62; shifted rows): 0 ulp from
+    the twin, the max exact."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = _shifted(torch.randn((1024, C), generator=g, device=cuda,
+                             dtype=dtype) * 300.0, shift)
+    s = torch.rand(C, generator=g, device=cuda, dtype=dtype) + 0.5
+    n = _shifted(torch.randn((1024, C), generator=g, device=cuda,
+                             dtype=dtype), shift)
+    assert k1.vector_path(C, x, s, n) == (C % 4 == 0 and not shift)
+    a, am = k1.add_scaled_normal_cuda(x, s, normals=n, return_max=True)
+    b, bm = k1.add_scaled_normal_plain(x, s, normals=n, return_max=True)
+    assert torch.equal(a, b) and am.item() == bm.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_generated_bits_depend_on_row_and_column(cuda, dtype):
+    """Both paths draw an element's normal from its (row, column): a shifted
+    copy and a 62-column slice get the vector path's bits; the max is exact
+    at 62 columns."""
+    seed = torch.tensor([11], dtype=torch.int64, device=cuda)
+    x = torch.zeros((1024, 256), device=cuda, dtype=dtype)
+    one = torch.ones(256, device=cuda, dtype=dtype)
+    a = k1.add_scaled_normal_cuda(x, one, seed=seed)
+    assert torch.equal(a, k1.add_scaled_normal_cuda(_shifted(x, 1), one,
+                                                    seed=seed))
+    b, bm = k1.add_scaled_normal_cuda(x[:, :62].contiguous(),
+                                      one[:62].contiguous(), seed=seed,
+                                      return_max=True)
+    assert torch.equal(b, a[:, :62])
+    assert bm.item() == b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernel_generated_autocorrelations(cuda):
+    """Lag-1 and lag-C autocorrelations of the drawn normals within 5 sigma."""
+    C = 256
+    x = torch.zeros((4096, C), device=cuda)
+    seed = torch.tensor([7], dtype=torch.int64, device=cuda)
+    f = k1.add_scaled_normal_cuda(x, torch.ones(C, device=cuda),
+                                  seed=seed).double().reshape(-1)
+    mean, var = f.mean(), f.var(correction=0)
+    for lag in (1, C):
+        r = (((f[:-lag] - mean) * (f[lag:] - mean)).mean() / var).item()
+        assert abs(r) < 5 / (f.numel() - lag) ** 0.5

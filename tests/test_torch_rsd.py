@@ -39,6 +39,24 @@ def close(got, want, rtol=1e-10):
                                atol=rtol * np.abs(want).max())
 
 
+# Lines of sight the kernels are held at, as chip_smoke.py holds them on the
+# card: (box, cells per line) of the cube, 512 cells, the anisotropic box
+# (2 Gpc deep) and 62 cells, which is not a multiple of 4 (the direct path).
+LINES = {"cube": (4e3, 256), "512": (4e3, 512),
+         "anisotropic": ((4e3, 4e3, 2e3), 256), "62": (4e3, 62)}
+
+
+def line_inputs(rng, line, cells, M=16):
+    """remap_inputs' tuple for M lines of sight of LINES[line]."""
+    box, C = LINES[line]
+    z = GridSpec.create(box_scale=box, nsamp=C).z
+    dz = z[1] - z[0]
+    vals = rng.standard_normal((M, C))
+    vel = rng.uniform(-1.0, 1.0, (M, C)) * cells * dz * HZ
+    fill = 0.5 * (vals[:, 0] + vals[:, -1])
+    return vals, vel, z, fill, z[0], z[-1] - z[0], 1.0 / HZ
+
+
 def remap_inputs(rng, cells):
     """(vals, vel, z, fill, z0, L, 1/H) for N^2 lines of sight of N cells."""
     z = GridSpec.create(box_scale=1e3, nsamp=N).z
@@ -58,6 +76,36 @@ def test_remap_wrap_twin_matches_pallas(rng, band):
     wrap = k2.wrap_params(z0, L, inv_hz, torch.float64, "cpu")
     got = k2.rsd_remap_wrap(t(vals), t(vel), t(z), t(fill), wrap, band)
     close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("band", [2, 4])
+@pytest.mark.parametrize("line", list(LINES))
+def test_remap_wrap_twin_matches_pallas_per_line(rng, line, band):
+    vals, vel, z, fill, z0, L, inv_hz = line_inputs(rng, line, band - 0.1)
+    want = rsd_remap_wrap_pallas(*map(jnp.asarray, (vals, vel, z, fill)),
+                                 z0, L, inv_hz, band=band, interpret=True)
+    wrap = k2.wrap_params(z0, L, inv_hz, torch.float64, "cpu")
+    got = k2.rsd_remap_wrap(*map(torch.tensor, (vals, vel, z, fill)), wrap,
+                            band)
+    close(got.numpy(), want)
+
+
+def test_staged_path_rule():
+    """K2/K7 take the staged path for 16-byte aligned rows of a multiple of
+    4 cells, at most STAGED_MAX_C, at bands 2 and 4; else the direct path."""
+    row = lambda C, dtype=torch.float32: torch.empty((4, C), dtype=dtype)
+    for C in (4, 132, 256, 512, 4096):
+        for dtype in (torch.float32, torch.float64):
+            assert k2.staged_path(C, 2, row(C, dtype), row(C, dtype))
+            assert k2.staged_path(C, 4, row(C, dtype))
+    for C in (62, 130, 257, 4100):
+        assert not k2.staged_path(C, 2, row(C))
+    for band in (0, 1, 3, 5):
+        assert not k2.staged_path(256, band, row(256))
+    flat = torch.empty(4 * 256 + 1)
+    shifted = flat[1:].view(4, 256)
+    assert shifted.is_contiguous()
+    assert not k2.staged_path(256, 2, row(256), shifted)
 
 
 def test_interp_sorted_twin_matches_pallas(rng):
@@ -133,3 +181,33 @@ def test_interp_sorted_kernel_matches_twin(cuda, rng):
     got = k3.interp_sorted_cuda(ss, vv, z, fill)
     want = k3.interp_sorted_plain(ss, vv, z, fill)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C, shift", [(256, 0), (512, 0), (132, 0), (62, 0),
+                                      (256, 1)])
+def test_remap_wrap_kernel_equals_twin_per_line(cuda, rng, band, dtype, C,
+                                                shift):
+    """Staged rows (256, 512; 132, whose last vector chunk leaves lanes
+    idle) and direct ones (62 cells; rows shifted off a 16-byte boundary)."""
+    z = GridSpec.create(box_scale=1e3, nsamp=C).z
+    dz = z[1] - z[0]
+    M = 512
+    vals = rng.standard_normal((M, C))
+    vel = rng.uniform(-1.0, 1.0, (M, C)) * (band - 0.1) * dz * HZ
+
+    def t(a):
+        a = torch.as_tensor(np.asarray(a), dtype=dtype, device=cuda)
+        flat = torch.empty(a.numel() + shift, dtype=dtype, device=cuda)
+        out = flat[shift:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    wrap = k2.wrap_params(z[0], z[-1] - z[0], 1.0 / HZ, dtype, cuda)
+    args = (t(vals), t(vel), t(z), t(rng.standard_normal(M)), wrap, band)
+    assert k2.staged_path(C, band, args[0], args[1]) == (C % 4 == 0
+                                                         and not shift)
+    assert torch.equal(k2.rsd_remap_wrap_cuda(*args),
+                       k2.rsd_remap_wrap_plain(*args))

@@ -118,6 +118,22 @@ def test_bracket_interp_twin_matches_pallas(rng, band):
     close(got.numpy(), want)
 
 
+# Line lengths of chip_smoke.py's K7 checks (the anisotropic box's lines
+# have the cube's 256 cells): 62 is not a multiple of 4 (the direct path).
+LINE_CELLS = (256, 512, 62)
+
+
+@pytest.mark.parametrize("band", [2, 4])
+@pytest.mark.parametrize("C", LINE_CELLS)
+def test_bracket_interp_twin_matches_pallas_per_line(rng, C, band):
+    vals, s, _, z, fill = los_inputs(rng, band - 0.1, M=16, C=C)
+    want = rsd_bracket_interp_pallas(*map(jnp.asarray, (s, vals, z, fill)),
+                                     band=band, interpret=True)
+    got = k7.rsd_bracket_interp(*map(torch.tensor, (s, vals, z, fill)),
+                                band)
+    close(got.numpy(), want)
+
+
 def test_bracket_interp_is_k2_after_the_wrap(rng):
     """K2's twin is the wrap followed by K7's twin."""
     vals, _, u, z, fill = los_inputs(rng, 1.5)
@@ -166,5 +182,22 @@ def test_bracket_interp_kernel_equals_twin(cuda, rng, band, dtype):
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda).contiguous()
     args = (t(s), t(rng.standard_normal((256, 128))), t(z),
             t(rng.standard_normal(256)), band)
+    assert torch.equal(k7.rsd_bracket_interp_cuda(*args),
+                       k7.rsd_bracket_interp_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", LINE_CELLS + (132,))
+def test_bracket_interp_kernel_equals_twin_per_line(cuda, rng, band, dtype,
+                                                    C):
+    """Staged rows (bands 2 and 4 at 256, 512 and 132 cells) and direct ones
+    (62 cells; band 3)."""
+    vals, s, _, z, fill = los_inputs(rng, band - 0.1, M=512, C=C)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda).contiguous()
+    args = (t(s), t(vals), t(z), t(fill), band)
+    assert k7.staged_path(C, band, args[0], args[1]) == (
+        C % 4 == 0 and band != 3)
     assert torch.equal(k7.rsd_bracket_interp_cuda(*args),
                        k7.rsd_bracket_interp_plain(*args))
