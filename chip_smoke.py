@@ -15,8 +15,10 @@ failure:
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with device
      times per call (median_ms: CUDA events around back-to-back calls,
-     median of 11); K4t (K4's telescoped mode) against its f64
-     twin and against K4 on the same inputs; K11 (lattice CIC paint,
+     median of 11); K4 at the 256^3 and 512^3 cubes' shapes, f32 and
+     f64, and on a 64^3 lattice whose kz2h does not ascend (the general
+     path), against its f64 twin and bitwise repeatable; K4t (K4's
+     telescoped mode) likewise and against K4 on the same inputs; K11 (lattice CIC paint,
      gather, three-mesh gather) for bands B = 1, 2, 3, and in f64 against
      the exact index_add_ scatter and gather, the paint bitwise equal to its
      twin and repeatable (f32 and f64, weighted and not, clustered
@@ -63,8 +65,11 @@ failure:
   7. the parallel/ slice on a one-rank ('ens' 1, 'space' 1) mesh under
      NCCL: the sharded ensemble step at 256^3 with B = 8 and at 512^3 with
      B = 2 (launch counters reset just before and read just after: K8, K4
-     and K1 must launch), at sigma_NL = 6000 km/s (K3), K8 against its twin
-     on the step's sorted nodes, the step's remap through K7 (the batched
+     and K1 must launch), at sigma_NL = 6000 km/s (K3), K8 bitwise equal
+     to its twin on both steps' sorted nodes (f32 and f64, bands 2 and 4),
+     on rows with duplicate nodes, nodes on targets and on the hull edges,
+     and on 62-cell and unaligned rows and at band 3 (the direct path),
+     timed on both steps' nodes, the step's remap through K7 (the batched
      remap with unwrapped coordinates, counted), the step against the
      single pipeline in noise_scheme='rows' on the same seeds,
      make_ensemble_pipeline over the mesh against the mesh-less call
@@ -106,7 +111,9 @@ the card and the floor), and the sharded step (B = 8) and the
 single pipeline in noise_scheme='rows' against their f64 CPU run on the
 same rows; its f64 CPU oracles take minutes.  It fails when the cube's
 bin-1 worst, or the step's worst over the keys, exceeds 1.5x the CPU f32
-floor's.
+floor's, or when the anisotropic box's worst pk_cleaned error over the
+keys and the bins of unchanged membership exceeds 3x the CPU f32 floor's
+worst.
 
 The last two lines of standard output are the per-kernel JSON and the
 device JSON.  Imports nothing of JAX.
@@ -183,9 +190,6 @@ K11_EXACT_BOUND = 1e-12
 # millions of terms one after another: the sum of n positive terms in that
 # order is within n unit roundoffs of exact.
 F64_SUM_BOUND = 2.0 ** -53
-# K8 sums in its twin's order with explicit rounding: equal but for a
-# reordering of a few terms (a few ulp of the largest value).
-K8_TWIN_BOUND = 1e-6
 # Per-bin truth bounds, f32 on the card against f64 on the CPU, same
 # draws.  pk_cleaned's is a sanity bound: the clean's 4th and 5th
 # eigenvalues lie within ~1% of each other, which amplifies f32 rounding of
@@ -204,7 +208,10 @@ K4, K4T = "binned_pk_half_dual_v2", "binned_pk_half_dual_v2t"
 # The truth gate: scripts/truth_gate.py's defaults, and --truth-256's cells
 GATE_N, GATE_BOX, GATE_KEYS = 128, 2e3, range(1000, 1004)
 GATE256_KEYS = range(1000, 1008)
-# K4t in f32 against its f64 twin, and against K4 in f32 ulp per bin
+# K4 in f32 against its f64 twin per populated bin: the final cast's
+# rounding (~5e-8); K4t against its f64 twin, and against K4 in f32 ulp per
+# bin
+K4_TWIN_BOUND = 1e-7
 K4T_TWIN_BOUND, K4T_K4_ULP = 1e-6, 2
 # the v2t path against the default one on the same draws, per bin
 V2T_BOUND = 1e-6
@@ -507,48 +514,86 @@ def phase_k3(dev, grid, cosmo) -> dict:
                            got.numel() * (steps + 5)))
 
 
-def phase_k4(dev, grid) -> dict:
+def k4_inputs(dev, N: int, seed: int, uniform: bool = False) -> tuple:
+    """(p1, p2, (kx2, ky2, kz2h, wz, thr)) at the N^3 cube's shapes: powers
+    spanning ~6 decades like |delta_k|^2, or uniform in [0.1, 5)."""
+    from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import spectra
-    from fastbox_tpu_torch.ops.cuda import binned_pk_v2 as k
 
-    N, H = grid.N, grid.N // 2 + 1
-    g = torch.Generator(device=dev).manual_seed(4)
-    # positive powers spanning ~6 decades, like |delta_k|^2
-    p1 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
-    p2 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
+    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+    H = N // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if uniform:
+        p1, p2 = (torch.rand((N, N, H), generator=g, device=dev) * 4.9 + 0.1
+                  for _ in range(2))
+    else:
+        p1, p2 = (torch.exp(3.0 * torch.randn((N, N, H), generator=g,
+                                              device=dev)) for _ in range(2))
     fi2 = torch.as_tensor(spectra._index_sq(grid), device=dev)
     thr = torch.as_tensor(spectra.kbin_thresholds(
         grid, spectra.default_kbins(grid, 20)), device=dev)
     wz = torch.full((H,), 2.0, device=dev)
     wz[0] = wz[-1] = 1.0
-    args = (fi2, fi2, fi2[:H].contiguous(), wz, thr)
-    got = k.binned_pk_half_dual_v2_cuda(p1, p2, *args)
-    again = k.binned_pk_half_dual_v2_cuda(p1, p2, *args)
+    return p1, p2, (fi2, fi2, fi2[:H].contiguous(), wz, thr)
+
+
+def k4_held(what, p1, p2, args, telescoped: bool = False) -> tuple:
+    """K4 (K4t) against its f64 twin per populated bin, within K4_TWIN_BOUND
+    in f32 and n unit roundoffs in f64, and bitwise repeatable; returns
+    (the kernel's result, the twin's)."""
+    from fastbox_tpu_torch.ops.cuda import binned_pk_v2 as k
+
+    got = k.binned_pk_half_dual_v2_cuda(p1, p2, *args, telescoped=telescoped)
+    again = k.binned_pk_half_dual_v2_cuda(p1, p2, *args,
+                                          telescoped=telescoped)
     ref = k.binned_pk_half_dual_v2_plain(p1.double(), p2.double(), *args[:3],
-                                         wz.double(), thr)
-    full = ref[0] != 0                       # populated bins
-    rel = max(((a.double() - b) / b)[full].abs().max().item()
-              for a, b in zip(got, ref))
+                                         args[3].double(), args[4],
+                                         telescoped=telescoped)
+    rel = rel_by_bin(got, ref)
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-    log(f"K4 binned_pk_half_dual_v2: max rel err vs f64 {rel:.3e}, "
-        f"bitwise repeatable {bitwise}")
-    check(rel <= 1e-6, f"K4 rel err {rel}")
-    check(bitwise, "K4 not bitwise repeatable")
-    ms = median_ms(lambda: k.binned_pk_half_dual_v2_cuda(p1, p2, *args))
+    bound = (K4T_TWIN_BOUND if telescoped else K4_TWIN_BOUND) \
+        if p1.dtype == torch.float32 else F64_SUM_BOUND * p1.numel()
+    log(f"{K4T if telescoped else K4} {what} {tuple(p1.shape)} {p1.dtype}: "
+        f"max rel err vs f64 twin {rel:.3e} (bound {bound:.1e}), bitwise "
+        f"repeatable {bitwise}")
+    check(rel <= bound, f"{what}: rel err {rel}")
+    check(bitwise, f"{what}: not bitwise repeatable")
+    return got, ref
+
+
+def phase_k4(dev, grid) -> dict:
+    """K4 at the 256^3 and 512^3 cubes' shapes, f32 and f64, and on a
+    64^3 lattice whose kz2h does not ascend (the general path), each
+    against its f64 twin and bitwise repeatable; timed at both sizes."""
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.ops.cuda import binned_pk_v2 as k
+
+    for N in (N_BIG, N_MAIN):
+        p1, p2, args = k4_inputs(dev, N, 4)
+        k4_held(f"{N}^3", p1.double(), p2.double(),
+                args[:3] + (args[3].double(), args[4]))
+        got, ref = k4_held(f"{N}^3", p1, p2, args)
+        ms = median_ms(lambda: k.binned_pk_half_dual_v2_cuda(p1, p2, *args))
+        bound = roofline(nbytes(p1, p2, *args) + 3 * nbytes(got[0]),
+                         p1.numel() * 13)
+        log(f"K4 {N}^3 f32: kernel {ms:.4f} ms (bound "
+            f"{bound['bound_ms']:.4f})")
+    p1g, p2g, argsg = k4_inputs(dev, 64, 5, uniform=True)
+    argsg = argsg[:2] + (argsg[2].flip(0).contiguous(),) + argsg[3:]
+    k4_held("general path (kz2h reversed)", p1g, p2g, argsg)
     plain_ms = median_ms(lambda: k.binned_pk_half_dual_v2_plain(p1, p2,
                                                                 *args))
     err = max((a.double() - b).abs().max().item() for a, b in zip(got, ref))
-    bins = spectra.default_kbins(grid, 20)
-    idx = spectra._bin_index(grid, bins, thr.cpu().numpy(), H, torch.float32,
-                             dev)
-    w = wz[None, None, :]
-    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2), thr.numel() + 1)
+    H = grid.N // 2 + 1
+    idx = spectra._bin_index(grid, spectra.default_kbins(grid, 20),
+                             args[4].cpu().numpy(), H, torch.float32, dev)
+    w = args[3][None, None, :]
+    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2),
+                          args[4].numel() + 1)
     # per mode: the lattice index sum and bisection (~7), three weighted
     # terms and their sums (6)
     return dict(name="binned_pk_half_dual_v2", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(nbytes(p1, p2, *args) + 3 * nbytes(got[0]),
-                           p1.numel() * 13))
+                plain_ms=plain_ms, library_ms=lib_ms, **bound)
 
 
 def phase_k4t(dev, grid) -> dict:
@@ -558,44 +603,33 @@ def phase_k4t(dev, grid) -> dict:
     eps * prefix / bin, and heavy-tailed powers, whose largest mode
     dominates later prefixes, would measure that cancellation rather than
     the kernel.  Against its f64 twin, against K4 in f32 ulp, bitwise
-    repeatable."""
+    repeatable; also on the general path (kz2h reversed, 64^3)."""
     from fastbox_tpu_torch.ops import spectra
     from fastbox_tpu_torch.ops.cuda import binned_pk_v2 as k
 
-    N, H = grid.N, grid.N // 2 + 1
-    g = torch.Generator(device=dev).manual_seed(41)
-    p1, p2 = (torch.rand((N, N, H), generator=g, device=dev) * 4.9 + 0.1
-              for _ in range(2))
-    fi2 = torch.as_tensor(spectra._index_sq(grid), device=dev)
-    thr = torch.as_tensor(spectra.kbin_thresholds(
-        grid, spectra.default_kbins(grid, 20)), device=dev)
-    wz = torch.full((H,), 2.0, device=dev)
-    wz[0] = wz[-1] = 1.0
-    args = (fi2, fi2, fi2[:H].contiguous(), wz, thr)
-    got = k.binned_pk_half_dual_v2_cuda(p1, p2, *args, telescoped=True)
-    again = k.binned_pk_half_dual_v2_cuda(p1, p2, *args, telescoped=True)
+    p1, p2, args = k4_inputs(dev, grid.N, 41, uniform=True)
+    got, ref = k4_held(f"{grid.N}^3", p1, p2, args, telescoped=True)
     k4 = k.binned_pk_half_dual_v2_cuda(p1, p2, *args)
-    ref = k.binned_pk_half_dual_v2_plain(p1.double(), p2.double(), *args[:3],
-                                         wz.double(), thr, telescoped=True)
-    rel = rel_by_bin(got, ref)
-    ulps = max((a.view(torch.int32).long() - b.view(torch.int32).long())
-               .abs().max().item() for a, b in zip(got, k4))
-    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-    log(f"K4t binned_pk_half_dual_v2t: max rel err vs f64 twin {rel:.3e}, "
-        f"vs K4 {ulps} f32 ulp, bitwise repeatable {bitwise}")
-    check(rel <= K4T_TWIN_BOUND, f"K4t rel err {rel}")
+    ulps = max(ulp_diff(a, b) for a, b in zip(got, k4))
+    log(f"K4t vs K4 on the same inputs: {ulps} f32 ulp")
     check(ulps <= K4T_K4_ULP, f"K4t vs K4: {ulps} ulp")
-    check(bitwise, "K4t not bitwise repeatable")
+    p1g, p2g, argsg = k4_inputs(dev, 64, 5, uniform=True)
+    argsg = argsg[:2] + (argsg[2].flip(0).contiguous(),) + argsg[3:]
+    k4_held("general path (kz2h reversed)", p1g, p2g, argsg, telescoped=True)
     ms = median_ms(lambda: k.binned_pk_half_dual_v2_cuda(p1, p2, *args,
                                                          telescoped=True))
+    ms_k4 = median_ms(lambda: k.binned_pk_half_dual_v2_cuda(p1, p2, *args))
+    log(f"K4t {grid.N}^3: kernel {ms:.4f} ms, K4 on the same inputs "
+        f"{ms_k4:.4f} ms")
     plain_ms = median_ms(lambda: k.binned_pk_half_dual_v2_plain(
         p1, p2, *args, telescoped=True))
     err = max((a.double() - b).abs().max().item() for a, b in zip(got, ref))
-    bins = spectra.default_kbins(grid, 20)
-    idx = spectra._bin_index(grid, bins, thr.cpu().numpy(), H, torch.float32,
-                             dev)
-    w = wz[None, None, :]
-    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2), thr.numel() + 1)
+    H = grid.N // 2 + 1
+    idx = spectra._bin_index(grid, spectra.default_kbins(grid, 20),
+                             args[4].cpu().numpy(), H, torch.float32, dev)
+    w = args[3][None, None, :]
+    lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2),
+                          args[4].numel() + 1)
     # K4's bytes and operations: the prefix scan is nbins^2 per block
     return dict(name=K4T, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms,
@@ -1573,25 +1607,77 @@ def phase_k7(dev, cosmo) -> dict:
                            vals.numel() * (4 * (6 * 2 + 4) + 5)))
 
 
-def phase_k8(dev, ss, vv, z, fill) -> dict:
-    """K8 against its twin on the sorted nodes of a sharded step (M =
-    B N^2 lines of sight of N nodes, band 4)."""
+def k8_special_rows(ss, z):
+    """Sorted rows with duplicate nodes (ds = 0), nodes exactly on targets,
+    and first and last nodes exactly on the hull edges, sorted again."""
+    ss = ss.clone()
+    ss[::3, 10] = ss[::3, 11]
+    ss[1::3, 20:24] = ss[1::3, 20:21]
+    ss[2::5, 30] = z[31]
+    ss[::4, 50] = ss[::4, 51] = z[50]
+    ss[::7, 0] = z[0]
+    ss[::11, -1] = z[-1]
+    return torch.sort(ss, dim=1).values.contiguous()
+
+
+def phase_k8(dev, nodes: dict) -> dict:
+    """K8 bitwise equal to its twin (torch.equal) on the sorted nodes of the
+    sharded steps in ``nodes`` (label -> the remap's vals, s, z, fill: the
+    256^3 B = 8 step's first), f32 and f64, bands 2 and 4 (the staged
+    path); on the first step's rows with duplicate nodes, nodes on targets
+    and on the hull edges; on 62-cell and unaligned rows and at band 3
+    (the direct path).  Timed on every step's nodes at band 4, f32."""
     from fastbox_tpu_torch.ops.cuda import banded_interp as k
 
-    got = k.banded_interp_cuda(ss, vv, z, fill, 4)
-    want = k.banded_interp_plain(ss, vv, z, fill, 4)
-    e = norm_err(got, want)
-    log(f"K8 banded_interp on the step's sorted nodes {tuple(ss.shape)}: vs "
-        f"twin {e:.3e} (bitwise equal: {torch.equal(got, want)})")
-    check(e <= K8_TWIN_BOUND, f"K8 vs twin {e}")
-    err = (got - want).abs().max().item()
-    del want
-    ms = median_ms(lambda: k.banded_interp_cuda(ss, vv, z, fill, 4))
-    plain_ms = median_ms(lambda: k.banded_interp_plain(ss, vv, z, fill, 4))
-    # per target: 2 band segment terms of ~8 operations each
-    return dict(name="banded_interp", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **roofline(nbytes(ss, vv, z, fill, got), got.numel() * 64))
+    def same(what, ss, vv, z, fill, band, staged):
+        check(k.staged_path(ss.shape[1], band, ss, vv) == staged,
+              f"K8 {what}: not on the {'staged' if staged else 'direct'} path")
+        got = k.banded_interp_cuda(ss, vv, z, fill, band)
+        eq = torch.equal(got, k.banded_interp_plain(ss, vv, z, fill, band))
+        log(f"K8 {what} {tuple(ss.shape)} band {band} "
+            f"({'staged' if staged else 'direct'}): bitwise {eq}")
+        check(eq, f"K8 {what} band {band}: not bitwise equal to the twin")
+
+    ms, row = {}, None
+    for label, (vals, s, z, fill) in nodes.items():
+        ss, order = torch.sort(s, dim=1, stable=True)
+        vv = torch.gather(vals, 1, order)
+        del order
+        for dt in (torch.float32, torch.float64):
+            args = tuple(t.to(dt).contiguous() for t in (ss, vv, z, fill))
+            for band in (2, 4):
+                same(f"{label} step's nodes, {dt}", *args, band, True)
+            if row is None:      # the first step's rows: the special cases
+                sp = (k8_special_rows(args[0][:65536], args[2]),
+                      args[1][:65536].contiguous(), args[2],
+                      args[3][:65536].contiguous())
+                for band in (2, 4):
+                    same(f"duplicates / on nodes / hull edges, {dt}", *sp,
+                         band, True)
+                short = tuple(t[:4096, :62].contiguous() for t in sp[:2])
+                for band in (2, 3, 4):
+                    same(f"62-cell rows, {dt}", *short, sp[2][:62].contiguous(),
+                         sp[3][:4096].contiguous(), band, False)
+                same(f"band 3, {dt}", *sp, 3, False)
+                for band in (2, 4):
+                    same(f"unaligned rows, {dt}", unaligned(sp[0]),
+                         unaligned(sp[1]), sp[2], sp[3], band, False)
+                del sp, short
+            del args
+        args = (ss, vv, z, fill, 4)
+        ms[label] = median_ms(lambda: k.banded_interp_cuda(*args))
+        log(f"K8 on the {label} step's sorted nodes {tuple(ss.shape)}, band "
+            f"4, f32: kernel {ms[label]:.4f} ms (bound "
+            f"{roofline(3 * nbytes(ss) + nbytes(z, fill), 0)['bound_ms']:.4f})")
+        if row is None:
+            plain_ms = median_ms(lambda: k.banded_interp_plain(*args))
+            # per target: 2 band segment terms of ~8 operations each
+            row = dict(name="banded_interp", max_abs_err=0.0, ms=ms[label],
+                       plain_ms=plain_ms, library_ms=None,
+                       **roofline(3 * nbytes(ss) + nbytes(z, fill),
+                                  ss.numel() * 64))
+        del ss, vv, args
+    return row
 
 
 def run_step(step, dev, label: str, seeds) -> tuple:
@@ -1648,17 +1734,18 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     step_exact = sharded.make_sharded_ensemble_step(
         mesh, grid, cosmo, PipelineConfig(sigma_nl=6000.0), dev)
 
-    # warm-up, keeping the RSD remap's inputs of one real step
+    # warm-up, keeping the RSD remap's inputs of one real step of each size
     remap = sharded.remap_los_batched
     seen = {}
 
     def keep(vals, s, z, fill, **kw):
-        seen.update(vals=vals, s=s, z=z, fill=fill, kw=kw)
+        seen[s.shape[1]] = (vals, s, z, fill, kw)
         return remap(vals, s, z, fill, **kw)
 
     sharded.remap_los_batched = keep
     try:
         run_step(step256, dev, "sharded 256^3 B=8 warm-up", list(range(8)))
+        run_step(step512, dev, "sharded 512^3 B=2 warm-up", [198, 199])
     finally:
         sharded.remap_los_batched = remap
 
@@ -1712,15 +1799,13 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
                                          "sharded 256^3 B=8 sigma_nl=6000",
                                          list(range(300, 308))))
 
-    # K8 on the step's sorted nodes; then the same remap through K7 with
-    # the unwrapped coordinates (the batched remap's fused branch)
-    vals, s, z, fill = (seen[k] for k in ("vals", "s", "z", "fill"))
-    ss, order = torch.sort(s, dim=1, stable=True)
-    vv = torch.gather(vals, 1, order)
-    del order
-    k8 = phase_k8(dev, ss, vv, z, fill)
-    via_k8 = remap(vals, s, z, fill, **seen["kw"])
-    del ss, vv
+    # K8 on the steps' sorted nodes; then the 256^3 step's remap through K7
+    # with the unwrapped coordinates (the batched remap's fused branch)
+    k8 = phase_k8(dev, {"256^3 B=8": seen[N_MAIN][:4],
+                        "512^3 B=2": seen[N_BIG][:4]})
+    del seen[N_BIG]
+    vals, s, z, fill, kw = seen[N_MAIN]
+    via_k8 = remap(vals, s, z, fill, **kw)
     length = float(z[-1] - z[0])
     u = s + length * torch.round((z[None, :] - s) / length)
     via_k7, counts = counted(
@@ -2274,7 +2359,9 @@ def truth_256(dev) -> None:
     """``--truth-256``: the gate at the bench size, the anisotropic box,
     and the step against the single rows-mode pipeline.  Fails if a
     pk_density or a finite result is off, or if the cube's bin-1 worst or
-    the step's worst over the keys exceeds 1.5x the CPU f32 floor's."""
+    the step's worst over the keys exceeds 1.5x the CPU f32 floor's, or
+    the anisotropic box's worst exceeds 3x its floor's."""
+    from fastbox_tpu_torch import truth_gate as tg
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
 
@@ -2318,7 +2405,24 @@ def truth_256(dev) -> None:
         + " ".join(f"{c:.2e}/{f:.2e}={c / f:.2f}" for c, f in
                    zip(card, floor)))
     check(bool(np.all(np.isfinite(card))), "anisotropic gate: not finite")
+    # the anisotropic box's criterion: the card's worst pk_cleaned error over
+    # the keys, bins of unchanged membership, within 3x the CPU f32 floor's
+    # worst
+    t = truth["pk_cleaned"]
+    card_bin = tg._rel(spectra["native_highest"]["pk_cleaned"], t)[:, keep] \
+        .max(axis=0)
+    floor_bin = tg._rel(truth["f32_pk_cleaned"], t)[:, keep].max(axis=0)
+    log("anisotropic gate, worst over the keys per bin of unchanged "
+        "membership, card / 3 x CPU f32 floor: "
+        + " ".join(f"{c:.2e}/{3 * f:.2e}" for c, f in zip(card_bin,
+                                                           floor_bin)))
+    aniso_ok = card_bin.max() <= 3.0 * floor_bin.max()
+    log(f"anisotropic criterion: card worst {card_bin.max():.3e}, 3 x the CPU "
+        f"f32 floor's worst {3.0 * floor_bin.max():.3e}: "
+        f"{'holds' if aniso_ok else 'FAILS'}")
     step_truth(dev, cube, cosmo, cosmo_cpu)
+    check(aniso_ok, f"anisotropic gate: card worst {card_bin.max()} above 3x "
+          f"the CPU f32 floor's {floor_bin.max()}")
 
 
 def main() -> None:

@@ -104,23 +104,34 @@ __host__ inline unsigned grid_blocks(int64_t items, int threads) {
   return static_cast<unsigned>(blocks);
 }
 
-// out[k] = sum over blocks of partial[block][k] for k < nk; one block of
-// 256 threads per k: strided sums, then a fixed shared-memory tree, so the
-// result is the same on every run.
-template <int kThreads = 256>
-__global__ void sum_partials_kernel(const double* __restrict__ partial, double* __restrict__ out,
-                                    int nblocks, int nk) {
-  __shared__ double sh[kThreads];
+// out[k] = S_k, the sum over blocks of partial[block][k] for k < nk, rounded
+// once to TOut; one block of 256 threads per k: strided sums, then a fixed
+// shared-memory tree, so the result is the same on every run.  With
+// diff_run > 0, k runs of diff_run prefixes: out[k] = S_k - S_{k-1} in
+// float64 but at the start of a run, S_{k-1} summed by the same tree (the
+// same bits as S_{k-1} itself).
+template <int kThreads = 256, typename TOut = double>
+__global__ void sum_partials_kernel(const double* __restrict__ partial, TOut* __restrict__ out,
+                                    int nblocks, int nk, int diff_run = 0) {
+  __shared__ double sh[2][kThreads];
   const int k = blockIdx.x;
-  double s = 0.0;
-  for (int g = threadIdx.x; g < nblocks; g += kThreads) s += partial[static_cast<int64_t>(g) * nk + k];
-  sh[threadIdx.x] = s;
+  const bool diff = diff_run > 0 && k % diff_run != 0;
+  double s = 0.0, p = 0.0;
+  for (int g = threadIdx.x; g < nblocks; g += kThreads) {
+    s += partial[static_cast<int64_t>(g) * nk + k];
+    if (diff) p += partial[static_cast<int64_t>(g) * nk + k - 1];
+  }
+  sh[0][threadIdx.x] = s;
+  sh[1][threadIdx.x] = p;
   __syncthreads();
   for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) sh[threadIdx.x] += sh[threadIdx.x + half];
+    if (threadIdx.x < half) {
+      sh[0][threadIdx.x] += sh[0][threadIdx.x + half];
+      sh[1][threadIdx.x] += sh[1][threadIdx.x + half];
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[k] = sh[0];
+  if (threadIdx.x == 0) out[k] = static_cast<TOut>(sh[0][0] - sh[1][0]);
 }
 
 // Warp-wide reduction for an idempotent op (min, max) by butterfly
@@ -151,6 +162,20 @@ __device__ T block_reduce(T v, T* scratch, Op op) {
   return scratch[0];
 }
 
+// One 16-byte vector of T (4 floats or 2 doubles), unpacked to and packed
+// from an array.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  __device__ static void unpack(const float4& q, float* v) { v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w; }
+  __device__ static float4 pack(const float* v) { return make_float4(v[0], v[1], v[2], v[3]); }
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  __device__ static void unpack(const double2& q, double* v) { v[0] = q.x, v[1] = q.y; }
+  __device__ static double2 pack(const double* v) { return make_double2(v[0], v[1]); }
+};
+
 // cp.async of 16 bytes into shared memory (sm_80+), both addresses 16-byte
 // aligned, cached in L2 only; a thread's copies are grouped by commit and
 // waited for by group.
@@ -167,6 +192,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Launch shape of a kernel that gives each row to a warp (grid-stride over
+// rows): as many warps, at most 8, as fit kRowBlockBytes (two blocks to an
+// SM) with `fixed` shared bytes per block and `per_warp` per warp, at least
+// one; no more blocks than the card holds at once.  Raises the kernel's
+// dynamic shared-memory limit to what it takes.
+constexpr size_t kRowBlockBytes = 113 * 1024;
+
+template <typename Kernel>
+__host__ cudaError_t warp_rows_shape(Kernel kern, size_t fixed, size_t per_warp, int64_t rows,
+                                     int* warps, unsigned* blocks, size_t* smem) {
+  int w = fixed + per_warp < kRowBlockBytes ? static_cast<int>((kRowBlockBytes - fixed) / per_warp)
+                                            : 1;
+  if (w > 8) w = 8;
+  *warps = w;
+  *smem = fixed + w * per_warp;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * w, *smem);
+  if (e != cudaSuccess) return e;
+  int64_t b = (rows + w - 1) / w;
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<unsigned>(b < resident ? b : resident);
+  return cudaSuccess;
 }
 
 }  // namespace fbx

@@ -170,18 +170,6 @@ cudaError_t launch_rows(const T* vals, const T* coord, const T* z, const T* fill
 }
 
 // ---------------------------------------------------------------- staged
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  using type = float4;
-  __device__ static void unpack(const float4& q, float* v) { v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w; }
-  __device__ static float4 pack(const float* v) { return make_float4(v[0], v[1], v[2], v[3]); }
-};
-template <> struct Vec16<double> {
-  using type = double2;
-  __device__ static void unpack(const double2& q, double* v) { v[0] = q.x, v[1] = q.y; }
-  __device__ static double2 pack(const double* v) { return make_double2(v[0], v[1]); }
-};
-
 // The staged row's geometry at band kBand: K targets per lane (one 16-byte
 // vector); the scan reaches kLo lanes below a target and kHi above; the
 // halos, kLead before the row and kTail after, are whole vectors, so a
@@ -203,7 +191,7 @@ __global__ void __launch_bounds__(256)
                           const T* __restrict__ z, const T* __restrict__ fill,
                           const T* __restrict__ wrap, T* __restrict__ out, int64_t M, int C) {
   using G = Staged<T, kBand>;
-  using VT = Vec16<T>;
+  using VT = fbx::Vec16<T>;
   using V = typename VT::type;
   constexpr int K = G::K;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -298,34 +286,19 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Shared memory a staged block aims at: two blocks to an SM.
-constexpr size_t kStagedBlockBytes = 113 * 1024;
-
 template <typename T, bool kWrap, int kBand>
 cudaError_t launch_staged(const T* vals, const T* coord, const T* z, const T* fill, const T* wrap,
                           T* out, int64_t M, int C, cudaStream_t stream) {
   using G = Staged<T, kBand>;
   const size_t per_warp = 4 * static_cast<size_t>(G::row_len(C)) * sizeof(T);
   const size_t fixed = static_cast<size_t>(C) * sizeof(T) + (G::kLead + G::kTail) * sizeof(int);
-  int warps = fixed + per_warp < kStagedBlockBytes
-                  ? static_cast<int>((kStagedBlockBytes - fixed) / per_warp)
-                  : 1;
-  if (warps > 8) warps = 8;
-  const size_t smem = fixed + warps * per_warp;
   auto kern = bracket_interp_staged<T, kWrap, kBand>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * warps, smem);
+  int warps = 0;
+  unsigned blocks = 0;
+  size_t smem = 0;
+  cudaError_t e = fbx::warp_rows_shape(kern, fixed, per_warp, M, &warps, &blocks, &smem);
   if (e != cudaSuccess) return e;
-  int64_t blocks = (M + warps - 1) / warps;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
-  kern<<<static_cast<unsigned>(blocks), 32 * warps, smem, stream>>>(vals, coord, z, fill, wrap,
-                                                                     out, M, C);
+  kern<<<blocks, 32 * warps, smem, stream>>>(vals, coord, z, fill, wrap, out, M, C);
   return cudaGetLastError();
 }
 

@@ -50,7 +50,7 @@ _SIGNATURES = {
                            _P),
     "fbx_rsd_bracket_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
                                _P),
-    "fbx_banded_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "fbx_banded_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P),
     "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I64, _INT, _INT, _INT, _P),

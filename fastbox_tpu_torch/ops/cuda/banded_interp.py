@@ -5,17 +5,26 @@ Counterpart of ``fastbox_tpu/ops/pallas/banded_interp.py::
 banded_interp_pallas``.  The twin is ``fastbox_tpu/ops/rsd.py::
 _interp_sorted_banded`` (:94-135) plus the hull fill.  Exact whenever every
 sorted node lies within ``band`` cells of its rank: the caller checks
-max|ss - z| <= band*dz.
+max|ss - z| <= band*dz.  The kernel equals the twin bit for bit (up to the
+sign of a zero) on finite inputs; it takes the staged path (a warp per row)
+where ``staged_path`` holds, K2/K7's rule, and a block per row otherwise.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+# K8's staged rows (csrc/banded_interp.cu: six row arrays per warp and z)
+# fit one block up to STAGED_MAX_C cells in float64 at band 4, as K7's do
+from .rsd_fused import staged_path
 
-__all__ = ["banded_interp", "banded_interp_cuda", "banded_interp_plain"]
+__all__ = ["banded_interp", "banded_interp_cuda", "banded_interp_plain",
+           "staged_path"]
 
 NAME = "banded_interp"
+# The direct path keeps s, v, ds+ and dv of a row in one block's shared
+# memory (the H100's 227 KB).
+_DIRECT_MAX_BYTES = 227 * 1024
 
 
 def _check(ss, vv, ztarget, fill, band: int) -> None:
@@ -60,11 +69,15 @@ def banded_interp_cuda(ss, vv, ztarget, fill, band: int = 4):
     M, C = ss.shape
     _build.require_cuda(NAME, ss, vv, ztarget, fill, dtype=ss.dtype)
     out = torch.empty_like(ss)
+    staged = staged_path(C, band, ss, vv, out)
+    if not staged and 4 * C * ss.element_size() > _DIRECT_MAX_BYTES:
+        raise ValueError(f"{NAME}: rows of {C} cells exceed the direct "
+                         "path's shared memory")
     fn = _build.kernel_fn("fbx_banded_interp", ss.dtype)
     with torch.cuda.device(ss.device):
         err = fn(ss.data_ptr(), vv.data_ptr(), ztarget.data_ptr(),
                  fill.data_ptr(), out.data_ptr(), M, C, int(band),
-                 _build.stream_ptr(ss.device))
+                 int(staged), _build.stream_ptr(ss.device))
     _build.check(err, NAME)
     _build.count_launch(NAME)
     return out

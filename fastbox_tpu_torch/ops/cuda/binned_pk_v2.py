@@ -13,7 +13,16 @@ bins 0 .. nbins-1 are returned.
 less-than prefix S_c over the modes with m < thr[c], and bin b = S_b -
 S_{b-1} (S_{-1} = 0).  The kernel (K4t, counted as
 ``binned_pk_half_dual_v2t``) and the twin both form the prefixes and the
-differences in float64, so K4t agrees with K4 to within the final cast.
+differences in float64, so K4t agrees with K4 to within the final cast; the
+kernel takes the differences in its last, cross-block step.
+
+The kernel walks the half spectrum by rows (i, j).  Its fast path relies on
+one precondition: ``kz2h`` ascends (is non-decreasing), as ``fi2[:H]`` does
+at every call site, so that each bin is one run of consecutive l in a row.
+The kernel checks it on the device (every block, while it starts; nothing
+is read on the host) and bins each mode by bisection where it fails (the
+general path).  Both paths sum in float64 in an order fixed by the shape
+(``_launch_shape``), so the result is bitwise the same on every run.
 """
 from __future__ import annotations
 
@@ -73,14 +82,13 @@ def binned_pk_half_dual_v2_plain(p1, p2, kx2, ky2, kz2h, wz, thr,
     return out[0], out[1], out[2]
 
 
-def _launch_shape(n: int, nbins: int) -> tuple[int, int]:
-    """(blocks, threads), a function of the shape only so that the
+def _launch_shape(rows: int) -> tuple[int, int]:
+    """(blocks, threads) for ``rows`` = Nx * Ny rows of the half spectrum:
+    eight warps a block, each warp a contiguous range of at least 2 rows,
+    at most 4096 blocks.  A function of the shape only, so that the
     summation order, and the result, never change between runs."""
     threads = 256
-    while threads > 32 and 3 * nbins * (threads + 1) * 8 > 100 * 1024:
-        threads //= 2
-    blocks = min(1024, max(1, math.ceil(n / (threads * 32))))
-    return blocks, threads
+    return min(4096, max(1, math.ceil(rows / (threads // 32 * 2)))), threads
 
 
 def binned_pk_half_dual_v2_cuda(p1, p2, kx2, ky2, kz2h, wz, thr,
@@ -103,10 +111,10 @@ def binned_pk_half_dual_v2_cuda(p1, p2, kx2, ky2, kz2h, wz, thr,
     for t in (kx2, ky2, kz2h, thr):
         if t.dtype != torch.int32:
             raise TypeError(f"{NAME}: index vectors and thr must be int32")
-    blocks, threads = _launch_shape(n, nbins)
+    blocks, threads = _launch_shape(Nx * Ny)
     partial = torch.empty((blocks, 3, nbins), dtype=torch.float64,
                           device=p1.device)
-    out = torch.empty((3, nbins), dtype=torch.float64, device=p1.device)
+    out = torch.empty((3, nbins), dtype=p1.dtype, device=p1.device)
     fn = _build.kernel_fn("fbx_binned_pk_v2t" if telescoped
                           else "fbx_binned_pk_v2", p1.dtype)
     with torch.cuda.device(p1.device):
@@ -116,9 +124,6 @@ def binned_pk_half_dual_v2_cuda(p1, p2, kx2, ky2, kz2h, wz, thr,
                  threads, _build.stream_ptr(p1.device))
     _build.check(err, NAME_T if telescoped else NAME)
     _build.count_launch(NAME_T if telescoped else NAME)
-    if telescoped:
-        out = _difference(out)
-    out = out.to(p1.dtype)
     return out[0], out[1], out[2]
 
 

@@ -74,10 +74,15 @@ def test_twin_matches_jax_one_hot_reduction(rng):
 
 
 def test_launch_shape_depends_on_shape_only():
-    assert k4._launch_shape(256 * 256 * 129, 20) == (1024, 128)
-    assert k4._launch_shape(16 * 16 * 9, 20) == (1, 128)
-    blocks, threads = k4._launch_shape(512 * 512 * 257, 120)
-    assert threads == 32 and 3 * 120 * 33 * 8 <= 100 * 1024
+    """(blocks, threads) from the Nx * Ny rows alone; a block's per-warp
+    rows of bins (and K4t's block row) fit the 48 KB default at 120 bins."""
+    assert k4._launch_shape(256 * 256) == (4096, 256)
+    assert k4._launch_shape(16 * 16) == (16, 256)
+    assert k4._launch_shape(512 * 512) == (4096, 256)
+    assert k4._launch_shape(1) == (1, 256)
+    blocks, threads = k4._launch_shape(15 * 15)
+    assert blocks * threads // 32 * 2 >= 15 * 15
+    assert (threads // 32 + 1) * 3 * 120 * 8 + 120 * 4 <= 48 * 1024
 
 
 @pytest.mark.cuda
