@@ -11,7 +11,8 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed);
+  2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed; ptxas's
+     registers and spills of every kernel);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with device
      times per call (median_ms: CUDA events around back-to-back calls,
@@ -35,8 +36,11 @@ failure:
      bitwise equal to their twins at bands 2 and 4, f32 and f64, on the
      cube's rows, 512-cell rows, the anisotropic box's and 62-cell rows
      (the direct path, as are unaligned rows and K7 at band 3); K5 on
-     the anisotropic 256^3 half spectra and K6 on a 256^3 cube, also in f64
-     against an f64 index_add_ reduction; K9a/b in supplied mode bitwise, in
+     the anisotropic 256^3 half spectra (timed at 512^3 too) and K6 on a
+     256^3 and a 255^3 cube, f32 and f64 (against an f64 index_add_
+     reduction), and on a reversed kz2h / permuted kz2 (the general path),
+     their counts and weighted counts equal to the twins' and bitwise
+     repeatable; K9a/b in supplied mode bitwise, in
      generated mode by the moments of the normals; K10 (the axis FFT) at
      every supported length, both axes and signs, f32 and f64, then at the
      K10 route's planar shapes (256, 256, 129) and (512, 512, 257) against
@@ -951,89 +955,125 @@ def rel_by_bin(got, want) -> float:
     return worst
 
 
+def pk_held(what: str, run, ref, n: int) -> tuple:
+    """K5/K6 (``run``, called twice) against ``ref``, its twin on the same
+    inputs: per populated bin within 1e-6 in f32 and n unit roundoffs in
+    f64, the count (K6) or weighted count (K5, the last row) exactly, and
+    bitwise repeatable.  Returns the kernel's result."""
+    got, again = run(), run()
+    rel = rel_by_bin(got, ref)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    counts = torch.equal(got[-1], ref[-1])
+    bound = 1e-6 if got[0].dtype == torch.float32 else F64_SUM_BOUND * n
+    log(f"{what} {got[0].dtype}: max rel err vs twin {rel:.3e} (bound "
+        f"{bound:.1e}), counts equal {counts}, bitwise repeatable {bitwise}")
+    check(rel <= bound, f"{what}: rel err {rel}")
+    check(counts, f"{what}: counts differ from the twin's")
+    check(bitwise, f"{what}: not bitwise repeatable")
+    return got
+
+
 def phase_k5(dev) -> dict:
-    """K5 on the anisotropic 256^3 half spectra: against its twin, bitwise
-    repeatable, and in f64 against the f64 index_add_ twin; plus how many
-    modes the f32 digitize puts in another bin than the f64 one."""
+    """K5 on the anisotropic 256^3 half spectra, f32 and f64, and on a
+    reversed kz2h (the general path), each against its twin (f64: the f64
+    index_add_ twin), weighted counts exactly, bitwise repeatable; plus how
+    many modes the f32 digitize puts in another bin than the f64 one.
+    Timed at 256^3 and 512^3."""
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import spectra
     from fastbox_tpu_torch.ops.cuda import binned_pk as k
 
+    def inputs(N, seed, dtype=torch.float32):
+        grid = GridSpec.create(box_scale=ANISO_BOX, nsamp=N, redshift=Z)
+        H = N // 2 + 1
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p1, p2 = (torch.exp(3.0 * torch.randn((N, N, H), generator=g,
+                                              device=dev)).to(dtype)
+                  for _ in range(2))
+        wz = torch.full((H,), 2.0, dtype=dtype, device=dev)
+        wz[0] = wz[-1] = 1.0
+        kx2, ky2, kz2, e2 = spectra.kbin_plan(
+            grid, spectra.default_kbins(grid, 20), dtype, dev)
+        return grid, p1, p2, (kx2, ky2, kz2[:H].contiguous(), wz, e2)
+
+    def held(what, p1, p2, args):
+        return pk_held(f"K5 binned_pk_half_dual ({what})",
+                       lambda: k.binned_pk_half_dual_cuda(p1, p2, *args),
+                       k.binned_pk_half_dual_plain(p1, p2, *args), p1.numel())
+
     N = N_MAIN
-    grid = GridSpec.create(box_scale=ANISO_BOX, nsamp=N, redshift=Z)
-    H = N // 2 + 1
-    g = torch.Generator(device=dev).manual_seed(5)
-    p1 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
-    p2 = torch.exp(3.0 * torch.randn((N, N, H), generator=g, device=dev))
-    wz = torch.full((H,), 2.0, device=dev)
-    wz[0] = wz[-1] = 1.0
-    bins = spectra.default_kbins(grid, 20)
-
-    def plan(dtype):
-        kx2, ky2, kz2, e2 = spectra.kbin_plan(grid, bins, dtype, dev)
-        return kx2, ky2, kz2[:H].contiguous(), wz.to(dtype), e2
-
-    args = plan(torch.float32)
-    got = k.binned_pk_half_dual_cuda(p1, p2, *args)
-    again = k.binned_pk_half_dual_cuda(p1, p2, *args)
+    grid, p1, p2, args = inputs(N, 5)
     twin = k.binned_pk_half_dual_plain(p1, p2, *args)
-    rel = rel_by_bin(got, twin)
-    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-    a64 = plan(torch.float64)
-    got64 = k.binned_pk_half_dual_cuda(p1.double(), p2.double(), *a64)
-    ref64 = k.binned_pk_half_dual_plain(p1.double(), p2.double(), *a64)
-    rel64 = rel_by_bin(got64, ref64)
-    log(f"K5 binned_pk_half_dual (anisotropic {N}^3): vs twin {rel:.3e}, "
-        f"bitwise repeatable {bitwise}; f64 vs f64 index_add_ {rel64:.3e}; "
-        f"modes binned differently in f32 and f64: "
-        f"{moved_modes(grid, dev)[0]}")
-    check(rel <= 1e-6, f"K5 vs twin {rel}")
-    check(bitwise, "K5 not bitwise repeatable")
-    check(rel64 <= F64_SUM_BOUND * p1.numel(), f"K5 f64 {rel64}")
+    got = held(f"anisotropic {N}^3", p1, p2, args)
+    held(f"anisotropic {N}^3", *inputs(N, 5, torch.float64)[1:])
+    gen = args[:2] + (args[2].flip(0).contiguous(),) + args[3:]
+    held(f"anisotropic {N}^3, general path (kz2h reversed)", p1, p2, gen)
     g512 = GridSpec.create(box_scale=ANISO_BOX, nsamp=N_BIG, redshift=Z)
-    log(f"K5 plan at {N_BIG}^3: modes binned differently in f32 and f64: "
-        f"{moved_modes(g512, dev)[0]}")
+    log(f"K5 modes binned differently in f32 and f64: "
+        f"{moved_modes(grid, dev)[0]} at {N}^3, {moved_modes(g512, dev)[0]}"
+        f" at {N_BIG}^3")
     ms = median_ms(lambda: k.binned_pk_half_dual_cuda(p1, p2, *args))
+    ms_gen = median_ms(lambda: k.binned_pk_half_dual_cuda(p1, p2, *gen))
     plain_ms = median_ms(lambda: k.binned_pk_half_dual_plain(p1, p2, *args))
     err = max((a.double() - b.double()).abs().max().item()
               for a, b in zip(got, twin))
-    kx2, ky2, kz2h, _, e2 = args
+    kx2, ky2, kz2h, wz, e2 = args
     idx = k.bin_index_sq(kx2, ky2, kz2h, e2)
     w = torch.broadcast_to(wz[None, None, :], p1.shape)
     lib_ms = index_add_ms(idx, (w * p1, w * p1 * p1, w * p2, w),
                           e2.numel() + 1)
     # per mode: the squared |k| (2), a bisection over the edges (~7), four
     # weighted terms and their sums (8)
+    bound = roofline(nbytes(p1, p2, *args) + 4 * nbytes(got[0]),
+                     p1.numel() * 17)
+    del p1, p2, idx, w
+    _, b1, b2, bargs = inputs(N_BIG, 55)
+    bgot = held(f"anisotropic {N_BIG}^3", b1, b2, bargs)
+    ms512 = median_ms(lambda: k.binned_pk_half_dual_cuda(b1, b2, *bargs))
+    bound512 = roofline(nbytes(b1, b2, *bargs) + 4 * nbytes(bgot[0]),
+                        b1.numel() * 17)
+    log(f"K5 anisotropic {N}^3 f32: kernel {ms:.4f} ms (bound "
+        f"{bound['bound_ms']:.4f}), general path {ms_gen:.4f} ms; "
+        f"{N_BIG}^3: {ms512:.4f} ms (bound {bound512['bound_ms']:.4f})")
     return dict(name="binned_pk_half_dual", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(nbytes(p1, p2, *args) + 4 * nbytes(got[0]),
-                           p1.numel() * 17))
+                plain_ms=plain_ms, library_ms=lib_ms, **bound)
 
 
 def phase_k6(dev) -> dict:
-    """K6 on a 256^3 cube (the 4 Gpc pipeline box, integer-lattice plan):
-    against its twin, and in f64 against the f64 index_add_ twin."""
+    """K6 on a 256^3 cube (the 4 Gpc pipeline box, integer-lattice plan),
+    f32 and f64, on a permuted kz2 (the general path) and on a 255^3 cube
+    (odd: the FFT order's two segments meet at equal kz2), each against its
+    twin (f64: the f64 index_add_ twin), counts exactly, bitwise
+    repeatable; timed at 256^3."""
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import spectra
     from fastbox_tpu_torch.ops.cuda import binned_pk as k
 
+    def inputs(N, seed, dtype=torch.float32):
+        grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        pk = torch.exp(3.0 * torch.randn((N, N, N), generator=g, device=dev))
+        return pk.to(dtype), spectra.kbin_plan(
+            grid, spectra.default_kbins(grid, 20), dtype, dev)
+
+    def held(what, pk, args):
+        return pk_held(f"K6 binned_pk_full ({what})",
+                       lambda: k.binned_pk_full_cuda(pk, *args),
+                       k.binned_pk_full_plain(pk, *args), pk.numel())
+
     N = N_MAIN
-    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
-    g = torch.Generator(device=dev).manual_seed(6)
-    pk = torch.exp(3.0 * torch.randn((N, N, N), generator=g, device=dev))
-    bins = spectra.default_kbins(grid, 20)
-    args = spectra.kbin_plan(grid, bins, torch.float32, dev)
-    got = k.binned_pk_full_cuda(pk, *args)
+    pk, args = inputs(N, 6)
     twin = k.binned_pk_full_plain(pk, *args)
-    a64 = spectra.kbin_plan(grid, bins, torch.float64, dev)
-    rel64 = rel_by_bin(k.binned_pk_full_cuda(pk.double(), *a64),
-                       k.binned_pk_full_plain(pk.double(), *a64))
-    rel = rel_by_bin(got, twin)
-    log(f"K6 binned_pk_full ({N}^3 cube): vs twin {rel:.3e}; f64 vs f64 "
-        f"index_add_ {rel64:.3e}")
-    check(rel <= 1e-6, f"K6 vs twin {rel}")
-    check(rel64 <= F64_SUM_BOUND * pk.numel(), f"K6 f64 {rel64}")
+    got = held(f"{N}^3 cube", pk, args)
+    held(f"{N}^3 cube", *inputs(N, 6, torch.float64))
+    g = torch.Generator(device=dev).manual_seed(61)
+    perm = args[:2] + (args[2][torch.randperm(N, generator=g, device=dev)],
+                       args[3])
+    held(f"{N}^3 cube, general path (kz2 permuted)", pk, perm)
+    for dtype in (torch.float32, torch.float64):
+        held(f"{N - 1}^3 cube", *inputs(N - 1, 62, dtype))
     ms = median_ms(lambda: k.binned_pk_full_cuda(pk, *args))
+    ms_gen = median_ms(lambda: k.binned_pk_full_cuda(pk, *perm))
     plain_ms = median_ms(lambda: k.binned_pk_full_plain(pk, *args))
     err = max((a.double() - b.double()).abs().max().item()
               for a, b in zip(got, twin))
@@ -1041,10 +1081,11 @@ def phase_k6(dev) -> dict:
     lib_ms = index_add_ms(k.bin_index_sq(kx2, ky2, kz2, e2),
                           (pk, pk * pk, torch.ones_like(pk)), e2.numel() + 1)
     # per mode: the squared |k| (2), a bisection (~7), three sums (4)
+    bound = roofline(nbytes(pk, *args) + 3 * nbytes(got[0]), pk.numel() * 13)
+    log(f"K6 {N}^3 f32: kernel {ms:.4f} ms (bound {bound['bound_ms']:.4f}), "
+        f"general path {ms_gen:.4f} ms")
     return dict(name="binned_pk_full", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(nbytes(pk, *args) + 3 * nbytes(got[0]),
-                           pk.numel() * 13))
+                plain_ms=plain_ms, library_ms=lib_ms, **bound)
 
 
 def phase_k9(dev) -> list[dict]:

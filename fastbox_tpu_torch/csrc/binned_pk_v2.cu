@@ -27,8 +27,8 @@
 // bisection over kz2h; then it takes the runs in order, lanes along l with
 // coalesced loads and no test per mode.  A lane sums its modes of a run in
 // registers; the warp adds the three sums of its 32 lanes by a fixed
-// butterfly of 12 shuffles and adds them to its own row of bins in shared
-// memory.  The block adds its warps' rows in warp order into a per-block
+// butterfly of 12 shuffles (fbx::warp_sum4 with w = 0) and adds them to its
+// own row of bins in shared memory.  The block adds its warps' rows in warp order into a per-block
 // partial, and a second kernel sums the partials in a fixed tree
 // (common.cuh), writing the input dtype.  A call whose kz2h does not ascend
 // takes the general path: each mode's bin by bisection over the thresholds,
@@ -52,23 +52,8 @@ namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
 
-// The sums over the warp's 32 lanes of x, y and z by a fixed butterfly:
-// 4 values halved at the first two steps (12 shuffles of 32 bits).  Lanes
-// 0-7 end with the sum of x, 8-15 with y's, 16-23 with z's.
-__device__ __forceinline__ double warp_sum3(double x, double y, double z, int lane) {
-  const bool hi16 = lane & 16, hi8 = lane & 8;
-  double k0 = hi16 ? z : x, k1 = hi16 ? 0.0 : y;
-  k0 += __shfl_xor_sync(kAll, hi16 ? x : z, 16);
-  k1 += __shfl_xor_sync(kAll, hi16 ? y : 0.0, 16);
-  double v = hi8 ? k1 : k0;
-  v += __shfl_xor_sync(kAll, hi8 ? k0 : k1, 8);
-  v += __shfl_xor_sync(kAll, v, 4);
-  v += __shfl_xor_sync(kAll, v, 2);
-  v += __shfl_xor_sync(kAll, v, 1);
-  return v;
-}
-
-// Adds warp_sum3's result to the warp's row of bins [3][nbins] at bin b.
+// Adds the butterfly's three sums to the warp's row of bins [3][nbins] at
+// bin b.
 __device__ __forceinline__ void deposit(double* wacc, double v, int b, int nbins, int lane) {
   if ((lane & 7) == 0 && lane < 24) wacc[(lane >> 3) * nbins + b] += v;
 }
@@ -133,7 +118,7 @@ __device__ __forceinline__ void walk_runs(Rows& w, const T* __restrict__ p1,
           q1 += wx * x;
           s2 += wl * static_cast<double>(c[l]);
         }
-        deposit(wacc, warp_sum3(s1, q1, s2, lane), b0 + k, nbins, lane);
+        deposit(wacc, fbx::warp_sum4(s1, q1, s2, 0.0, lane), b0 + k, nbins, lane);
         start = end;
       }
     }
@@ -175,8 +160,8 @@ __device__ void walk_modes(Rows& w, const T* __restrict__ p1, const T* __restric
       while (pending) {
         const int bl = __shfl_sync(kAll, bin, __ffs(pending) - 1);
         const bool mine = bin == bl;
-        deposit(wacc, warp_sum3(mine ? x : 0.0, mine ? y : 0.0, mine ? z : 0.0, lane), bl, nbins,
-                lane);
+        deposit(wacc, fbx::warp_sum4(mine ? x : 0.0, mine ? y : 0.0, mine ? z : 0.0, 0.0, lane), bl,
+                nbins, lane);
         pending &= ~__ballot_sync(kAll, mine);
       }
     }

@@ -134,6 +134,35 @@ __global__ void sum_partials_kernel(const double* __restrict__ partial, TOut* __
   if (threadIdx.x == 0) out[k] = static_cast<TOut>(sh[0][0] - sh[1][0]);
 }
 
+// Float64 sums over a warp's 32 lanes by fixed butterflies, so that a sum
+// is the same on every run.  warp_sum4 halves four values at the first two
+// steps (12 shuffles of 32 bits): lanes 0-7 end with the sum of x, 8-15
+// y's, 16-23 z's, 24-31 w's.  warp_sum2 halves two at the first step (10):
+// lanes 0-15 end with x's, 16-31 with y's.
+__device__ __forceinline__ double warp_sum4(double x, double y, double z, double w, int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  double k0 = hi16 ? z : x, k1 = hi16 ? w : y;
+  k0 += __shfl_xor_sync(0xffffffffu, hi16 ? x : z, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, hi16 ? y : w, 16);
+  double v = hi8 ? k1 : k0;
+  v += __shfl_xor_sync(0xffffffffu, hi8 ? k0 : k1, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum2(double x, double y, int lane) {
+  const bool hi16 = lane & 16;
+  double v = hi16 ? y : x;
+  v += __shfl_xor_sync(0xffffffffu, hi16 ? x : y, 16);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
 // Warp-wide reduction for an idempotent op (min, max) by butterfly
 // shuffles: every lane of the (full) warp gets the result.
 template <typename T, typename Op>

@@ -11,6 +11,16 @@ cubes, or the exact integer lattice with edges ``thr - 0.5`` on cubes
 (``ops.spectra.kbin_plan``).  Bin b holds the modes with exactly b edges
 <= k2, where k2 = kx2 + (ky2 + kz2) is formed in the dtype in that order,
 as the Pallas body does; bins 0 .. nbins-1 are returned.
+
+The kernels walk the spectrum by rows (i, j), K4's walk
+(``binned_pk_v2``).  Their fast path relies on k2 being monotone along a
+row wherever kz2 is: K5's ``kz2h`` ascends, and K6's full-axis ``kz2`` is
+in FFT order, ascending on [0, Nz // 2 + 1) and descending after it, as
+``kbin_plan`` gives it at every call site.  Each kernel checks its rule on
+the device (every block, while it starts; nothing is read on the host)
+and bins each mode by bisection where it fails (the general path).  Both
+paths sum in float64 in an order fixed by the shape (``_launch_shape``),
+so the result is bitwise the same on every run.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 
 from ..reduce import binned_sum_sumsq_count, binned_weighted_dual
 from . import _build
+from .binned_pk_v2 import _launch_shape  # (blocks, threads) from the rows
 
 __all__ = ["binned_pk_half_dual", "binned_pk_half_dual_cuda",
            "binned_pk_half_dual_plain", "binned_pk_full", "binned_pk_full_cuda",
@@ -54,16 +65,6 @@ def binned_pk_full_plain(pk, kx2, ky2, kz2, edges2):
     return binned_sum_sumsq_count(pk, idx, edges2.shape[0])
 
 
-def _launch_shape(n: int, nbins: int, nstats: int) -> tuple[int, int]:
-    """(blocks, threads), a function of the shape only so that the
-    summation order, and the result, never change between runs."""
-    threads = 256
-    while threads > 32 and nstats * nbins * (threads + 1) * 8 > 100 * 1024:
-        threads //= 2
-    blocks = min(1024, max(1, math.ceil(n / (threads * 32))))
-    return blocks, threads
-
-
 def _check(name, fields, vecs, edges2):
     """Shape, device and dtype checks shared by K5 and K6."""
     nbins = edges2.shape[0]
@@ -79,39 +80,39 @@ def _check(name, fields, vecs, edges2):
     if n >= 2**31:
         raise ValueError(f"{name}: {n} modes exceed the kernel's 2^31 limit")
     _build.require_cuda(name, *fields, *vecs, edges2, dtype=fields[0].dtype)
-    return nbins, n
+    return nbins
 
 
-def _run(name, stem, nstats, ptrs, dev, dtype, shape, nbins, n):
-    blocks, threads = _launch_shape(n, nbins, nstats)
+def _run(name, stem, nstats, ptrs, dev, dtype, shape, nbins):
+    blocks, threads = _launch_shape(shape[0] * shape[1])
     partial = torch.empty((blocks, nstats, nbins), dtype=torch.float64,
                           device=dev)
-    out = torch.empty((nstats, nbins), dtype=torch.float64, device=dev)
+    out = torch.empty((nstats, nbins), dtype=dtype, device=dev)
     fn = _build.kernel_fn(stem, dtype)
     with torch.cuda.device(dev):
         err = fn(*ptrs, partial.data_ptr(), out.data_ptr(), *shape, nbins,
                  blocks, threads, _build.stream_ptr(dev))
     _build.check(err, name)
     _build.count_launch(name)
-    return tuple(out.to(dtype))
+    return tuple(out)
 
 
 def binned_pk_half_dual_cuda(p1, p2, kx2, ky2, kz2h, wz, edges2):
     """Launch K5."""
-    nbins, n = _check(NAME, (p1, p2), (kx2, ky2, kz2h, wz), edges2)
+    nbins = _check(NAME, (p1, p2), (kx2, ky2, kz2h, wz), edges2)
     if wz.shape != kz2h.shape:
         raise ValueError(f"{NAME}: wz must have kz2h's shape")
     ptrs = [t.data_ptr() for t in (p1, p2, kx2, ky2, kz2h, wz, edges2)]
     return _run(NAME, "fbx_binned_pk_half_dual", 4, ptrs, p1.device,
-                p1.dtype, p1.shape, nbins, n)
+                p1.dtype, p1.shape, nbins)
 
 
 def binned_pk_full_cuda(pk, kx2, ky2, kz2, edges2):
     """Launch K6."""
-    nbins, n = _check(NAME_FULL, (pk,), (kx2, ky2, kz2), edges2)
+    nbins = _check(NAME_FULL, (pk,), (kx2, ky2, kz2), edges2)
     ptrs = [t.data_ptr() for t in (pk, kx2, ky2, kz2, edges2)]
     return _run(NAME_FULL, "fbx_binned_pk_full", 3, ptrs, pk.device,
-                pk.dtype, pk.shape, nbins, n)
+                pk.dtype, pk.shape, nbins)
 
 
 def binned_pk_half_dual(p1, p2, kx2, ky2, kz2h, wz, edges2):

@@ -128,10 +128,16 @@ def test_anisotropic_plan_uses_squared_physical_operands():
 
 
 def test_launch_shape_depends_on_shape_only():
-    assert k5._launch_shape(256 * 256 * 129, 20, 4) == (1024, 128)
-    assert k5._launch_shape(256 ** 3, 20, 3) == (1024, 128)
-    blocks, threads = k5._launch_shape(512 * 512 * 257, 120, 4)
-    assert threads == 32 and 4 * 120 * 33 * 8 + 120 * 8 <= 227 * 1024
+    """K4's row walk: (blocks, threads) from the rows Nx * Ny alone, for
+    the half spectra (K5) and the full cube (K6) alike; each block's
+    4 x 120 doubles per warp fit the 48 KB default at every bin count."""
+    assert k5._launch_shape is k4._launch_shape
+    assert k5._launch_shape(256 * 256) == (4096, 256)
+    assert k5._launch_shape(255 * 255) == (4065, 256)
+    assert k5._launch_shape(16 * 16) == (16, 256)
+    blocks, threads = k5._launch_shape(512 * 512)
+    assert blocks == 4096
+    assert threads // 32 * 4 * 120 * 8 + 120 * 8 <= 48 * 1024
 
 
 def test_cpu_tensors_take_the_twin_and_the_launcher_refuses_them(rng):
