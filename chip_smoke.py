@@ -4,6 +4,8 @@
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --step-1024   # only: does a 1024^3 step fit?
     python3 chip_smoke.py --truth-256   # only: the truth gate at 256^3
+    python3 chip_smoke.py --k3-k9-times ROOT   # only: K3's and K9's times,
+                                        # with the package of checkout ROOT
 
 from the root of a checkout, on a machine with a CUDA GPU (written for an
 H100, sm_90a) and the CUDA toolkit.  It exits non-zero, printing no result,
@@ -40,8 +42,18 @@ failure:
      256^3 and a 255^3 cube, f32 and f64 (against an f64 index_add_
      reduction), and on a reversed kz2h / permuted kz2 (the general path),
      their counts and weighted counts equal to the twins' and bitwise
-     repeatable; K9a/b in supplied mode bitwise, in
-     generated mode by the moments of the normals; K10 (the axis FFT) at
+     repeatable; K3 torch.equal to its bracket reference (searchsorted,
+     gathers, the kernel's four rounded operations) and within 1e-5 of its
+     twin on the 256^3 rows and a sigma_NL 6000 realisation's exact-tier
+     rows (the merge walk), f32 and f64, and on rows with duplicate
+     nodes, nodes on targets, a narrow hull and clustered nodes, on
+     descending, permuted and non-uniform targets, T != C, 62-cell and
+     unaligned rows, timed at 256^3 (also the general path) and 512^3;
+     K9a/b in supplied mode bitwise on the vector and element paths (f32,
+     f64, 256^3, 63^3 and 65^3 half grids), in generated mode the same
+     bits on both paths, by the moments and lag-1, lag-C and re/im
+     correlations of the normals, timed with a fixed device seed at 256^3
+     and 512^3 (and through the generator, which adds draw_seed); K10 (the axis FFT) at
      every supported length, both axes and signs, f32 and f64, then at the
      K10 route's planar shapes (256, 256, 129) and (512, 512, 257) against
      its twin and complex128 torch.fft, timed beside torch.fft.fft along
@@ -125,6 +137,7 @@ device JSON.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -495,27 +508,169 @@ def phase_k2(dev, cosmo) -> dict:
                            vals.numel() * (4 + 4 * (6 * 2 + 4) + 5)))
 
 
-def phase_k3(dev, grid, cosmo) -> dict:
+def k3_inputs(dev, cosmo, N: int, seed: int = 3) -> tuple:
+    """(ss, vv, z, fill) of the exact RSD tier at the N^3 pipeline's shapes
+    (N^2 rows of N cells), nodes displaced by up to 12 cells and sorted."""
+    from fastbox_tpu_torch.grid import GridSpec
+
+    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+    vals, vel, z, fill, wrap, inv_hz, _ = rsd_inputs(grid, cosmo, 12.0, dev,
+                                                     seed)
+    s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0], wrap[1]) + wrap[0]
+    del vel
+    ss, order = torch.sort(s, dim=1, stable=True)
+    del s
+    return ss, torch.gather(vals, 1, order), z, fill
+
+
+def exact_tier_rows(dev, grid, cosmo) -> tuple:
+    """The arguments of K3's one call in a 256^3 realisation at sigma_NL
+    6000 km/s (the exact tier of the RSD remap), captured on the way."""
+    import fastbox_tpu_torch.ops.rsd as rsd
+    from fastbox_tpu_torch.pipeline import PipelineConfig, make_pipeline
+
+    seen, k3 = [], rsd.interp_sorted
+
+    def keep(*args):
+        seen.append(args)
+        return k3(*args)
+
+    rsd.interp_sorted = keep
+    try:
+        make_pipeline(grid, cosmo, PipelineConfig(sigma_nl=6000.0),
+                      device=dev)(
+            generator=torch.Generator(device=dev).manual_seed(6000))
+    finally:
+        rsd.interp_sorted = k3
+    check(len(seen) == 1, f"sigma_nl=6000: {len(seen)} K3 calls, not 1")
+    return seen[0]
+
+
+def k3_times(dev, grid, cosmo, exact: tuple) -> dict:
+    """K3's device times (median_ms, f32) through interp_sorted_cuda: the
+    256^3 rows displaced by up to 12 cells, the same rows with descending
+    targets (the general path), a sigma_NL 6000 realisation's exact-tier
+    rows (``exact``), and the 512^3 rows."""
     from fastbox_tpu_torch.ops.cuda import rsd_interp as k
 
-    vals, vel, z, fill, wrap, inv_hz, _ = rsd_inputs(grid, cosmo, 12.0, dev,
-                                                     seed=3)
-    s = torch.remainder(z[None, :] - vel * inv_hz - wrap[0], wrap[1]) + wrap[0]
-    ss, order = torch.sort(s, dim=1, stable=True)
-    vv = torch.gather(vals, 1, order).contiguous()
-    got = k.interp_sorted_cuda(ss, vv, z, fill)
-    want = k.interp_sorted_plain(ss, vv, z, fill)
-    e = norm_err(got, want)
-    log(f"K3 interp_sorted (displacements to 12 cells): vs twin {e:.3e}")
-    check(e <= 1e-5, f"K3: {e}")
-    ms = median_ms(lambda: k.interp_sorted_cuda(ss, vv, z, fill))
+    ss, vv, z, fill = k3_inputs(dev, cosmo, N_MAIN)
+    zd = z.flip(0).contiguous()
+    t = {f"K3 {N_MAIN}": median_ms(
+             lambda: k.interp_sorted_cuda(ss, vv, z, fill)),
+         f"K3 {N_MAIN} descending": median_ms(
+             lambda: k.interp_sorted_cuda(ss, vv, zd, fill)),
+         f"K3 {N_MAIN} sigma_nl 6000": median_ms(
+             lambda: k.interp_sorted_cuda(*exact))}
+    del ss, vv
+    big = k3_inputs(dev, cosmo, N_BIG)
+    t[f"K3 {N_BIG}"] = median_ms(lambda: k.interp_sorted_cuda(*big))
+    return t
+
+
+def k3_special_rows(ss, z):
+    """Sorted rows with duplicate nodes, nodes exactly on targets, a narrow
+    hull (targets outside it on both sides) and 64 nodes clustered inside
+    one target interval (past the merge budget), sorted again."""
+    ss = ss.clone()
+    C = ss.shape[1]
+    ss[::3, 10] = ss[::3, 11]
+    ss[1::3, 20:24] = ss[1::3, 20:21]
+    ss[2::5, 30] = z[31]
+    ss[::4, 50] = ss[::4, 51] = z[50]
+    ss[::7, 0] = z[0]
+    ss[::11, -1] = z[-1]
+    lo, hi = z[C // 4], z[3 * C // 4]
+    ss[5::13] = lo + (hi - lo) * torch.rand_like(ss[5::13])
+    mid = 0.5 * (z[C // 2] + z[C // 2 + 1])
+    ss[6::13, 64:128] = mid + (z[1] - z[0]) * 0.4 * torch.rand_like(
+        ss[6::13, 64:128])
+    return torch.sort(ss, dim=1).values.contiguous()
+
+
+def phase_k3(dev, grid, cosmo) -> dict:
+    """K3 torch.equal to the bracket reference (interp_sorted_bracket:
+    searchsorted, gathers and the kernel's four rounded operations) and
+    within 1e-5 of max|value| of its twin: on the 256^3 rows displaced by
+    up to 12 cells and a sigma_NL 6000 realisation's exact-tier rows (the
+    staged path's merge walk), f32 and f64; on rows with duplicate nodes,
+    nodes on targets, a narrow hull and clustered nodes; on descending and
+    permuted targets (a bisection per target) and non-uniform ascending
+    ones; with T != C (100, 512 and 98 targets); on 62-cell and unaligned
+    rows (the direct path).  Timed at 256^3
+    (also the general path and the realisation's rows) and 512^3."""
+    from fastbox_tpu_torch.ops.cuda import rsd_interp as k
+
+    def same(what, ss, vv, z, fill, staged):
+        T = z.shape[0]
+        check(k.staged_path(ss.shape[1], T, ss, vv) == staged,
+              f"K3 {what}: not on the {'staged' if staged else 'direct'} "
+              "path")
+        got = k.interp_sorted_cuda(ss, vv, z, fill)
+        eq = torch.equal(got, k.interp_sorted_bracket(ss, vv, z, fill))
+        log(f"K3 {what} {tuple(ss.shape)} -> {tuple(got.shape)} {ss.dtype} "
+            f"({'staged' if staged else 'direct'}): bitwise {eq} to the "
+            "bracket reference")
+        check(eq, f"K3 {what} {ss.dtype}: not equal to the bracket reference")
+        return got
+
+    exact = exact_tier_rows(dev, grid, cosmo)
+    ss, vv, z, fill = k3_inputs(dev, cosmo, N_MAIN)
+    errs = []
+    for what, args in (("12-cell displacements", (ss, vv, z, fill)),
+                       ("sigma_nl=6000 exact tier", exact)):
+        for dt in (torch.float32, torch.float64):
+            a = tuple(t.to(dt).contiguous() for t in args)
+            got = same(what, *a, True)
+            if dt == torch.float32:
+                want = k.interp_sorted_plain(*a)
+                e = norm_err(got, want)
+                log(f"K3 {what}: vs twin {e:.3e} of max|value|")
+                check(e <= 1e-5, f"K3 {what}: {e} off the twin")
+                errs.append((got - want).abs().max().item())
+            del a, got
+    rows = slice(0, 8192)
+    for dt in (torch.float32, torch.float64):
+        zz = z.to(dt)
+        sp = (k3_special_rows(ss[rows].to(dt), zz), vv[rows].to(dt)
+              .contiguous(), zz, fill[rows].to(dt).contiguous())
+        same("duplicates / on nodes / narrow hull / clustered", *sp, True)
+        sv, vw, _, fw = sp
+        g = torch.Generator(device=dev).manual_seed(31)
+        span = zz[-1] - zz[0]
+        targets = {
+            "descending targets": (zz.flip(0).contiguous(), True),
+            "permuted targets": (zz[torch.randperm(zz.shape[0], generator=g,
+                                                   device=dev)], True),
+            "non-uniform ascending targets":
+                (zz[0] - 0.1 * span + 1.2 * span
+                 * torch.linspace(0, 1, zz.shape[0], device=dev,
+                                  dtype=dt) ** 2, True),
+            "100 targets (T != C)": (torch.linspace(
+                float(zz[0]) - 50, float(zz[-1]) + 50, 100, device=dev,
+                dtype=dt), True),
+            "512 targets (T != C)": (torch.linspace(
+                float(zz[0]), float(zz[-1]), 512, device=dev, dtype=dt),
+                True),
+            "98 targets": (torch.linspace(float(zz[0]), float(zz[-1]), 98,
+                                          device=dev, dtype=dt), True)}
+        for what, (zt, staged) in targets.items():
+            same(what, sv, vw, zt.contiguous(), fw, staged)
+        short = k3_special_rows(sv[:, :62].contiguous(), zz[:62])
+        same("62-cell rows", short, vw[:, :62].contiguous(),
+             zz[:62].contiguous(), fw, False)
+        same("unaligned rows", unaligned(sv), unaligned(vw), zz, fw, False)
+        del sp, sv, vw, fw, short
+    t = k3_times(dev, grid, cosmo, exact)
     plain_ms = median_ms(lambda: k.interp_sorted_plain(ss, vv, z, fill))
-    # per target: a bisection over C nodes and the interpolation
-    steps = int(np.ceil(np.log2(ss.shape[1])))
-    return dict(name="interp_sorted", max_abs_err=(got - want).abs().max()
-                .item(), ms=ms, plain_ms=plain_ms, library_ms=None,
-                **roofline(nbytes(ss, vv, z, fill, got),
-                           got.numel() * (steps + 5)))
+    bound = roofline(nbytes(ss, vv, z, fill, ss), 0)["bound_ms"]
+    log("K3 times (f32): " + ", ".join(f"{n} {v:.4f} ms" for n, v in
+                                       t.items())
+        + f"; plain 256^3 {plain_ms:.4f} ms; bound 256^3 {bound:.4f} ms")
+    # per target: a merge step or two and the interpolation (5 operations)
+    return dict(name="interp_sorted", max_abs_err=max(errs),
+                ms=t[f"K3 {N_MAIN}"],
+                plain_ms=plain_ms, library_ms=None,
+                **roofline(nbytes(ss, vv, z, fill, ss), ss.numel() * 8))
 
 
 def k4_inputs(dev, N: int, seed: int, uniform: bool = False) -> tuple:
@@ -1088,80 +1243,161 @@ def phase_k6(dev) -> dict:
                 plain_ms=plain_ms, library_ms=lib_ms, **bound)
 
 
+def k9_times(dev) -> dict:
+    """K9's device times (median_ms) through colored_half_draw[_vz]_cuda
+    with a fixed device seed, the kernel alone: K9a and K9b on the 256^3
+    and 512^3 half grids in f32 and on the 256^3 one in f64; and at 256^3
+    the generator form (colored_half_draw[_vz](amp, generator=...)), which
+    also launches draw_seed."""
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import half_draw as k
+    from fastbox_tpu_torch.pipeline import vz_vectors
+
+    seed = torch.tensor([2026], dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    t = {}
+    for N in (N_MAIN, N_BIG):
+        grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+        amp = torch.rand((N, N * (N // 2 + 1)), generator=g, device=dev) * 5
+        dts = (torch.float32, torch.float64) if N == N_MAIN else (
+            torch.float32,)
+        for dt in dts:
+            a = amp.to(dt)
+            vecs = vz_vectors(grid, 80.0, dt, dev)
+            tag = f" {N}" + (" f64" if dt == torch.float64 else "")
+            t["K9a" + tag] = median_ms(
+                lambda: k.colored_half_draw_cuda(a, seed=seed))
+            t["K9b" + tag] = median_ms(
+                lambda: k.colored_half_draw_vz_cuda(a, *vecs, seed=seed))
+            if N == N_MAIN and dt == torch.float32:
+                gen = torch.Generator(device=dev).manual_seed(10)
+                t[f"K9a {N} with draw_seed"] = median_ms(
+                    lambda: k.colored_half_draw(a, generator=gen))
+                t[f"K9b {N} with draw_seed"] = median_ms(
+                    lambda: k.colored_half_draw_vz(a, *vecs, generator=gen))
+            del a, vecs
+        del amp
+    return t
+
+
 def phase_k9(dev) -> list[dict]:
-    """K9a/K9b at the 256^3 half-grid shape: supplied mode bitwise against
-    the twins (f32 and f64), generated mode by the moments of the interior
-    normals (5 sigma), seed determinism, and one delta_k for 'on' and 'vz'
-    from one generator seed."""
+    """K9a/K9b on the 256^3 half grid: supplied mode bitwise against the
+    twins (f32 and f64) on the vector path and on an unaligned copy (the
+    element path), and on the 63^3 (vector) and 65^3 (C odd: element)
+    half grids; generated mode: the element path's bits equal the vector
+    path's, a mode's normals depend only on its row and column (65^3
+    against the first columns of a wider draw), K9a and K9b the same delta
+    for one seed, other bits for another, the interior normals' moments and
+    lag-1, lag-C and real/imaginary correlations within 5 sigma, and one
+    delta_k for 'on' and 'vz' from one generator seed.  Timed by
+    k9_times."""
     from fastbox_tpu_torch.fields import gaussian
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops.cuda import half_draw as k
     from fastbox_tpu_torch.pipeline import vz_vectors
 
-    N = N_MAIN
-    H = N // 2 + 1
-    grid = GridSpec.create(box_scale=BOX, nsamp=N, redshift=Z)
+    def half(n):
+        return GridSpec.create(box_scale=BOX, nsamp=n, redshift=Z), n // 2 + 1
+
     g = torch.Generator(device=dev).manual_seed(9)
     errs = {"colored_half_draw": 0.0, "colored_half_draw_vz": 0.0}
-    for dt in (torch.float32, torch.float64):
-        amp = torch.rand((N, N * H), generator=g, device=dev, dtype=dt) * 5
-        white = torch.complex(torch.randn((N, N * H), generator=g, device=dev,
+    for n, dt in ((N_MAIN, torch.float32), (N_MAIN, torch.float64),
+                  (63, torch.float32), (63, torch.float64),
+                  (65, torch.float32), (65, torch.float64)):
+        grid, H = half(n)
+        amp = torch.rand((n, n * H), generator=g, device=dev, dtype=dt) * 5
+        white = torch.complex(torch.randn((n, n * H), generator=g, device=dev,
                                           dtype=dt),
-                              torch.randn((N, N * H), generator=g, device=dev,
+                              torch.randn((n, n * H), generator=g, device=dev,
                                           dtype=dt)) * float(np.sqrt(0.5))
         vecs = vz_vectors(grid, 80.0, dt, dev)
-        pairs = {"colored_half_draw": [(
-            k.colored_half_draw_cuda(amp, white=white),
-            k.colored_half_draw_plain(amp, white=white))],
-            "colored_half_draw_vz": list(zip(
-                k.colored_half_draw_vz_cuda(amp, *vecs, white=white),
-                k.colored_half_draw_vz_plain(amp, *vecs, white=white)))}
-        for name, ps in pairs.items():
-            errs[name] = max([errs[name]] + [(a - b).abs().max().item()
-                                             for a, b in ps])
-        same_a, same_b = (all(torch.equal(a, b) for a, b in ps)
-                          for ps in pairs.values())
-        log(f"K9 supplied mode {dt}: K9a bitwise {same_a}, K9b bitwise "
-            f"{same_b}")
-        check(same_a and same_b, f"K9 supplied mode {dt} differs from twin")
-    amp = torch.rand((N, N * H), generator=g, device=dev) * 5
+        cases = [(amp, n * H % 4 == 0)]
+        if n == N_MAIN:
+            cases.append((unaligned(amp), False))
+        for am, vec in cases:
+            path = "vector" if vec else "element"
+            check(k.vector_path(n * H, am, white, *vecs[1:]) == vec,
+                  f"K9 {n}^3 {dt}: not on the {path} path")
+            pairs = {"colored_half_draw": [(
+                k.colored_half_draw_cuda(am, white=white),
+                k.colored_half_draw_plain(am, white=white))],
+                "colored_half_draw_vz": list(zip(
+                    k.colored_half_draw_vz_cuda(am, *vecs, white=white),
+                    k.colored_half_draw_vz_plain(am, *vecs, white=white)))}
+            for name, ps in pairs.items():
+                errs[name] = max([errs[name]] + [(a - b).abs().max().item()
+                                                 for a, b in ps])
+            same_a, same_b = (all(torch.equal(a, b) for a, b in ps)
+                              for ps in pairs.values())
+            log(f"K9 supplied mode {n}^3 half grid {dt} ({path} path): K9a "
+                f"bitwise {same_a}, K9b bitwise {same_b}")
+            check(same_a and same_b,
+                  f"K9 supplied mode {n}^3 {dt} {path}: differs from twin")
+        del amp, white, vecs, cases
+    N = N_MAIN
+    grid, H = half(N)
     vecs = vz_vectors(grid, 80.0, torch.float32, dev)
     one = torch.ones((N, N * H), device=dev)
     s1 = torch.tensor([12345], dtype=torch.int64, device=dev)
     s2 = torch.tensor([12346], dtype=torch.int64, device=dev)
     a = k.colored_half_draw_cuda(one, seed=s1)
-    b, _ = k.colored_half_draw_vz_cuda(one, *vecs, seed=s1)
+    b, bvz = k.colored_half_draw_vz_cuda(one, *vecs, seed=s1)
     check(torch.equal(a, b), "K9a and K9b: same seed, different normals")
     check(torch.equal(a, k.colored_half_draw_cuda(one, seed=s1)),
           "K9: same seed, different bits")
     check(not torch.equal(a, k.colored_half_draw_cuda(one, seed=s2)),
           "K9: different seeds, same bits")
+    ea = k.colored_half_draw_cuda(unaligned(one), seed=s1)
+    eb, evz = k.colored_half_draw_vz_cuda(unaligned(one), *vecs, seed=s1)
+    check(torch.equal(a, ea) and torch.equal(b, eb) and torch.equal(bvz, evz),
+          "K9: the element path drew other bits than the vector path")
+    r65, c65 = 65, 65 * 33
+    odd = k.colored_half_draw_cuda(one[:r65, :c65].contiguous(), seed=s1)
+    check(not k.vector_path(c65, odd) and torch.equal(odd, a[:r65, :c65]),
+          "K9 at 65^3 (element path): not the wider draw's bits")
+    log("K9 generated: the element path (unaligned, and 65^3 with C odd) "
+        "draws the vector path's bits")
     x = (torch.view_as_real(a.reshape(N, N, H)[:, :, 1:H - 1]).double()
          / np.sqrt(0.5)).reshape(-1)
     m = x.numel()
     mean = x.mean().item()
     var = x.var(correction=0).item()
     kurt = (x ** 4).mean().item() / var ** 2
-    log(f"K9 generated: interior normals mean {mean:.3e} var {var:.6f} "
-        f"kurtosis {kurt:.5f} (n={m})")
     check(abs(mean) < 5 / m ** 0.5, f"K9 mean {mean}")
     check(abs(var - 1) < 5 * (2 / m) ** 0.5, f"K9 variance {var}")
     check(abs(kurt - 3) < 5 * (96 / m) ** 0.5, f"K9 kurtosis {kurt}")
-    amp3 = amp.reshape(N, N, H)
+    # correlations of the (R, C) real parts with the next column (lag 1)
+    # and the next row (lag C), and of each real part with its imaginary one
+    re = a.real.double() / np.sqrt(0.5)
+    im = a.imag.double() / np.sqrt(0.5)
+    corr = {"lag-1": (re[:, :-1] * re[:, 1:]).mean().item(),
+            "lag-C": (re[:-1] * re[1:]).mean().item(),
+            "re/im": (re * im).mean().item()}
+    sizes = {"lag-1": N * (N * H - 1), "lag-C": (N - 1) * N * H,
+             "re/im": N * N * H}
+    for what, r in corr.items():
+        check(abs(r) < 5 / sizes[what] ** 0.5, f"K9 {what} correlation {r}")
+    log(f"K9 generated: interior normals mean {mean:.3e} var {var:.6f} "
+        f"kurtosis {kurt:.5f} (n={m}); correlations "
+        + ", ".join(f"{w} {r:.3e}" for w, r in corr.items()))
+    del a, b, bvz, ea, eb, evz, re, im, x
+    amp3 = (torch.rand((N, N * H), generator=g, device=dev) * 5) \
+        .reshape(N, N, H)
     d_on = gaussian.colored_half_noise(
         torch.Generator(device=dev).manual_seed(3), grid, amp3)
     d_vz, _ = gaussian.colored_half_noise_vz(
         torch.Generator(device=dev).manual_seed(3), grid, amp3, *vecs)
     check(torch.equal(d_on, d_vz), "'on' and 'vz' give different delta_k")
     log("K9 'on' and 'vz' from one generator seed: identical delta_k")
+    t = k9_times(dev)
+    log("K9 times: " + ", ".join(f"{n} {v:.4f} ms" for n, v in t.items()))
+    amp = amp3.reshape(N, N * H)
     gen = torch.Generator(device=dev).manual_seed(10)
     out = []
-    for name, kern, plain in (
-            ("colored_half_draw",
-             lambda: k.colored_half_draw(amp, generator=gen),
+    for name, key, plain in (
+            ("colored_half_draw", f"K9a {N}",
              lambda: k.colored_half_draw_plain(amp, generator=gen)),
-            ("colored_half_draw_vz",
-             lambda: k.colored_half_draw_vz(amp, *vecs, generator=gen),
+            ("colored_half_draw_vz", f"K9b {N}",
              lambda: k.colored_half_draw_vz_plain(amp, *vecs,
                                                   generator=gen))):
         # reads amp (and the three vz vectors), writes delta_k (and vz_k);
@@ -1170,9 +1406,8 @@ def phase_k9(dev) -> list[dict]:
         vz = name.endswith("_vz")
         n_bytes = nbytes(amp) + (2 if vz else 1) * 2 * nbytes(amp) \
             + (nbytes(*vecs) if vz else 0)
-        out.append(dict(name=name, max_abs_err=errs[name],
-                        ms=median_ms(kern), plain_ms=median_ms(plain),
-                        library_ms=None,
+        out.append(dict(name=name, max_abs_err=errs[name], ms=t[key],
+                        plain_ms=median_ms(plain), library_ms=None,
                         **roofline(n_bytes, amp.numel() * (50 if vz else 42))))
     return out
 
@@ -2470,6 +2705,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs an NVIDIA GPU")
+    args = sys.argv[1:]
+    times_root = None
+    if "--k3-k9-times" in args:
+        # the package of another checkout (its own kernels and build/)
+        times_root = os.path.abspath(args[args.index("--k3-k9-times") + 1])
+        sys.path.insert(0, times_root)
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import mmfft
@@ -2498,6 +2739,17 @@ def main() -> None:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
 
+    if times_root is not None:
+        import fastbox_tpu_torch
+
+        check(os.path.dirname(os.path.dirname(fastbox_tpu_torch.__file__))
+              == times_root, f"fastbox_tpu_torch not from {times_root}")
+        grid = GridSpec.create(box_scale=BOX, nsamp=N_MAIN, redshift=Z)
+        cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
+        times = k3_times(dev, grid, cosmo, exact_tier_rows(dev, grid, cosmo))
+        times.update(k9_times(dev))
+        log(f"k3-k9 times of {times_root}: {json.dumps(times)}")
+        return
     if "--step-1024" in sys.argv[1:]:
         explore_1024(dev)
         return

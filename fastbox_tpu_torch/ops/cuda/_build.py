@@ -51,7 +51,7 @@ _SIGNATURES = {
     "fbx_rsd_bracket_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
                                _P),
     "fbx_banded_interp": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P),
-    "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "fbx_interp_sorted": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P),
     "fbx_binned_pk_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I64, _INT, _INT, _INT, _P),
     "fbx_binned_pk_v2t": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
@@ -60,7 +60,8 @@ _SIGNATURES = {
                                 _I64, _I64, _INT, _INT, _INT, _P),
     "fbx_binned_pk_full": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                            _INT, _INT, _INT, _P),
-    "fbx_half_draw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+    "fbx_half_draw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
+                      _P),
     "fbx_cic_paint_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather3_lattice": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,

@@ -15,7 +15,10 @@ half grid seen as (N, N*(N/2+1)), and return complex tensors:
 (complex, already x sqrt(1/2)).  The twins draw ``white`` with
 ``torch.randn`` on the caller's generator; the kernel's Philox stream
 differs from it, as the TPU kernel's differs from threefry.  In supplied
-mode the kernel rounds exactly like the twins.
+mode the kernel rounds exactly like the twins.  The kernel works in units
+of four consecutive columns of a row, with 16-byte accesses where
+``vector_path`` holds and mode by mode otherwise; a mode's normals depend
+only on its row and column, so both paths draw the same bits.
 """
 from __future__ import annotations
 
@@ -28,11 +31,18 @@ from .noise import draw_seed
 __all__ = ["colored_half_draw", "colored_half_draw_vz",
            "colored_half_draw_cuda", "colored_half_draw_vz_cuda",
            "colored_half_draw_plain", "colored_half_draw_vz_plain",
-           "velocity_weight"]
+           "vector_path", "velocity_weight"]
 
 NAME = "colored_half_draw"
 NAME_VZ = "colored_half_draw_vz"
 _SQRT_HALF = float(np.sqrt(0.5))
+
+
+def vector_path(C: int, *tensors) -> bool:
+    """Whether K9 reads and writes in 16-byte vectors: rows of a multiple
+    of 4 modes, and every array starting on a 16-byte boundary.  Else it
+    takes the element path; both draw the same bits."""
+    return C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _complex(dtype):
@@ -96,12 +106,15 @@ def _launch(name, amp2d, seed, white, vecs):
     delta = torch.empty((R, C), dtype=cdt, device=amp2d.device)
     vz = torch.empty((R, C), dtype=cdt, device=amp2d.device) if vecs else None
     kx2, kyz2, kznum = vecs if vecs else (None, None, None)
+    vec = vector_path(C, amp2d, delta, *(t for t in (white, kyz2, kznum, vz)
+                                         if t is not None))
     fn = _build.kernel_fn("fbx_half_draw", amp2d.dtype)
     with torch.cuda.device(amp2d.device):
         err = fn(amp2d.data_ptr(), _build.ptr(white),
                  _build.ptr(seed if white is None else None), _build.ptr(kx2),
                  _build.ptr(kyz2), _build.ptr(kznum), delta.data_ptr(),
-                 _build.ptr(vz), R, C, _build.stream_ptr(amp2d.device))
+                 _build.ptr(vz), R, C, int(vec),
+                 _build.stream_ptr(amp2d.device))
     _build.check(err, name)
     _build.count_launch(name)
     return delta if vz is None else (delta, vz)

@@ -178,3 +178,50 @@ def test_kernel_generated_mode(cuda):
     assert abs(x.mean().item()) < 5 / n**0.5
     assert abs(x.var().item() - 1) < 5 * (2 / n) ** 0.5
     assert launch_counts()[k9.NAME] >= 1 and launch_counts()[k9.NAME_VZ] >= 1
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte
+    boundary: the element path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("n", [16, 7, 9])
+def test_kernel_paths_supplied_bitwise_and_generated_same_bits(cuda, rng, dt,
+                                                                n):
+    """Supplied mode bitwise on the vector and element paths (n = 9 has C
+    odd); in generated mode the element path draws the vector path's bits,
+    and a mode's normals depend only on its row and column."""
+    np_dt, t_dt = DTYPES[dt]
+    h = n // 2 + 1
+    grid = GridSpec.create(box_scale=1e3, nsamp=n)
+    amp = torch.tensor(rng.uniform(0.0, 5.0, (n, n * h)).astype(np_dt),
+                       device=cuda)
+    white = torch.complex(*(torch.tensor(
+        (rng.standard_normal((n, n * h)) * np.sqrt(0.5)).astype(np_dt))
+        for _ in range(2))).to(cuda)
+    kx, ky, kz = (np.asarray(v, np.float64) for v in grid.kvec(torch.float64))
+    kyz2 = (ky[:, None] ** 2 + kz[None, :h] ** 2).reshape(-1)
+    kznum = np.broadcast_to(80.0 * kz[None, :h], (n, h)).reshape(-1)
+    vecs = [torch.tensor(v.astype(np_dt), device=cuda)
+            for v in (kx ** 2, kyz2, kznum)]
+    for am in (amp, _unaligned(amp)):
+        assert torch.equal(k9.colored_half_draw_cuda(am, white=white),
+                           k9.colored_half_draw_plain(am, white=white))
+        for a, b in zip(k9.colored_half_draw_vz_cuda(am, *vecs, white=white),
+                        k9.colored_half_draw_vz_plain(am, *vecs,
+                                                      white=white)):
+            assert torch.equal(a, b)
+    seed = torch.tensor([77], dtype=torch.int64, device=cuda)
+    one = torch.ones((n, n * h + 8), dtype=t_dt, device=cuda)
+    wide = k9.colored_half_draw_cuda(one, seed=seed)
+    ones = torch.ones_like(amp)
+    for am in (ones, _unaligned(ones)):
+        d = k9.colored_half_draw_cuda(am, seed=seed)
+        d2, _ = k9.colored_half_draw_vz_cuda(am, *vecs, seed=seed)
+        assert torch.equal(d, wide[:, :n * h]) and torch.equal(d, d2)

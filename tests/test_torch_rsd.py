@@ -211,3 +211,46 @@ def test_remap_wrap_kernel_equals_twin_per_line(cuda, rng, band, dtype, C,
                                                          and not shift)
     assert torch.equal(k2.rsd_remap_wrap_cuda(*args),
                        k2.rsd_remap_wrap_plain(*args))
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte
+    boundary: the kernels' direct paths."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case, staged", [
+    ("ascending", True), ("descending", True), ("permuted", True),
+    ("100 targets", True), ("98 targets", True), ("62 cells", False),
+    ("unaligned", False)])
+def test_interp_sorted_kernel_equals_bracket_reference(cuda, rng, dtype, case,
+                                                       staged):
+    """K3 bit for bit against interp_sorted_bracket (searchsorted and the
+    kernel's rounded operations): the staged path's merge walk on
+    ascending targets, its bisection on others, and the direct path; rows
+    with duplicates and clustered nodes."""
+    M, C = 512, 62 if case == "62 cells" else 64
+    s = rng.random((M, C)) * 100.0
+    s[:, 10] = s[:, 11]
+    s[::3, 20:40] = 50.0 + 0.5 * rng.random((len(s[::3]), 20))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda).contiguous()
+    ss = t(np.sort(s, axis=1))
+    vv = t(rng.standard_normal((M, C)))
+    fill = t(rng.standard_normal(M))
+    T = {"100 targets": 100, "98 targets": 98}.get(case, C)
+    z = np.linspace(-5.0, 105.0, T)
+    if case == "descending":
+        z = z[::-1]
+    if case == "permuted":
+        z = rng.permutation(z)
+    z = t(z.copy())
+    if case == "unaligned":
+        ss, vv = _unaligned(ss), _unaligned(vv)
+    assert k3.staged_path(C, T, ss, vv) == staged
+    assert torch.equal(k3.interp_sorted_cuda(ss, vv, z, fill),
+                       k3.interp_sorted_bracket(ss, vv, z, fill))
