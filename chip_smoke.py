@@ -4,8 +4,6 @@
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --step-1024   # only: does a 1024^3 step fit?
     python3 chip_smoke.py --truth-256   # only: the truth gate at 256^3
-    python3 chip_smoke.py --k3-k9-times ROOT   # only: K3's and K9's times,
-                                        # with the package of checkout ROOT
 
 from the root of a checkout, on a machine with a CUDA GPU (written for an
 H100, sm_90a) and the CUDA toolkit.  It exits non-zero, printing no result,
@@ -85,7 +83,9 @@ failure:
      to its twin on both steps' sorted nodes (f32 and f64, bands 2 and 4),
      on rows with duplicate nodes, nodes on targets and on the hull edges,
      and on 62-cell and unaligned rows and at band 3 (the direct path),
-     timed on both steps' nodes, the step's remap through K7 (the batched
+     timed on both steps' nodes, K3 on the sigma_NL 6000 step's rows
+     torch.equal to its bracket reference and within 1e-5 of its twin,
+     timed, the step's remap through K7 (the batched
      remap with unwrapped coordinates, counted), the step against the
      single pipeline in noise_scheme='rows' on the same seeds,
      make_ensemble_pipeline over the mesh against the mesh-less call
@@ -137,7 +137,6 @@ device JSON.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -523,11 +522,9 @@ def k3_inputs(dev, cosmo, N: int, seed: int = 3) -> tuple:
     return ss, torch.gather(vals, 1, order), z, fill
 
 
-def exact_tier_rows(dev, grid, cosmo) -> tuple:
-    """The arguments of K3's one call in a 256^3 realisation at sigma_NL
-    6000 km/s (the exact tier of the RSD remap), captured on the way."""
+def k3_calls(body) -> tuple:
+    """(body(), the arguments of every K3 call the RSD remap made in it)."""
     import fastbox_tpu_torch.ops.rsd as rsd
-    from fastbox_tpu_torch.pipeline import PipelineConfig, make_pipeline
 
     seen, k3 = [], rsd.interp_sorted
 
@@ -537,13 +534,44 @@ def exact_tier_rows(dev, grid, cosmo) -> tuple:
 
     rsd.interp_sorted = keep
     try:
-        make_pipeline(grid, cosmo, PipelineConfig(sigma_nl=6000.0),
-                      device=dev)(
-            generator=torch.Generator(device=dev).manual_seed(6000))
+        return body(), seen
     finally:
         rsd.interp_sorted = k3
+
+
+def exact_tier_rows(dev, grid, cosmo) -> tuple:
+    """The arguments of K3's one call in a 256^3 realisation at sigma_NL
+    6000 km/s (the exact tier of the RSD remap), captured on the way."""
+    from fastbox_tpu_torch.pipeline import PipelineConfig, make_pipeline
+
+    _, seen = k3_calls(lambda: make_pipeline(
+        grid, cosmo, PipelineConfig(sigma_nl=6000.0), device=dev)(
+            generator=torch.Generator(device=dev).manual_seed(6000)))
     check(len(seen) == 1, f"sigma_nl=6000: {len(seen)} K3 calls, not 1")
     return seen[0]
+
+
+def k3_step_rows(args) -> None:
+    """K3 on the arguments of its call in the sharded 256^3 B=8 step at
+    sigma_NL 6000 (the exact tier's rows of all eight realisations):
+    torch.equal to the bracket reference, within 1e-5 of max|value| of the
+    twin, and timed (median_ms)."""
+    from fastbox_tpu_torch.ops.cuda import rsd_interp as k
+
+    ss, vv, z, fill = args
+    staged = k.staged_path(ss.shape[1], z.shape[0], ss, vv)
+    got = k.interp_sorted_cuda(*args)
+    eq = torch.equal(got, k.interp_sorted_bracket(*args))
+    err = norm_err(got, k.interp_sorted_plain(*args))
+    ms = median_ms(lambda: k.interp_sorted_cuda(*args))
+    bound = roofline(nbytes(ss, vv, z, fill, got), 0)["bound_ms"]
+    log(f"K3 on the sharded step's exact tier {tuple(ss.shape)} "
+        f"{ss.dtype} ({'staged' if staged else 'direct'}): bitwise {eq} to "
+        f"the bracket reference, {err:.3e} of max|value| off the twin; "
+        f"{ms:.4f} ms (bound {bound:.4f} ms)")
+    check(eq, "K3 on the sharded step's rows: not equal to the bracket "
+          "reference")
+    check(err <= 1e-5, f"K3 on the sharded step's rows: {err} off the twin")
 
 
 def k3_times(dev, grid, cosmo, exact: tuple) -> dict:
@@ -2069,11 +2097,14 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     check(ratio.size >= 3 and bool(np.all((ratio > 0.6) & (ratio < 1.6))),
           f"sharded: pk_density/P_nl {ratio}")
 
-    _, counts = counted("the sharded step, sigma_nl=6000 (exact tier)",
-                        ("interp_sorted",),
-                        lambda: run_step(step_exact, dev,
-                                         "sharded 256^3 B=8 sigma_nl=6000",
-                                         list(range(300, 308))))
+    (_, step_k3), counts = counted(
+        "the sharded step, sigma_nl=6000 (exact tier)", ("interp_sorted",),
+        lambda: k3_calls(lambda: run_step(step_exact, dev,
+                                          "sharded 256^3 B=8 sigma_nl=6000",
+                                          list(range(300, 308)))))
+    check(len(step_k3) == 1, f"the sharded step at sigma_nl=6000: "
+          f"{len(step_k3)} K3 calls, not 1")
+    k3_step_rows(step_k3.pop())
 
     # K8 on the steps' sorted nodes; then the 256^3 step's remap through K7
     # with the unwrapped coordinates (the batched remap's fused branch)
@@ -2705,12 +2736,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs an NVIDIA GPU")
-    args = sys.argv[1:]
-    times_root = None
-    if "--k3-k9-times" in args:
-        # the package of another checkout (its own kernels and build/)
-        times_root = os.path.abspath(args[args.index("--k3-k9-times") + 1])
-        sys.path.insert(0, times_root)
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import mmfft
@@ -2739,17 +2764,6 @@ def main() -> None:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  " + line.strip())
 
-    if times_root is not None:
-        import fastbox_tpu_torch
-
-        check(os.path.dirname(os.path.dirname(fastbox_tpu_torch.__file__))
-              == times_root, f"fastbox_tpu_torch not from {times_root}")
-        grid = GridSpec.create(box_scale=BOX, nsamp=N_MAIN, redshift=Z)
-        cosmo = build_cosmology(COSMO, redshift=Z, device=dev)
-        times = k3_times(dev, grid, cosmo, exact_tier_rows(dev, grid, cosmo))
-        times.update(k9_times(dev))
-        log(f"k3-k9 times of {times_root}: {json.dumps(times)}")
-        return
     if "--step-1024" in sys.argv[1:]:
         explore_1024(dev)
         return

@@ -27,12 +27,7 @@
 // vector_path) a unit reads amp, kyz2 and kznum and writes delta and vz as
 // 16-byte vectors (two complex f32 per float4, one complex f64 per
 // double2); else the element path reads and writes mode by mode, with the
-// same units and counters, so both paths draw the same bits.  A lane's
-// stores cover 32 or 64 bytes, so a warp's stores interleave; in f64 with
-// vz (64 bytes a lane in each of two arrays) that measured slower than
-// the old kernel, so there a whole warp passes each array through a
-// swizzled shared tile (conflict-free both ways) and stores 512
-// consecutive bytes per instruction.  K9a and K9b
+// same units and counters, so both paths draw the same bits.  K9a and K9b
 // are one body (kVz), so they draw the same delta for one seed.  The seed is
 // read from device memory (drawn from a torch.Generator on the card, no
 // host sync).  In supplied mode the kernel reads the complex half-noise
@@ -118,8 +113,6 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ kyz2, const T* __restrict__ kznum,
                      typename Complex<T>::type* __restrict__ delta,
                      typename Complex<T>::type* __restrict__ vz, int R, int C) {
-  // f64 with vz: stores through a shared tile (see below)
-  constexpr bool kTile = kVz && kVec && sizeof(T) == 8;
   const T sqrt_half = T(0.7071067811865476);
   uint32_t k0 = 0, k1 = 0;
   if (white == nullptr) fbx::seed_key(seed, k0, k1);
@@ -152,33 +145,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           colour<T, kVz>(wr[j], wi[j], a[j], kx2r, ky[j], kz[j], dre[j], dim[j], vre[j], vim[j]);
-        const int lane = threadIdx.x & 31;
-        if (kTile && u - lane + 31 < U) {
-          // f64 with vz, a whole warp: each array's 2 KB go through a
-          // swizzled shared tile and out as 512 consecutive bytes per store
-          __shared__ double2 tile[kThreads / 32][128];
-          double2* tw = tile[threadIdx.x >> 5];
-          const int64_t e0 = e - 4 * lane;
-#pragma unroll
-          for (int arr = 0; arr < 2; ++arr) {
-            const T* re = arr ? vre : dre;
-            const T* im = arr ? vim : dim;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int q = 4 * lane + j;
-              tw[q ^ ((q >> 3) & 7)] = make_double2(re[j], im[j]);
-            }
-            __syncwarp();
-            double2* dst = reinterpret_cast<double2*>((arr ? vz : delta) + e0);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int q = 32 * r + lane;
-              dst[q] = tw[q ^ ((q >> 3) & 7)];
-            }
-            __syncwarp();
-          }
-          continue;
-        }
         store4c(delta + e, dre, dim);
         if (kVz) store4c(vz + e, vre, vim);
       } else {

@@ -51,8 +51,8 @@
 namespace {
 
 // Window moves a batch of targets may take before the lanes still open
-// bisect instead (ops/cuda/rsd_interp.py WINDOW_HOPS mirrors it for the
-// CPU tests).
+// bisect instead (ops/cuda/rsd_interp.py reads it from here as WINDOW_HOPS
+// for the CPU tests' emulation of the walk).
 constexpr int kWindowHops = 2;
 // +inf nodes after a staged row: a 64-node window from any node of the row
 // stays inside the buffer.

@@ -12,6 +12,8 @@ otherwise.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 
 from . import _build
@@ -24,9 +26,21 @@ NAME = "interp_sorted"
 # v double-buffered in shared memory and the targets staged per block; rows
 # and targets up to STAGED_MAX cells fit one block in float64.
 STAGED_MAX = 4096
+
+
+def _kernel_constant(name: str) -> int:
+    """A ``constexpr int`` of csrc/rsd_interp.cu, read from the source the
+    kernel is built from."""
+    text = (_build.CSRC / "rsd_interp.cu").read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", text)
+    if found is None:
+        raise RuntimeError(f"{NAME}: {name} not found in rsd_interp.cu")
+    return int(found.group(1))
+
+
 # Moves of the 64-node merge window a batch of targets takes before its
-# open lanes bisect instead (the kernel's kWindowHops).
-WINDOW_HOPS = 2
+# open lanes bisect instead: the kernel's kWindowHops.
+WINDOW_HOPS = _kernel_constant("kWindowHops")
 
 
 def staged_path(C: int, T: int, *tensors) -> bool:

@@ -149,6 +149,19 @@ def test_staged_rule():
     assert not k3.staged_path(256, 256, flat[1:].view(4, 256))
 
 
+def test_staged_max_fits_one_block():
+    """The staged layout at STAGED_MAX cells and targets in float64 (the
+    kernel's two buffers of s and v per warp, each row followed by kPad
+    +inf nodes, and the block's staged targets) fits one warp's block in
+    the H100's 227 KiB of shared memory; the walk's hop budget is read
+    from the kernel's source."""
+    pad = k3._kernel_constant("kPad")
+    per_warp = 2 * (2 * k3.STAGED_MAX + pad) * 8
+    assert pad == 64
+    assert per_warp + k3.STAGED_MAX * 8 <= 227 * 1024
+    assert k3.WINDOW_HOPS == k3._kernel_constant("kWindowHops") >= 1
+
+
 @pytest.mark.parametrize("targets", ["uniform", "wide", "descending",
                                      "repeated"])
 @pytest.mark.parametrize("kind", ["random", "duplicates", "clustered"])
