@@ -93,6 +93,23 @@ failure:
      the 256^3 pipeline (two realisations, counted: K4t once per
      realisation, K4 never) against the default run on the same draws, and
      one 256^3 B=2 step with 'v2t' on the same mesh, counted;
+ 7b. still on the one-rank mesh, the estimators (ops/spectra.py,
+     ops/nbodykit_compat.py) on a 256^3 realise_density cube in the 4 Gpc
+     box at z=0.8, f32: power_spectrum with nmu 1, nmu 5 along z and along
+     (1, 1, 1), a cross spectrum, power_multipoles 0-4,
+     correlation_function, correlation_multipoles, FFTPower and FFTCorr on
+     an ArrayMesh, and ArrayCatalog.to_mesh (TSC, compensated, interlaced)
+     of 2^20 uniform particles, each against the port on the CPU in f32 on
+     the same cube: modes torch.equal, other values within 1e-4 per
+     populated bin (odd P poles and xi poles of l > 0 within 1e-4 of
+     max|P_0|, max|xi_0|); the sharded spectra, multipoles
+     and correlation factories in f64 against the single-device f64 calls
+     on the card (rtol 1e-10, atol 1e-8); make_sharded_pca_filter against
+     pca_filter on the 256^3 pipeline's data cube; make_sharded_halo_counts
+     bitwise repeatable on one seed with its mean count within 20% of
+     nbar V_voxel; then the wall ms (median of 5) and peak device memory of
+     power_spectrum (nmu 1 and 5), power_multipoles, correlation_function
+     and the sharded power spectrum at 256^3 and 512^3;
   8. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
      4 Gpc box, z 15 -> 0 in 16 steps, lattice_B=3, spectral gradient, f32):
      three realisations with the kernels (one with keep_velocities=True and
@@ -231,6 +248,18 @@ K4_TWIN_BOUND = 1e-7
 K4T_TWIN_BOUND, K4T_K4_ULP = 1e-6, 2
 # the v2t path against the default one on the same draws, per bin
 V2T_BOUND = 1e-6
+# The estimators (phase 7b): f32 on the card against f32 on the CPU, same
+# cube, per populated bin (odd P poles and the xi poles of l > 0 against
+# max|P_0|, max|xi_0|: they change sign across bins, where a per-bin
+# relative error measures nothing but the crossing); the sharded
+# factories in f64 against the single-device f64 call on the card
+# (tests/test_parallel_spectra.py's bound); the sharded PCA clean against
+# pca_filter, of max|cleaned| (the cleaned cube's f32 rounding).
+EST_BOUND = 1e-4
+SHARDED_RTOL, SHARDED_ATOL = 1e-10, 1e-8
+PCA_SHARDED_BOUND = 1e-6
+EST_N_PARTICLES = 2 ** 20
+EST_REPS = 5
 
 
 def log(msg: str) -> None:
@@ -2179,8 +2208,242 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     run_pipeline(fn_near, dev, "rsd_method='nearest' 256^3", grid,
                  generator=torch.Generator(device=dev).manual_seed(2))
     launches[K4T] = phase_v2t(dev, cosmo, grid, fn256, mesh)
+    phase_estimators(dev, cosmo, grid, fn256, mesh)
     dist.destroy_process_group()
     return [k8], launches
+
+
+def est_held(what: str, got: dict, want: dict, failures: list) -> None:
+    """An estimator's dict on the card against the CPU f32 run: ``modes``
+    (and the bin edges) ``torch.equal``, every other value within
+    EST_BOUND per populated bin, relative (absolute where the value is 0);
+    the odd P(k) poles and the xi poles of l > 0, which change sign from
+    bin to bin, within EST_BOUND of max|P_0| or max|xi_0|.  Records
+    failures; logs the worst of each key."""
+    got = {k: torch.as_tensor(v).cpu() for k, v in got.items()}
+    want = {k: torch.as_tensor(v) for k, v in want.items()}
+    same = torch.equal(got["modes"], want["modes"])
+    moved = int((got["modes"] != want["modes"]).sum())
+    if not same:
+        failures.append(f"{what}: modes differ in {moved} bins")
+    pop = want["modes"] > 0
+    worst, shown = {}, {}
+    for k, w in want.items():
+        if k == "modes" or k.endswith("edges"):
+            if k != "modes" and not torch.equal(got[k], w):
+                failures.append(f"{what}: {k} differ")
+            continue
+        g, w = got[k].double()[pop], w.double()[pop]
+        err = (g - w).abs()
+        # a mean that is exactly 0 (mu on kz = 0 modes, r = 0) is held
+        # absolutely
+        rel = (err / torch.where(w == 0, 1.0, w.abs())).max().item()
+        if k[-2:] in ("_1", "_3") or (k.startswith("corr_")
+                                       and k != "corr_0"):
+            scale = want[k[:-1] + "0"].double()[pop].abs().max()
+            worst[k] = (err.max() / scale).item()
+            shown[k] = f"{worst[k]:.2e} of max|{k[:-1]}0| (per bin {rel:.2e})"
+        else:
+            worst[k] = rel
+            shown[k] = f"{rel:.2e}"
+        if not worst[k] <= EST_BOUND:
+            failures.append(f"{what}: {k} {worst[k]:.3e}")
+    log(f"estimator {what}: modes torch.equal to the CPU f32 run: {same} "
+        f"({pop.sum().item()} populated bins); worst err "
+        + ", ".join(f"{k} {v}" for k, v in shown.items()))
+
+
+def est_time(fn) -> tuple:
+    """(median wall ms of EST_REPS calls after a warm-up, each between
+    torch.cuda.synchronize() calls; the call's peak device memory above
+    what was allocated before it, GiB)."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(EST_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(times),
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+
+def phase_estimators(dev, cosmo, grid, fn256, mesh) -> None:
+    """Phase 7b, on the one-rank mesh: the estimators of ops/spectra.py and
+    ops/nbodykit_compat.py on a realise_density cube on the card against
+    the port on the CPU in f32 on the same cube; the sharded spectra in f64
+    against the single-device f64 calls; the sharded PCA filter against
+    pca_filter on the pipeline's 256^3 data cube; the sharded halo counts'
+    repeatability and mean; then wall ms and peak memory at 256^3 and
+    512^3.  Fails after logging every comparison if any failed."""
+    from fastbox_tpu_torch.fields.gaussian import realise_density
+    from fastbox_tpu_torch.filters.pca import pca_filter
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops import nbodykit_compat as nb
+    from fastbox_tpu_torch.ops import spectra
+    from fastbox_tpu_torch.parallel import (make_sharded_correlation,
+                                            make_sharded_halo_counts,
+                                            make_sharded_pca_filter,
+                                            make_sharded_power_multipoles,
+                                            make_sharded_power_spectrum)
+
+    failures = []
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    a = realise_density(gen, grid, cosmo)[0]
+    b = realise_density(gen, grid, cosmo)[0]
+    a_cpu, b_cpu = a.cpu(), b.cpu()
+    for dt in (torch.float32, torch.float64):
+        same = torch.equal(grid.kmag(dt, dev).cpu(), grid.kmag(dt))
+        log(f"|k| at {grid.N}^3 in {dt}: card torch.equal to the CPU: {same}")
+        if not same:
+            failures.append(f"|k| {dt} differs between card and CPU")
+
+    single = {
+        "power_spectrum nmu=1": (spectra.power_spectrum, dict(), False),
+        "power_spectrum nmu=5 los z": (spectra.power_spectrum,
+                                       dict(nmu=5, los=(0, 0, 1)), False),
+        "power_spectrum nmu=5 los (1,1,1)": (spectra.power_spectrum,
+                                             dict(nmu=5, los=(1, 1, 1)),
+                                             False),
+        "power_spectrum cross": (spectra.power_spectrum, dict(), True),
+        "power_multipoles 0-4": (spectra.power_multipoles,
+                                 dict(poles=(0, 1, 2, 3, 4)), False),
+        "correlation_function": (spectra.correlation_function, dict(),
+                                 False),
+        "correlation_multipoles 0,2,4": (spectra.correlation_multipoles,
+                                         dict(poles=(0, 2, 4)), False),
+    }
+    t_cpu = 0.0
+    for what, (fn, kw, cross) in single.items():
+        got = fn(grid, a, b if cross else None, **kw)
+        t0 = time.perf_counter()
+        want = fn(grid, a_cpu, b_cpu if cross else None, **kw)
+        t_cpu += time.perf_counter() - t0
+        est_held(what, got, want, failures)
+
+    mesh_gpu, mesh_cpu = nb.ArrayMesh(a, BOX), nb.ArrayMesh(a_cpu, BOX)
+    for what, make in (
+            ("FFTPower 2d Nmu=5 poles 0,2,4", lambda m: nb.FFTPower(
+                m, mode="2d", Nmu=5, poles=(0, 2, 4))),
+            ("FFTCorr poles 0,2", lambda m: nb.FFTCorr(m, poles=(0, 2)))):
+        got, want = make(mesh_gpu), make(mesh_cpu)
+        for part in ("power", "corr", "poles"):
+            if getattr(want, part, None) is not None:
+                est_held(f"{what} .{part}", getattr(got, part),
+                         getattr(want, part), failures)
+    pos = torch.rand((EST_N_PARTICLES, 3), generator=torch.Generator()
+                     .manual_seed(5), dtype=torch.float32) * BOX
+    kw = dict(Nmesh=N_MAIN, BoxSize=BOX, window="tsc", compensated=True,
+              interlaced=True)
+    m_gpu = nb.ArrayCatalog({"Position": pos.to(dev)}).to_mesh(**kw)
+    t0 = time.perf_counter()
+    m_cpu = nb.ArrayCatalog({"Position": pos}).to_mesh(**kw)
+    t_cpu += time.perf_counter() - t0
+    err = norm_err(m_gpu.field.cpu(), m_cpu.field)
+    log(f"ArrayCatalog.to_mesh ({EST_N_PARTICLES} uniform particles, "
+        f"{N_MAIN}^3, TSC, compensated, interlaced): card vs CPU f32 "
+        f"max|diff|/max|field| {err:.3e}")
+    if not err <= EST_BOUND:
+        failures.append(f"to_mesh field {err:.3e}")
+    est_held("FFTPower of the to_mesh mesh", nb.FFTPower(m_gpu).power,
+             nb.FFTPower(m_cpu).power, failures)
+    del m_gpu, m_cpu, mesh_gpu, mesh_cpu, a_cpu, b_cpu
+    log(f"estimators: the CPU f32 references took {t_cpu:.1f} s")
+
+    # the sharded factories in f64 on the one-rank mesh
+    a64, b64 = a.double(), b.double()
+    sharded = {
+        "power nmu=1": (make_sharded_power_spectrum, dict(),
+                        spectra.power_spectrum),
+        "power nmu=5 los (1,1,1) cross": (
+            make_sharded_power_spectrum, dict(nmu=5, los=(1, 1, 1),
+                                              cross=True),
+            spectra.power_spectrum),
+        "multipoles 0-4": (make_sharded_power_multipoles,
+                           dict(poles=(0, 1, 2, 3, 4)),
+                           spectra.power_multipoles),
+        "correlation cross": (make_sharded_correlation, dict(cross=True),
+                              spectra.correlation_function),
+        "correlation poles 0,2,4": (make_sharded_correlation,
+                                    dict(poles=(0, 2, 4)),
+                                    spectra.correlation_multipoles),
+    }
+    for what, (make, kw, ref) in sharded.items():
+        kw = dict(kw)
+        got = make(mesh, grid, dtype=torch.float64, device=dev, **kw)(
+            *((a64, b64) if kw.get("cross") else (a64,)))
+        cross = kw.pop("cross", False)
+        want = ref(grid, a64, b64 if cross else None, **kw)
+        worst = 0.0
+        for k, w in want.items():
+            g = got[k]
+            ok = torch.allclose(g, w, rtol=SHARDED_RTOL, atol=SHARDED_ATOL,
+                                equal_nan=True)
+            fin = torch.isfinite(w)
+            worst = max(worst, ((g - w).abs()[fin] / (
+                SHARDED_ATOL + SHARDED_RTOL * w.abs()[fin])).max().item())
+            if not ok or (k == "modes" and not torch.equal(g, w)):
+                failures.append(f"sharded {what}: {k}")
+        log(f"sharded {what} (f64, one-rank mesh) vs single-device f64 on the "
+            f"card: worst |diff| / (atol + rtol |want|) {worst:.2e} (passes "
+            "at <= 1)")
+
+    # the sharded PCA filter on the pipeline's data cube (foregrounds, noise)
+    data = fn256.pre(torch.Generator(device=dev).manual_seed(77))["data"]
+    cleaned_s, fg_s = make_sharded_pca_filter(mesh, grid, nmodes=4)(data)
+    cleaned = pca_filter(data, 4)
+    err_c = norm_err(cleaned_s, cleaned)
+    err_f = norm_err(fg_s, data.double() - cleaned.double())
+    log(f"sharded PCA filter vs pca_filter, {grid.N}^3 pipeline cube: cleaned "
+        f"max|diff|/max|cleaned| {err_c:.3e}; fit vs data - cleaned "
+        f"{err_f:.3e}")
+    if not err_c <= PCA_SHARDED_BOUND:
+        failures.append(f"sharded PCA cleaned {err_c:.3e}")
+    if not err_f <= PCA_SHARDED_BOUND:
+        failures.append(f"sharded PCA fit {err_f:.3e}")
+    del data, cleaned_s, fg_s, cleaned
+
+    # the sharded halo counts: the same field twice from one seed
+    nbar = 1e-3
+    halos = make_sharded_halo_counts(mesh, grid, nbar=nbar, bias=1.5)
+    c1, c2 = halos(11, a), halos(11, a)
+    mean = c1.double().mean().item() / (nbar * grid.voxel_volume)
+    log(f"sharded halo counts at {grid.N}^3: bitwise repeatable "
+        f"{torch.equal(c1, c2)}; mean / (nbar V_voxel) {mean:.4f}")
+    if not torch.equal(c1, c2) or not abs(mean - 1.0) < 0.2:
+        failures.append(f"halo counts: repeatable {torch.equal(c1, c2)}, "
+                        f"mean ratio {mean}")
+    del c1, c2, a64, b64
+    log(f"estimators: checks took {time.perf_counter() - t_phase:.1f} s")
+
+    # wall ms and peak device memory of one call, 256^3 and 512^3, f32
+    grid512 = GridSpec.create(box_scale=BOX, nsamp=N_BIG, redshift=Z)
+    for g, cube in ((grid, a), (grid512, realise_density(gen, grid512,
+                                                         cosmo)[0])):
+        timed = {
+            "power_spectrum nmu=1": lambda: spectra.power_spectrum(g, cube),
+            "power_spectrum nmu=5": lambda: spectra.power_spectrum(
+                g, cube, nmu=5),
+            "power_multipoles 0,2,4": lambda: spectra.power_multipoles(
+                g, cube),
+            "correlation_function": lambda: spectra.correlation_function(
+                g, cube),
+        }
+        fn = make_sharded_power_spectrum(mesh, g, dtype=torch.float32,
+                                         device=dev)
+        timed["sharded power nmu=1 (one-rank mesh)"] = lambda: fn(cube)
+        for what, call in timed.items():
+            ms, peak = est_time(call)
+            log(f"estimator time {g.N}^3 f32 {what}: {ms:.2f} ms per call "
+                f"(median of {EST_REPS}), peak device memory {peak:.2f} GiB "
+                "above the resident tensors")
+        del fn, timed
+    log(f"estimators: phase took {time.perf_counter() - t_phase:.1f} s")
+    check(not failures, "estimators: " + "; ".join(failures))
 
 
 def phase_v2t(dev, cosmo, grid, fn256, mesh) -> int:

@@ -1,7 +1,7 @@
 """Cosmology: parameters, background, transfer functions, and tables.
 
-The host-side modules (params, background, eisenstein_hu, halofit) are
-copies of fastbox_tpu's numpy/scipy code; ``tables`` returns torch tables.
+The host-side modules (params, background, eisenstein_hu, halofit,
+massfunction) are copies of fastbox_tpu's numpy/scipy code; ``tables`` returns torch tables.
 """
 from .params import DEFAULT_COSMO, CosmoParams, as_cosmo_params
 from .background import (
@@ -15,6 +15,7 @@ from .background import (
 )
 from .eisenstein_hu import linear_power_z0, transfer_eh98
 from .halofit import halofit_power
+from . import massfunction
 from .tables import Cosmology, PowerSpectrumTable, build_cosmology
 
 __all__ = [
@@ -31,6 +32,7 @@ __all__ = [
     "linear_power_z0",
     "transfer_eh98",
     "halofit_power",
+    "massfunction",
     "Cosmology",
     "PowerSpectrumTable",
     "build_cosmology",

@@ -4,9 +4,11 @@ Torch counterpart of ``fastbox_tpu/fields/gaussian.py``: the half-spectrum
 draw of the pipeline (``_complex_normal`` with both bits-to-normal methods,
 ``hermitian_half_noise``, ``_herm_plane``, ``:40-102``), the fused colored
 draws on K9 (``colored_half_noise``, ``colored_half_noise_vz``, ``:105-180``)
-and the full-cube realisation the COLA engine starts from (``white_noise``,
+the full-cube realisation the COLA engine starts from (``white_noise``,
 ``hermitian_symmetrize``, ``gaussian_field_from_whitenoise``,
-``realise_density``, ``:183-242``).
+``realise_density``, ``:183-242``), and the linear velocity and potential
+fields of a density spectrum (``realise_velocity``, ``realise_potential``,
+``:246-299``).
 Every draw takes an explicit ``torch.Generator``; the streams differ from
 ``jax.random``, so tests hand both packages the same numbers instead.
 """
@@ -23,7 +25,7 @@ from ..ops.cuda import half_draw
 __all__ = ["complex_dtype", "bm_from_uniforms", "hermitian_half_noise",
            "colored_half_noise", "colored_half_noise_vz", "white_noise",
            "hermitian_symmetrize", "gaussian_field_from_whitenoise",
-           "realise_density"]
+           "realise_density", "realise_velocity", "realise_potential"]
 
 
 def complex_dtype(real_dtype: torch.dtype) -> torch.dtype:
@@ -188,3 +190,53 @@ def realise_density(generator: torch.Generator, grid: GridSpec, cosmology,
     pk_fn = cosmology.pk_lin if linear else cosmology.pk_nl
     return gaussian_field_from_whitenoise(white_noise(generator, grid, dtype),
                                           grid, pk_fn)
+
+
+def _inv_k2(grid: GridSpec, rdtype, device):
+    """1/k^2 on the full grid, 0 at k = 0."""
+    k2 = grid.k2(rdtype, device)
+    pos = k2 > 0.0
+    return torch.where(pos, 1.0 / torch.where(pos, k2, 1.0), 0.0)
+
+
+def realise_velocity(delta_k, grid: GridSpec, cosmology):
+    """Linear velocity field v(k) = i [f H a] delta_k k / k^2 (box.py:197-290).
+
+    Returns a (3, N, N, N) complex tensor of the x, y, z Fourier-space
+    velocity components on ``delta_k``'s device; ``ifftn`` of a component
+    gives the real-space velocity in km/s.  For even N the
+    most-negative-frequency plane of each component is zeroed
+    (box.py:268-274).
+    """
+    cdtype, rdtype, dev = delta_k.dtype, delta_k.real.dtype, delta_k.device
+    kx, ky, kz = grid.kvec(rdtype, dev)
+    nyq = grid.nyquist_mask(0, dev)   # the same 1-D pattern on each axis
+    # the prefactor 100 h E(a) f(a) a in km/s/Mpc (box.py:280-281), as a
+    # complex scalar of the field's dtype
+    fac = 100.0 * cosmology.h * cosmology.Ea * cosmology.growth_rate \
+        * cosmology.scale_factor
+    ifac = torch.tensor(1j * fac, dtype=cdtype, device=dev)
+    base = ifac * delta_k * _inv_k2(grid, rdtype, dev)
+    zero = torch.zeros((), dtype=cdtype, device=dev)
+    vx = torch.where(nyq[:, None, None], zero, base * kx[:, None, None])
+    vy = torch.where(nyq[None, :, None], zero, base * ky[None, :, None])
+    vz = torch.where(nyq[None, None, :], zero, base * kz[None, None, :])
+    return torch.stack([vx, vy, vz])
+
+
+def realise_potential(delta_k, grid: GridSpec, cosmology,
+                      apply_prefactor: bool = False):
+    """Potential field phi_k = delta_k / k^2, monopole zeroed
+    (box.py:293-353).
+
+    The reference computes the physical prefactor
+    ``(3/2) Omega_m H0^2 D(a)/a`` but never applies it (box.py:343-347); the
+    default matches the reference's output, and ``apply_prefactor=True``
+    gives the intended physics.
+    """
+    phi_k = delta_k * _inv_k2(grid, delta_k.real.dtype, delta_k.device)
+    if apply_prefactor:
+        params = cosmology.params
+        phi_k = phi_k * (1.5 * params.Omega_m * (100.0 * params.h) ** 2
+                         * cosmology.growth / cosmology.scale_factor)
+    return phi_k

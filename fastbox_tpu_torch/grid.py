@@ -20,7 +20,22 @@ import torch
 
 from .constants import C_KMS, LINE_FREQ_21CM
 
-__all__ = ["GridSpec"]
+__all__ = ["GridSpec", "sqrt_rn"]
+
+
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float tensor, on any device.
+
+    On the CPU ``torch.sqrt``'s vectorised loops are within one ulp but not
+    correctly rounded, and the vector/scalar split depends on the tensor's
+    length, so two layouts of the same values could round differently.
+    numpy's ``sqrt`` is the IEEE operation, as XLA's is; CUDA's
+    ``torch.sqrt`` is too.  Binning |k| against edges that lattice modes
+    sit on needs the same rounding everywhere.
+    """
+    if t.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(t.numpy()))
+    return torch.sqrt(t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +78,21 @@ class GridSpec:
         return self.Lx == self.Ly == self.Lz
 
     @property
+    def scale_factor(self) -> float:
+        return 1.0 / (1.0 + self.redshift)
+
+    @property
     def boxfactor(self) -> float:
         """DFT/volume normalisation N^6/(Lx Ly Lz) (box.py:94)."""
         return float(self.N) ** 6 / (self.Lx * self.Ly * self.Lz)
+
+    @property
+    def volume(self) -> float:
+        return self.Lx * self.Ly * self.Lz
+
+    @property
+    def voxel_volume(self) -> float:
+        return self.volume / self.N**3
 
     @property
     def kmin(self) -> float:
@@ -104,10 +131,24 @@ class GridSpec:
                      for L in (self.Lx, self.Ly, self.Lz))
 
     def kmag(self, dtype=torch.float32, device="cpu"):
-        """|k| on the full grid, broadcast from the 1-D vectors."""
+        """|k| on the full grid: ``sqrt((kx^2 + ky^2) + kz^2)`` of the 1-D
+        vectors, each operation correctly rounded in ``dtype``, as
+        fastbox_tpu computes it."""
+        return sqrt_rn(self.k2(dtype, device))
+
+    def k2(self, dtype=torch.float32, device="cpu"):
+        """|k|^2 on the full grid, ``(kx^2 + ky^2) + kz^2``."""
         kx, ky, kz = self.kvec(dtype, device)
-        return torch.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2
-                          + kz[None, None, :] ** 2)
+        return kx[:, None, None] ** 2 + ky[None, :, None] ** 2 \
+            + kz[None, None, :] ** 2
+
+    def kperp_kpar(self, dtype=torch.float32, device="cpu"):
+        """(k_perp, k_par) grids: the transverse magnitude (N, N, 1) and the
+        signed LOS component 2 pi Kz / Lz broadcast to the full grid, as in
+        apply_transfer_fn (box.py:374-375)."""
+        kx, ky, kz = self.kvec(dtype, device)
+        k_perp = sqrt_rn(kx[:, None, None] ** 2 + ky[None, :, None] ** 2)
+        return k_perp, kz[None, None, :].expand(self.shape)
 
     def nyquist_mask(self, axis: int, device="cpu"):
         """Boolean 1-D mask selecting the most-negative frequency plane.

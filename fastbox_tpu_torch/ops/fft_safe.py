@@ -12,7 +12,9 @@ take K10 (``ops/mmfft.py``) when
   * the real dtype is float32,
   * K10 takes the axis-1 length (``mmdft.supported_length``).
 
-Otherwise the call is ``torch.fft.rfftn``/``irfftn``, unchanged.  On CPU
+Otherwise the call is ``torch.fft.rfftn``/``irfftn``, unchanged.  The
+rank-3 C2C pair ``fftn``/``ifftn`` of the estimators is ``torch.fft``
+(cuFFT on the card) always.  On CPU
 tensors the route runs with K10's plain twin (fastbox_tpu ignores the flag
 on its CPU backend; the port does not, so that the tests can drive it).
 """
@@ -23,7 +25,7 @@ import torch
 from . import mmfft
 from .cuda import mmdft
 
-__all__ = ["rfftn", "irfftn"]
+__all__ = ["rfftn", "irfftn", "fftn", "ifftn"]
 
 
 def _routed(shape, real_dtype) -> bool:
@@ -50,3 +52,21 @@ def irfftn(a, s):
     if _routed(s, a.real.dtype):
         return mmfft.irfftn3(a, s)
     return torch.fft.irfftn(a, s=s)
+
+
+def _rank3(name: str, x) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"fft_safe.{name}: rank-3 cubes only, got "
+                         f"{tuple(x.shape)}")
+
+
+def fftn(x):
+    """``torch.fft.fftn(x)`` of a rank-3 cube (real or complex)."""
+    _rank3("fftn", x)
+    return torch.fft.fftn(x)
+
+
+def ifftn(x):
+    """``torch.fft.ifftn(x)`` of a rank-3 cube."""
+    _rank3("ifftn", x)
+    return torch.fft.ifftn(x)

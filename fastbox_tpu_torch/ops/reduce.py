@@ -6,14 +6,15 @@ here ``index_add_`` into float64 bins does the same job.
 (``ops/cuda/binned_pk_v2.py``, ``ops/cuda/binned_pk.py``) and the
 pipeline's plain reduction (``pallas_pk='off'``); ``binned_sum_sumsq_count``
 is K6's twin; ``binned_weighted_sum_sumsq_count`` serves the half-spectrum
-core of ``ops/spectra.binned_power_spectrum``.
+core of ``ops/spectra.binned_power_spectrum``; ``binned_sums`` the
+estimators' histograms (``power_spectrum`` and the rest).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["binned_sum_sumsq_count", "binned_weighted_sum_sumsq_count",
-           "binned_weighted_dual"]
+__all__ = ["binned_sum_sumsq_count", "binned_sums",
+           "binned_weighted_sum_sumsq_count", "binned_weighted_dual"]
 
 
 def _binned(stats, bin_idx, nbins: int, out_dtype):
@@ -32,6 +33,13 @@ def binned_sum_sumsq_count(values, bin_idx, nbins: int):
     v = values.reshape(-1).to(torch.float64)
     return _binned((v, v * v, torch.ones_like(v)), bin_idx, nbins,
                    values.dtype)
+
+
+def binned_sums(values, bin_idx, nbins: int):
+    """Per-bin sums only, accumulated in float64 and returned in
+    ``values``' dtype."""
+    return _binned((values.reshape(-1).to(torch.float64),), bin_idx, nbins,
+                   values.dtype)[0]
 
 
 def binned_weighted_sum_sumsq_count(values, weights, bin_idx, nbins: int):

@@ -11,7 +11,9 @@ temporary directory.
 ``tasks`` runs the checks the CPU tests make on 2 and 4 ranks, named in
 ``payload["tasks"]``: ``fft`` (each slab FFT helper on this rank's rows),
 ``sharded_step`` and ``ensemble`` (``make_ensemble_pipeline`` over a mesh
-of the world's ranks).
+of the world's ranks), ``spectra``, ``filters`` and ``halos`` (the sharded
+estimators, PCA filter and halo counts on this rank's rows, 'space' = the
+world).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-__all__ = ["launch", "tasks", "fft", "sharded_step", "ensemble"]
+__all__ = ["launch", "tasks", "fft", "sharded_step", "ensemble", "spectra",
+           "filters", "halos"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 
@@ -146,7 +149,73 @@ def ensemble(payload: dict) -> dict:
     return fn([torch.Generator().manual_seed(s) for s in spec["seeds"]])
 
 
-_TASKS = {"fft": fft, "sharded_step": sharded_step, "ensemble": ensemble}
+def _space_slabs(spec: dict):
+    """(mesh, grid, this rank's row slice) of a task spec's (box, N), the
+    mesh's 'space' axis holding every rank."""
+    from ..grid import GridSpec
+    from .mesh import axis_group, make_mesh
+
+    box, n = spec["grid"]
+    P = dist.get_world_size()
+    mesh = make_mesh(P, space=P, device="cpu")
+    r = axis_group(mesh, "space")[2]
+    return mesh, GridSpec.create(box_scale=box, nsamp=n), \
+        slice(r * n // P, (r + 1) * n // P)
+
+
+def spectra(payload: dict) -> list:
+    """Each ``(factory, kwargs)`` of ``payload["spectra"]["calls"]`` ('power',
+    'multipoles' or 'correlation') built on the spec's grid and applied to
+    this rank's rows of ``cube`` (and of ``second`` when ``cross``)."""
+    from . import spectra as ps
+
+    spec = payload["spectra"]
+    mesh, grid, rows = _space_slabs(spec)
+    make = {"power": ps.make_sharded_power_spectrum,
+            "multipoles": ps.make_sharded_power_multipoles,
+            "correlation": ps.make_sharded_correlation}
+    outs = []
+    for name, kw in spec["calls"]:
+        fields = [spec["cube"][rows]]
+        if kw.get("cross"):
+            fields.append(spec["second"][rows])
+        outs.append(make[name](mesh, grid, device="cpu", **kw)(*fields))
+    return outs
+
+
+def filters(payload: dict) -> tuple:
+    """This rank's rows of ``make_sharded_pca_filter``'s (cleaned, fit) of
+    ``payload["filters"]["data"]`` (N, N, Nfreq)."""
+    from .filters import make_sharded_pca_filter
+
+    spec = payload["filters"]
+    mesh, grid, rows = _space_slabs(spec)
+    return make_sharded_pca_filter(mesh, grid, spec["nmodes"])(
+        spec["data"][rows])
+
+
+def halos(payload: dict) -> dict:
+    """This rank's rows of the halo counts of ``payload["halos"]["delta"]``
+    (linear rate), and of the lognormal halo overdensity with its sharded
+    cross power spectrum against the density."""
+    from .halos import make_sharded_halo_counts
+    from .spectra import make_sharded_power_spectrum
+
+    spec = payload["halos"]
+    mesh, grid, rows = _space_slabs(spec)
+    delta = spec["delta"][rows]
+    counts = make_sharded_halo_counts(mesh, grid, spec["nbar"], spec["bias"])(
+        spec["seed"], delta)
+    delta_h = make_sharded_halo_counts(
+        mesh, grid, spec["nbar_ln"], 1.0, lognormal=True,
+        return_overdensity=True, dtype=torch.float64)(spec["seed_ln"], delta)
+    cross = make_sharded_power_spectrum(mesh, grid, cross=True,
+                                        device="cpu")(delta_h, delta)
+    return {"counts": counts, "delta_h": delta_h, "cross": cross}
+
+
+_TASKS = {"fft": fft, "sharded_step": sharded_step, "ensemble": ensemble,
+          "spectra": spectra, "filters": filters, "halos": halos}
 
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -10,6 +10,8 @@ the mesh shape, and the single pipeline draws the same field as any mesh.
 ``torch.randn`` on a generator seeded with a fixed 64-bit mix (splitmix64)
 of (seed, tag, row).  Streams differ between the CPU and the card, as
 ``torch.Generator``'s do.  That is one small launch per row, N per field.
+``row_poisson`` draws the halo counts the same way, one ``torch.poisson``
+per row (fastbox_tpu/parallel/halos.py:29-42).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from ..device import resolve
 
 __all__ = ["TAGS", "ROW_NDIM", "row_seed", "row_normal", "row_complex_normal",
-           "row_draws"]
+           "row_draws", "row_poisson"]
 
 # Stream tags (fastbox_tpu/parallel/rng.py:28-36)
 TAGS = {
@@ -65,6 +67,19 @@ def row_normal(seed: int, tag: int, row0: int, nrows: int, row_shape,
         gen.manual_seed(row_seed(seed, tag, row0 + i))
         torch.randn(tuple(row_shape), generator=gen, dtype=dtype,
                     device=device, out=out[i])
+    return out
+
+
+def row_poisson(seed: int, tag: int, row0: int, lam) -> torch.Tensor:
+    """Poisson draws of the rates ``lam`` (nrows, ...), row ``i`` from a
+    generator seeded with ``row_seed(seed, tag, row0 + i)`` on ``lam``'s
+    device, so that a slab draws exactly its rows of the full field whatever
+    the mesh shape.  Returns counts in ``lam``'s dtype."""
+    out = torch.empty_like(lam)
+    gen = torch.Generator(device=lam.device)
+    for i in range(lam.shape[0]):
+        gen.manual_seed(row_seed(seed, tag, row0 + i))
+        out[i] = torch.poisson(lam[i], generator=gen)
     return out
 
 
