@@ -191,6 +191,12 @@ KERNELS = {
                            "fastbox_tpu/ops/pallas/lattice_cic.py:355"),
     "cic_gather3_lattice": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
                             "fastbox_tpu/ops/pallas/lattice_cic.py:408"),
+    # K11a and K11c's slab mode: the sharded engine's halo paint and force
+    # gather (fastbox_tpu/parallel/lattice.py:48, :119 sum the same terms)
+    "cic_paint_lattice_slab": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
+                               "fastbox_tpu/ops/pallas/lattice_cic.py:289"),
+    "cic_gather3_lattice_slab": ("fastbox_tpu_torch/csrc/lattice_cic.cu",
+                                 "fastbox_tpu/ops/pallas/lattice_cic.py:408"),
     "binned_pk_half_dual": ("fastbox_tpu_torch/csrc/binned_pk.cu",
                             "fastbox_tpu/ops/pallas/binned_pk.py:195"),
     "binned_pk_full": ("fastbox_tpu_torch/csrc/binned_pk.cu",
@@ -1632,6 +1638,445 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     return grid, cosmo0, white, d1
 
 
+# ----------------------------------------------------------------------
+# Phase 8b: the slab-sharded COLA engine and the CosmoBox surface
+# ----------------------------------------------------------------------
+PAINT_SLAB, GATHER3_SLAB = ("cic_paint_lattice_slab",
+                            "cic_gather3_lattice_slab")
+SLAB_N = (256, 512)      # make_sharded_cola's cells: 4 and 8 Gpc boxes
+SLAB_ROWS = 64           # the four-slab cut of the 256^3 cube
+# Four slabs' buffers with their strips added to the neighbours against
+# the periodic paint: the same terms, the strips' sums in another order.
+SLAB_FOLD_BOUND = {torch.float32: K11_TWIN_BOUND, torch.float64: 1e-12}
+# The sharded engine's large-scale growth (tests/test_parallel_cola.py)
+SHARDED_GROWTH = (0.5, 1.4)
+# The card in f64 against the CPU in f64, of max|delta|: FFT rounding only
+SHARDED_F64_BOUND = 1e-9
+# CosmoBox, f32 on the card against f32 on the CPU on the same noise:
+# fields of max|value| (FFT rounding), P(k) per populated bin; the RSD
+# remap bitwise on the same inputs (K1, K2 equal their twins); COLA's 16
+# steps amplify f32 rounding of the two devices' FFTs, so its P(k) is held
+# per populated bin.
+BOX_FIELD_BOUND, BOX_PK_BOUND = 1e-5, 1e-4
+BOX_COLA_PK_BOUND = 1e-3
+BOX_COLA_N = 128         # in a 2 Gpc box: the 15.6 Mpc cells of phase 8
+# The radiometer noise: the pooled std of noise / sigma within 1%, each
+# channel's within five standard errors of a std from N^2 draws
+NOISE_POOLED_BOUND, NOISE_CHANNEL_SIGMAS = 1e-2, 5.0
+HALO_MEAN_BOUND = 0.2
+
+
+def capture_slab_inputs(fn) -> tuple:
+    """Run ``fn`` (a make_sharded_cola call) with the engine's force gather
+    wrapped: the last force evaluation's force meshes and displacements,
+    (meshes, d) as three (N, N, N) tensors each on a one-rank mesh."""
+    import fastbox_tpu_torch.parallel.cola as pc
+
+    seen, inner = {}, pc.halo_gather_many
+
+    def capture(meshes, disp, B, group):
+        seen["last"] = (tuple(m.clone() for m in meshes),
+                        tuple(a.clone() for a in disp))
+        return inner(meshes, disp, B, group)
+
+    pc.halo_gather_many = capture
+    try:
+        out = fn()
+    finally:
+        pc.halo_gather_many = inner
+    return out, seen["last"]
+
+
+def slab_kernels(dev, meshes, d) -> list[dict]:
+    """(a) K11a/K11c's slab mode against the slab twins, bitwise and
+    repeatable, f32 and f64, B = 1, 2, 3, on the 256^3 sharded engine's own
+    displacements and force meshes cut into one slab of 256 rows and four
+    of 64; the four slabs' paints, each strip added to its neighbour,
+    against the periodic closed-band paint, and their gathers against the
+    periodic gathers' rows (bitwise).  Times at B = 3 on one slab beside
+    the periodic mode, index_add_ (paint) and grid_sample (gather)."""
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    N = d[0].shape[0]
+    for dt in (torch.float32, torch.float64):
+        dd = tuple(a.to(dt).contiguous() for a in d)
+        mm = tuple(m.to(dt).contiguous() for m in meshes)
+        for B in (1, 2, 3):
+            H = B + 1
+            periodic = k.cic_paint_lattice_cuda(dd, B, None, openband=False)
+            periodic3 = k.cic_gather3_lattice_cuda(mm, dd, B, openband=False)
+            for nslab in (1, N // SLAB_ROWS):
+                S = N // nslab
+                full = torch.zeros_like(periodic)
+                for j in range(nslab):
+                    ds = tuple(a[j * S:(j + 1) * S] for a in dd)
+                    rows = torch.arange(j * S - H, (j + 1) * S + H,
+                                        device=dev) % N
+                    exts = tuple(m.index_select(0, rows) for m in mm)
+                    for wt in (None, mm[0][j * S:(j + 1) * S]):
+                        got = k.cic_paint_lattice_slab_cuda(ds, B, wt)
+                        same = torch.equal(got, k.cic_paint_lattice_slab_plain(
+                            ds, B, wt))
+                        again = torch.equal(got, k.cic_paint_lattice_slab_cuda(
+                            ds, B, wt))
+                        check(same and again, f"K11a slab {dt} B={B} "
+                              f"{nslab} slabs: bitwise equal to the twin "
+                              f"{same}, repeatable {again}")
+                    full.index_add_(0, rows, k.cic_paint_lattice_slab_cuda(
+                        ds, B))
+                    got3 = k.cic_gather3_lattice_slab_cuda(exts, ds, B)
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        got3, k.cic_gather3_lattice_slab_plain(exts, ds, B)))
+                    again = all(torch.equal(a, b) for a, b in zip(
+                        got3, k.cic_gather3_lattice_slab_cuda(exts, ds, B)))
+                    rows_eq = all(torch.equal(a, b[j * S:(j + 1) * S])
+                                  for a, b in zip(got3, periodic3))
+                    check(same and again and rows_eq, f"K11c slab {dt} B={B} "
+                          f"{nslab} slabs: bitwise equal to the twin {same}, "
+                          f"repeatable {again}, to the periodic gather's rows "
+                          f"{rows_eq}")
+                e = norm_err(full, periodic)
+                log(f"K11a slab {dt} B={B}, {nslab} slab(s) of {S} rows, "
+                    f"strips folded: {e:.3e} of max from the periodic paint "
+                    f"(bound {SLAB_FOLD_BOUND[dt]:.0e})")
+                check(e <= SLAB_FOLD_BOUND[dt], f"K11a slab fold {dt} B={B}")
+            del periodic, periodic3, full
+        log(f"K11a/K11c slab mode {dt}: bitwise equal to the slab twins and "
+            "repeatable at B = 1, 2, 3, one slab and four")
+    B, H = 3, 4
+    n3 = N ** 3
+    ext_rows = torch.arange(-H, N + H, device=dev) % N
+    exts = tuple(m.index_select(0, ext_rows) for m in meshes)
+    times = {
+        PAINT_SLAB: (median_ms(lambda: k.cic_paint_lattice_slab_cuda(d, B)),
+                     median_ms(lambda: k.cic_paint_lattice_slab_plain(d, B))),
+        GATHER3_SLAB: (
+            median_ms(lambda: k.cic_gather3_lattice_slab_cuda(exts, d, B)),
+            median_ms(lambda: k.cic_gather3_lattice_slab_plain(exts, d, B)))}
+    per = (median_ms(lambda: k.cic_paint_lattice_cuda(d, B, None, False)),
+           median_ms(lambda: k.cic_gather3_lattice_cuda(meshes, d, B, False)))
+    idx8, w8 = cic_corners(d, N)
+    lib_paint = median_ms(lambda: torch.zeros(n3, device=dev)
+                          .index_add_(0, idx8, w8))
+    del idx8, w8
+    lib_gather = grid_sample_ms(meshes, d, B)[1]
+    rows_out = N + 2 * H
+    bounds = {PAINT_SLAB: roofline(4 * (3 * n3 + rows_out * N * N), 32 * n3),
+              GATHER3_SLAB: roofline(4 * (6 * n3 + 3 * rows_out * N * N),
+                                     3 * 32 * n3)}
+    for name, lib, p in ((PAINT_SLAB, lib_paint, per[0]),
+                         (GATHER3_SLAB, lib_gather, per[1])):
+        log(f"{name} B=3, one {N}-row slab, f32: kernel {times[name][0]:.4f} "
+            f"ms, plain {times[name][1]:.4f} ms, bound "
+            f"{bounds[name]['bound_ms']:.4f} ms; periodic mode {p:.4f} ms; "
+            f"{'index_add_' if name == PAINT_SLAB else 'grid_sample'} "
+            f"{lib:.4f} ms")
+    # max_abs_err: the kernels equal their twins bit for bit (checked)
+    return [dict(name=name, max_abs_err=0.0, ms=times[name][0],
+                 plain_ms=times[name][1], library_ms=lib, **bounds[name])
+            for name, lib in ((PAINT_SLAB, lib_paint),
+                              (GATHER3_SLAB, lib_gather))]
+
+
+def growth_ratio(grid, cosmo0, delta) -> float:
+    """tests/test_parallel_cola.py's criterion: mean P(k) of ``delta`` over
+    mean P_lin on 2.5 k_f < k < 0.05 Mpc^-1."""
+    dk = torch.fft.rfftn(delta.double())
+    k = grid.kmag(torch.float64, delta.device)[:, :, :grid.N // 2 + 1]
+    sel = (k > 2.5 * 2.0 * np.pi / grid.Lx) & (k < 0.05)
+    pk = (dk.abs() ** 2 / grid.boxfactor)[sel].mean()
+    return (pk / cosmo0.pk_lin(k[sel]).to(pk.device).mean()).item()
+
+
+def run_sharded_cola(label: str, fn, grid, cosmo0, **kw) -> tuple:
+    """One realisation; returns (outputs, wall seconds).  max_disp is read
+    once, after the run; it must hold the band (3 cells)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(**kw)
+    maxd = out["max_disp"].item()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = out["delta_x"]
+    check(delta.shape == grid.shape and bool(torch.isfinite(delta).all()),
+          f"{label}: delta_x not finite of shape {grid.shape}")
+    ratio = growth_ratio(grid, cosmo0, delta)
+    log(f"{label}: {wall * 1e3:.1f} ms, max_disp {maxd:.4f} cells, "
+        f"P/P_lin on large scales {ratio:.3f}")
+    check(maxd <= 3.0, f"{label}: max_disp {maxd} beyond lattice_B = 3")
+    check(SHARDED_GROWTH[0] < ratio < SHARDED_GROWTH[1],
+          f"{label}: P/P_lin {ratio}")
+    cola_health(grid, cosmo0, delta, label)
+    return out, wall
+
+
+def plain_slab_twins():
+    """A stand-in for parallel/lattice.py's kernel module that sends the
+    slab paint and gather to their plain twins on CUDA tensors."""
+    import types
+
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    def gather3(exts, d, B, out):
+        for o, r in zip(out, k.cic_gather3_lattice_slab_plain(exts, d, B)):
+            o.copy_(r)
+        return out
+
+    return types.SimpleNamespace(
+        cic_paint_lattice_slab=k.cic_paint_lattice_slab_plain,
+        cic_gather3_lattice_slab_cuda=gather3)
+
+
+def phase_sharded_cola(dev, mesh) -> list[dict]:
+    """Phase 8b on the one-rank NCCL mesh: (a) the slab kernels, (b)
+    make_sharded_cola at 256^3 (x3) and 512^3, counted, (c) the plain slab
+    twins on the same noise, (d) f64 64^3 on the card against the CPU;
+    then phase_box.  Returns the slab kernels' rows."""
+    import fastbox_tpu_torch.parallel.lattice as hl
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.fields.cola import realise_density_cola
+    from fastbox_tpu_torch.grid import GridSpec
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.ops.spectra import binned_power_spectrum
+    from fastbox_tpu_torch.parallel import local, make_sharded_cola
+
+    cosmo0 = build_cosmology(COSMO, redshift=0.0, device=dev)
+    grids = {n: GridSpec.create(box_scale=BOX * n / SLAB_N[0], nsamp=n)
+             for n in SLAB_N}
+    kw = dict(redshift_init=COLA_Z_INIT, n_steps=16, lattice_B=3,
+              device=dev)
+    fns = {n: make_sharded_cola(mesh, grids[n], cosmo0,
+                                keep_velocities=False, **kw) for n in SLAB_N}
+    fn_v = make_sharded_cola(mesh, grids[SLAB_N[0]], cosmo0,
+                             keep_velocities=True, pk_nbins=20, **kw)
+    g256 = grids[SLAB_N[0]]
+
+    # warm-up, keeping the last force evaluation's inputs for (a)
+    _, (meshes, d) = capture_slab_inputs(lambda: fns[SLAB_N[0]](seed=99))
+    rows = slab_kernels(dev, meshes, d)
+    del meshes, d
+
+    # (b) the main path, counted
+    _build.reset_launch_counts()
+    r0, w0 = run_sharded_cola("sharded COLA 256^3 realisation 0",
+                              fns[SLAB_N[0]], g256, cosmo0, seed=0)
+    _, w1 = run_sharded_cola("sharded COLA 256^3 realisation 1",
+                             fns[SLAB_N[0]], g256, cosmo0, seed=1)
+    rv, w2 = run_sharded_cola(
+        "sharded COLA 256^3 realisation 2 (keep_velocities, pk_nbins=20)",
+        fn_v, g256, cosmo0, seed=2)
+    _, w512 = run_sharded_cola("sharded COLA 512^3 in the 8 Gpc box",
+                               fns[SLAB_N[1]], grids[SLAB_N[1]], cosmo0,
+                               seed=3)
+    counts = _build.launch_counts()
+    log(f"launch counts over the sharded COLA path: {json.dumps(counts)}")
+    check_route_off(counts, "the sharded COLA path")
+    steps = kw["n_steps"]
+    want = {PAINT_SLAB: 4 * (steps + 1) + 3, GATHER3_SLAB: 4 * steps}
+    for name, n in want.items():
+        check(counts.get(name, 0) == n, f"{name}: {counts.get(name, 0)} "
+              f"launches, the code makes {n}")
+    for name in ("cic_paint_lattice", "cic_gather_lattice",
+                 "cic_gather3_lattice"):
+        check(counts.get(name, 0) == 0, f"{name} launched on the slab path")
+    for r in rows:
+        r["launches"] = counts.get(r["name"], 0)
+    vel = rv["vel"]
+    check(vel.shape == (3,) + g256.shape and bool(torch.isfinite(vel).all()),
+          "sharded COLA velocities")
+    _, pk_ref, _ = binned_power_spectrum(g256, delta_x=rv["delta_x"])
+    sel = torch.isfinite(pk_ref) & (pk_ref > 0)
+    e_pk = ((rv["pk"][sel] - pk_ref[sel]) / pk_ref[sel]).abs().max().item()
+    log(f"sharded COLA 256^3: velocities rms {vel.double().std().item():.2f} "
+        f"km/s; in-program P(k) vs binned_power_spectrum of delta_x: "
+        f"{e_pk:.3e} per populated bin")
+    check(e_pk <= EST_BOUND, f"sharded COLA in-program P(k): {e_pk}")
+    single = []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(3):
+        _, ms = wall_ms(lambda: realise_density_cola(
+            gen, g256, cosmo0, redshift_init=COLA_Z_INIT, lattice_B=3,
+            keep_velocities=False))
+        single.append(ms)
+    log(f"COLA 256^3: sharded engine (one rank) "
+        f"{statistics.median([w0, w1, w2]) * 1e3:.1f} ms per realisation "
+        f"(median of 3: {w0 * 1e3:.1f}, {w1 * 1e3:.1f}, {w2 * 1e3:.1f} with "
+        f"velocities), single engine {statistics.median(single):.1f} ms "
+        f"(median of 3); 512^3 sharded {w512 * 1e3:.1f} ms")
+
+    # (c) the plain slab twins on the same noise
+    kernels, hl.k11 = hl.k11, plain_slab_twins()
+    try:
+        plain, ms = wall_ms(lambda: fns[SLAB_N[0]](seed=0))
+    finally:
+        hl.k11 = kernels
+    same = torch.equal(plain["delta_x"], r0["delta_x"])
+    log(f"sharded COLA 256^3 with the plain slab twins: {ms:.1f} ms; delta_x "
+        f"bitwise equal to the kernels' run: {same}")
+    check(same, "sharded COLA: kernels vs plain twins differ")
+    del r0, rv, plain, vel
+
+    # (d) f64 at 64^3 on the card against the port on the CPU
+    g64 = GridSpec.create(box_scale=BOX / 4, nsamp=64)
+    kw64 = dict(redshift_init=COLA_Z_INIT, n_steps=4, lattice_B=3,
+                dtype=torch.float64, pk_nbins=10)
+    white = torch.randn((64, 64, 64), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(64))
+    gpu = make_sharded_cola(mesh, g64, cosmo0, device=dev, **kw64)(
+        white=white)
+    t0 = time.perf_counter()
+    cpu = local.launch("fastbox_tpu_torch.parallel.local:tasks", 1, dict(
+        tasks=["cola"], cola=[dict(grid=(BOX / 4, 64, 0.0), cosmo=COSMO,
+                                   space=1, kw=kw64, white=white)]))[0]
+    cpu = cpu["cola"][0]
+    e = norm_err(gpu["delta_x"].cpu(), cpu["delta_x"])
+    e_v = norm_err(gpu["vel"].cpu(), cpu["vel"])
+    log(f"sharded COLA 64^3 f64, card vs CPU (one gloo rank, "
+        f"{time.perf_counter() - t0:.1f} s): delta_x {e:.3e} of max, vel "
+        f"{e_v:.3e}, max_disp {gpu['max_disp'].item():.6f} vs "
+        f"{cpu['max_disp'].item():.6f}, pk "
+        f"{max_rel(gpu['pk'], cpu['pk']):.3e}")
+    check(e <= SHARDED_F64_BOUND, f"sharded COLA f64 card vs CPU: {e}")
+    phase_box(dev)
+    return rows
+
+
+def box_call(label: str, expect: tuple, body):
+    """``body`` with the launch counters reset just before and read just
+    after: every kernel in ``expect`` launched, K10 did not; its wall ms."""
+    (result, ms), counts = counted(label, expect, lambda: wall_ms(body))
+    log(f"{label}: {ms:.2f} ms on the card")
+    return result
+
+
+def phase_box(dev) -> None:
+    """(e) CosmoBox at 256^3 in the 4 Gpc box at z = 0.8, f32, on the card
+    against the same box on the CPU on the same supplied noise, each call
+    counted; then the noise, halo and beam models."""
+    from fastbox_tpu_torch.box import CosmoBox
+    from fastbox_tpu_torch.models import beams, halos, noise
+
+    kw = dict(cosmo=COSMO, box_scale=BOX, nsamp=N_MAIN, redshift=Z,
+              realise_now=False, dtype=torch.float32)
+    gb, cb = CosmoBox(device=dev, **kw), CosmoBox(device="cpu", **kw)
+    gen = torch.Generator().manual_seed(21)
+    shape = gb.grid.shape
+    white = torch.complex(torch.randn(shape, generator=gen),
+                          torch.randn(shape, generator=gen))
+    box_call("CosmoBox.realise_density_from_whitenoise 256^3", (),
+             lambda: gb.realise_density_from_whitenoise(white))
+    cb.realise_density_from_whitenoise(white)
+    e = norm_err(gb.delta_x.cpu(), cb.delta_x)
+    log(f"CosmoBox delta_x, card vs CPU f32: {e:.3e} of max")
+    check(e <= BOX_FIELD_BOUND, f"CosmoBox delta_x: {e}")
+    v = {}
+    for b, name in ((gb, "card"), (cb, "cpu")):
+        b.realise_velocity()
+        v[name] = torch.fft.ifftn(b.velocity_k[2]).real.contiguous()
+    normals = torch.randn(shape, generator=gen)
+    for sigma_nl, expect in ((0.0, ("rsd_remap_wrap",)),
+                             (120.0, ("rsd_remap_wrap", "add_scaled_normal"))):
+        nrm = normals if sigma_nl > 0 else None
+        # the CPU box's delta and velocity on both devices: K1 and K2 equal
+        # their twins bit for bit, so the two remaps must too
+        got = box_call(
+            f"CosmoBox.redshift_space_density sigma_nl={sigma_nl:g}", expect,
+            lambda: gb.redshift_space_density(cb.delta_x, v["cpu"],
+                                              sigma_nl=sigma_nl,
+                                              normals=nrm)).cpu()
+        ref = cb.redshift_space_density(cb.delta_x, v["cpu"],
+                                        sigma_nl=sigma_nl, normals=nrm)
+        same = torch.equal(got, ref)
+        # each box on its own delta and velocity (FFT rounding apart)
+        own = gb.redshift_space_density(gb.delta_x, v["card"],
+                                        sigma_nl=sigma_nl, normals=nrm).cpu()
+        diff = (own - ref).abs()
+        top = ref.abs().max().item()
+        log(f"CosmoBox RSD sigma_nl={sigma_nl:g}, card vs CPU f32: on the "
+            f"same inputs bitwise equal {same}; on each box's own fields max "
+            f"{diff.max().item() / top:.3e} of max, "
+            f"{int((diff > BOX_FIELD_BOUND * top).sum())} of {ref.numel()} "
+            f"values beyond {BOX_FIELD_BOUND:.0e}")
+        check(same, f"CosmoBox RSD sigma_nl={sigma_nl:g}: card vs CPU differ "
+              "on the same inputs")
+    got = box_call("CosmoBox.binned_power_spectrum 256^3", ("binned_pk_full",),
+                   gb.binned_power_spectrum)
+    ref = cb.binned_power_spectrum()
+    sel = torch.isfinite(ref[1]) & (ref[1] > 0)
+    e = ((got[1].cpu()[sel] - ref[1][sel]) / ref[1][sel]).abs().max().item()
+    log(f"CosmoBox P(k), card vs CPU f32: {e:.3e} per populated bin")
+    check(e <= BOX_PK_BOUND, f"CosmoBox P(k): {e}")
+    log(f"CosmoBox sigma8 card {gb.sigma8():.6f}, CPU {cb.sigma8():.6f}")
+
+    # COLA at 128^3 through the box (K11's periodic mode)
+    kw128 = dict(kw, nsamp=BOX_COLA_N, box_scale=BOX * BOX_COLA_N / N_MAIN)
+    gb2, cb2 = CosmoBox(device=dev, **kw128), CosmoBox(device="cpu", **kw128)
+    w128 = torch.complex(*(torch.randn(gb2.grid.shape, generator=gen)
+                           for _ in range(2)))
+    dg = box_call("CosmoBox.realise_density_cola 128^3",
+                  ("cic_paint_lattice", "cic_gather3_lattice"),
+                  lambda: gb2.realise_density_cola(white=w128,
+                                                   keep_velocities=False))
+    t0 = time.perf_counter()
+    dc = cb2.realise_density_cola(white=w128, keep_velocities=False)
+    log(f"CosmoBox COLA 128^3 on the CPU: {time.perf_counter() - t0:.1f} s")
+    cola_health(gb2.grid, gb2.cosmology, dg, "CosmoBox COLA 128^3 (z=0.8)")
+    pk_g = gb2.binned_power_spectrum(delta_x=dg)[1].cpu()
+    pk_c = cb2.binned_power_spectrum(delta_x=dc)[1]
+    sel = torch.isfinite(pk_c) & (pk_c > 0)
+    e = ((pk_g[sel] - pk_c[sel]) / pk_c[sel]).abs().max().item()
+    log(f"CosmoBox COLA 128^3, card vs CPU f32: delta "
+        f"{norm_err(dg.cpu(), dc):.3e} of max, P(k) {e:.3e} per populated bin")
+    check(e <= BOX_COLA_PK_BOUND, f"CosmoBox COLA P(k): {e}")
+    del gb2, cb2, dg, dc
+
+    # the models
+    nm = noise.NoiseModel(gb)
+    out = box_call("NoiseModel.realise_radiometer_noise 256^3",
+                   ("add_scaled_normal",),
+                   lambda: nm.realise_radiometer_noise(18.0, 2.0, 1.0, 64))
+    sigma = noise.radiometer_sigma(gb.freq_array(), gb.pixel_array()[0],
+                                   18.0, 2.0, 1.0, 64)
+    scaled = out.double() / torch.as_tensor(sigma, device=dev)
+    pooled = scaled.std().item()
+    per = (scaled.std(dim=(0, 1)) - 1).abs().max().item()
+    per_bound = NOISE_CHANNEL_SIGMAS / np.sqrt(2.0 * N_MAIN ** 2)
+    log(f"NoiseModel noise / sigma: pooled std {pooled:.5f}, largest "
+        f"per-channel std off 1 by {per:.4f} (bound {per_bound:.4f})")
+    check(abs(pooled - 1) <= NOISE_POOLED_BOUND and per <= per_bound,
+          f"NoiseModel std: pooled {pooled}, per channel {per}")
+    same = torch.equal(nm.realise_radiometer_noise(
+        18.0, 2.0, 1.0, 64, normals=normals.to(dev)).cpu(),
+        noise.NoiseModel(cb).realise_radiometer_noise(18.0, 2.0, 1.0, 64,
+                                                      normals=normals))
+    check(same, "NoiseModel on supplied normals: card vs CPU differ")
+    hd = halos.HaloDistribution(gb, (1e12, 1e15), 10)
+    counts = box_call("HaloDistribution.halo_count_field 256^3", (),
+                      lambda: hd.halo_count_field(gb.delta_x, 1e-3, 1.0))
+    mean, want = counts.double().mean().item(), gb.grid.voxel_volume * 1e-3
+    log(f"halo counts: mean {mean:.4f} per voxel, nbar V_voxel {want:.4f}")
+    check(int(counts.min()) >= 0 and abs(mean / want - 1) <= HALO_MEAN_BOUND,
+          f"halo counts mean {mean} vs {want}")
+    cat_g = box_call("realise_halo_catalogue_padded 256^3", (),
+                     lambda: halos.realise_halo_catalogue_padded(
+                         None, counts, gb.grid, 2 ** 24))
+    cat_c = halos.realise_halo_catalogue_padded(None, counts.cpu(), cb.grid,
+                                                2 ** 24)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(cat_g, cat_c))
+    log(f"padded catalogue: {int(cat_g[2])} halos, {int(cat_g[1].sum())} "
+        f"kept; card and CPU bitwise equal: {same}")
+    check(same, "padded halo catalogue: card vs CPU differ")
+    del counts, cat_g, cat_c
+    field = cb.delta_x
+    got = box_call("GaussianBeamModel.convolve_fft 256^3", (),
+                   lambda: beams.GaussianBeamModel(gb, 13.5).convolve_fft(
+                       field.to(dev)))
+    e = norm_err(got.cpu(),
+                 beams.GaussianBeamModel(cb, 13.5).convolve_fft(field))
+    log(f"GaussianBeamModel.convolve_fft, card vs CPU f32: {e:.3e} of max")
+    check(e <= BOX_FIELD_BOUND, f"beam convolution: {e}")
+
+
 def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     from fastbox_tpu_torch.timing import StageClock
 
@@ -2038,10 +2483,9 @@ def run_step(step, dev, label: str, seeds) -> tuple:
 def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     """The sharded ensemble step on a one-rank ('ens' 1, 'space' 1) mesh
     under NCCL, the rest of the parallel/ slice, then the v2t path; returns
-    (K8's row, the launches of K7, K8 and K4t each on its path)."""
+    (K8's row, the launches of K7, K8 and K4t each on its path, the mesh,
+    which phase 8b uses and main tears down)."""
     import tempfile
-
-    import torch.distributed as dist
 
     import fastbox_tpu_torch.parallel.sharded as sharded
     from fastbox_tpu_torch.grid import GridSpec
@@ -2209,8 +2653,7 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
                  generator=torch.Generator(device=dev).manual_seed(2))
     launches[K4T] = phase_v2t(dev, cosmo, grid, fn256, mesh)
     phase_estimators(dev, cosmo, grid, fn256, mesh)
-    dist.destroy_process_group()
-    return [k8], launches
+    return [k8], launches, mesh
 
 
 def est_held(what: str, got: dict, want: dict, failures: list) -> None:
@@ -2999,6 +3442,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs an NVIDIA GPU")
+    import torch.distributed as dist
+
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.grid import GridSpec
     from fastbox_tpu_torch.ops import mmfft
@@ -3104,16 +3549,18 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     truth_aniso(dev, cosmo_cpu, cosmo)
 
-    k8, launches = phase_sharded(dev, cosmo, grid, fn256)
+    k8, launches, mesh = phase_sharded(dev, cosmo, grid, fn256)
     for r in [k7, k4t] + k8:
         r["launches"] = launches[r["name"]]
     cola = phase_cola(dev, k11)
+    slab = phase_sharded_cola(dev, mesh)
+    dist.destroy_process_group()
 
     # The K10 route: the pipeline, then COLA, counted apart
     k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)
     phase_cola_route(dev, *cola)
     phase_gate(dev)
-    kernels += [k4t] + k11 + others + [k7] + k8 + [k10]
+    kernels += [k4t] + k11 + slab + others + [k7] + k8 + [k10]
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

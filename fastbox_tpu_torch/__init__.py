@@ -20,8 +20,12 @@ Main path::
                             device="cuda")
     fn = make_pipeline(grid, cosmo, PipelineConfig(), device="cuda")
     out = fn(torch.Generator(device="cuda").manual_seed(0))
+
+The reference's object API is ``CosmoBox`` (``box.py``); the slab-sharded
+COLA engine is ``parallel.make_sharded_cola``.
 """
-from . import cosmology, fields, filters, grid, models, ops, pipeline
+from . import cosmology, fields, filters, grid, models, ops, pipeline, utils
+from .box import CosmoBox, default_cosmo
 
 __all__ = ["cosmology", "fields", "filters", "grid", "models", "ops",
-           "pipeline"]
+           "pipeline", "utils", "CosmoBox", "default_cosmo"]

@@ -75,6 +75,17 @@
 // global memory.  Only where a corner is loaded from differs: the
 // arithmetic and its order, and the band tests, are the twin's, so kernel
 // and twin agree bit for bit (H100 80GB HBM3, 700 W; PERF.md).
+//
+// Slab mode (kSlab): the slab-sharded COLA engine's halo paint and force
+// gather (fastbox_tpu/parallel/lattice.py:48-87, :119-166, whose roll sums
+// reach K11a and K11c's arithmetic).  The particles are a slab of S rows,
+// (S, N, N), and the band is closed.  The paint writes an (S + 2H, N, N)
+// buffer, H = B + 1, particle row s landing on buffer row H + s + o: x does
+// not wrap (a source row outside [0, S) is absent), y and z do.  The gather
+// reads a halo-extended (S + 2H, N, N) mesh at row H + s + o.  The sums are
+// the periodic mode's, in the slab twins' order
+// (fastbox_tpu_torch/fields/lattice_cic.py), so the slab mode too agrees
+// with its twins bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -145,12 +156,14 @@ __device__ void block_exclusive_scan(int* cnt, int* start, int n, int* scratch) 
   if (threadIdx.x == blockDim.x - 1) start[n] = offset;
 }
 
-template <typename T, bool kWeighted>
+// kSlab: rows particle rows at cell rows H + s; otherwise rows == N, H == 0
+template <typename T, bool kWeighted, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
-             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi, int tx, int ty,
-             int tz) {
+             const T* __restrict__ w, T* __restrict__ out, int N, int rows, int H, int lo, int hi,
+             int tx, int ty, int tz) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NX = kSlab ? rows + 2 * H : N;  // cell rows
   const int span = hi - lo;
   const int WX = tx + span, WY = ty + span, WZ = tz + span;
   const int S = WX * WY * WZ;
@@ -171,7 +184,8 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   __syncthreads();
 
   // 1. Source p = (a, b, c) of the tile is particle (c0 - hi + (a, b, c))
-  // mod N; its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
+  // mod N (in slab mode x is row c0.x - hi + a - H, absent outside the
+  // slab); its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
   // steps p by blockDim.x, carrying (a, b, c) along without divisions, and
   // loads kStage sources before it uses any, to keep loads in flight.
   const int WYZ = WY * WZ;
@@ -180,18 +194,23 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   for (int p0 = threadIdx.x; p0 < S; p0 += kStage * blockDim.x) {
     T v[kStage][3], wv[kStage];
     int pos[kStage][3];
+    bool have[kStage];
 #pragma unroll
     for (int u = 0; u < kStage; ++u) {
       if (p0 + u * static_cast<int>(blockDim.x) >= S) break;
       pos[u][0] = pa;
       pos[u][1] = pb;
       pos[u][2] = pc;
-      const int64_t g = (static_cast<int64_t>(wrap_near(cx0 - hi + pa, N)) * N +
-                         wrap_near(cy0 - hi + pb, N)) * N + wrap_near(cz0 - hi + pc, N);
-      v[u][0] = dx[g];
-      v[u][1] = dy[g];
-      v[u][2] = dz[g];
-      if (kWeighted) wv[u] = w[g];
+      const int px = kSlab ? cx0 - hi + pa - H : wrap_near(cx0 - hi + pa, N);
+      have[u] = !kSlab || (px >= 0 && px < rows);
+      if (have[u]) {
+        const int64_t g = (static_cast<int64_t>(px) * N + wrap_near(cy0 - hi + pb, N)) * N +
+                          wrap_near(cz0 - hi + pc, N);
+        v[u][0] = dx[g];
+        v[u][1] = dy[g];
+        v[u][2] = dz[g];
+        if (kWeighted) wv[u] = w[g];
+      }
       pc += dc;
       pb += db;
       pa += da;
@@ -208,6 +227,10 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
     for (int u = 0; u < kStage; ++u) {
       const int p = p0 + u * blockDim.x;
       if (p >= S) break;
+      if (!have[u]) {  // beyond the slab: reaches no cell
+        code[p] = 0;
+        continue;
+      }
       const int ext[3] = {tx, ty, tz};
       int packed = 0, bkt = 0;
       bool ok = true;
@@ -259,7 +282,7 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   for (int cell = threadIdx.x; cell < ncell; cell += blockDim.x) {
     const int ix = cell / (ty * tz), iy = (cell / tz) % ty, iz = cell % tz;
     const int cx = cx0 + ix, cy = cy0 + iy, cz = cz0 + iz;
-    if (cx >= N || cy >= N || cz >= N) continue;
+    if (cx >= NX || cy >= N || cz >= N) continue;
     int at[8], end[8], head[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -430,11 +453,14 @@ size_t gather_smem(int lo, int hi) {
          sizeof(T);
 }
 
-template <typename T, int kMeshes>
+// kSlab: rows particle rows reading mesh rows H + s + o; otherwise rows ==
+// N, H == 0 and x wraps
+template <typename T, int kMeshes, bool kSlab>
 __global__ void __launch_bounds__(GatherShape<kMeshes>::threads)
 gather_kernel(const T* __restrict__ m0, const T* __restrict__ m1, const T* __restrict__ m2,
               const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
-              T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, int N, int lo, int hi) {
+              T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2, int N, int rows, int H,
+              int lo, int hi) {
   using S = GatherShape<kMeshes>;
   constexpr int kWarps = S::warps, kRows = S::rows, kAhead = S::ahead;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -451,18 +477,19 @@ gather_kernel(const T* __restrict__ m0, const T* __restrict__ m1, const T* __res
   // z faces fastest in launch order, so blocks whose planes share rows
   // along the contiguous axis run together and find them in L2
   const int z0 = blockIdx.x * kFaceZ, y0 = blockIdx.y * S::face_y, xs = blockIdx.z * kRun;
-  const int nrun = min(kRun, N - xs);
+  const int nrun = min(kRun, rows - xs);
   const int sz = z0 + lane;
 
-  // Mesh plane q (global x = xs + lo + q, q < nrun + span) of every mesh
-  // into ring slot q mod R as one cp.async group of 16-byte chunks,
-  // coalesced along z and wrapped periodically (N is a multiple of kVec,
-  // so no chunk crosses the periodic edge); an empty group past the end
-  // keeps the count.
+  // Mesh plane q (global x = xs + lo + q, q < nrun + span; mesh row H + xs
+  // + lo + q in slab mode) of every mesh into ring slot q mod R as one
+  // cp.async group of 16-byte chunks, coalesced along z and wrapped
+  // periodically (N is a multiple of kVec, so no chunk crosses the
+  // periodic edge); an empty group past the end keeps the count.
   const int za = z0 + lo - shift;
   auto stage = [&](int q) {
     if (q < nrun + span) {
-      const int64_t gx = static_cast<int64_t>(wrap_near(xs + lo + q, N)) * N;
+      const int64_t gx =
+          static_cast<int64_t>(kSlab ? H + xs + lo + q : wrap_near(xs + lo + q, N)) * N;
       T* slot = ring + static_cast<size_t>(q % R) * plane;
       for (int p = threadIdx.x; p < PY * nchunk; p += S::threads) {
         const int r = p / nchunk, c = p - r * nchunk;
@@ -533,14 +560,15 @@ gather_kernel(const T* __restrict__ m0, const T* __restrict__ m1, const T* __res
 
 // The gather where the staged rings do not fit (wide bands): one thread per
 // particle reads its corners from global memory.
-template <typename T, int kMeshes>
+template <typename T, int kMeshes, bool kSlab>
 __global__ void __launch_bounds__(256)
 gather_direct_kernel(const T* __restrict__ m0, const T* __restrict__ m1,
                      const T* __restrict__ m2, const T* __restrict__ dx,
                      const T* __restrict__ dy, const T* __restrict__ dz, T* __restrict__ o0,
-                     T* __restrict__ o1, T* __restrict__ o2, int N, int lo, int hi) {
+                     T* __restrict__ o1, T* __restrict__ o2, int N, int rows, int H, int lo,
+                     int hi) {
   const int64_t NN = static_cast<int64_t>(N) * N;
-  const int64_t n3 = NN * N;
+  const int64_t n3 = NN * rows;
   const T* mesh[3] = {m0, m1, m2};
   T* outp[3] = {o0, o1, o2};
   for (int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; g < n3;
@@ -555,8 +583,8 @@ gather_direct_kernel(const T* __restrict__ m0, const T* __restrict__ m1,
     for (int m = 0; m < kMeshes; ++m) {
       const T* src = mesh[m];
       outp[m][g] = corner_sum(ok, fr, [&](int cx, int cy, int cz) {
-        return src[wrap(site[0] + fl[0] + cx, N) * NN + wrap(site[1] + fl[1] + cy, N) * N +
-                   wrap(site[2] + fl[2] + cz, N)];
+        const int64_t x = kSlab ? H + site[0] + fl[0] + cx : wrap(site[0] + fl[0] + cx, N);
+        return src[x * NN + wrap(site[1] + fl[1] + cy, N) * N + wrap(site[2] + fl[2] + cz, N)];
       });
     }
   }
@@ -569,12 +597,30 @@ cudaError_t band(int64_t N, int B, int openband, int* lo, int* hi) {
   return cudaSuccess;
 }
 
+// The particle rows and halo of a call: a periodic cube (nslab < 0: rows =
+// N, H = 0) or an nslab-row slab (H = B + 1, closed band).
+cudaError_t slab_rows(int64_t N, int64_t nslab, int B, int* rows, int* H) {
+  if (nslab < 0) {
+    *rows = static_cast<int>(N);
+    *H = 0;
+    return cudaSuccess;
+  }
+  if (nslab < 1 || nslab > (1 << 20)) return cudaErrorInvalidValue;
+  *rows = static_cast<int>(nslab);
+  *H = B + 1;
+  return cudaSuccess;
+}
+
+// nslab < 0: the periodic (N, N, N) cube; nslab = S >= 1: an (S, N, N)
+// slab painting into an (S + 2H, N, N) buffer
 template <typename T>
 cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* out, int64_t N,
-                         int B, int openband, cudaStream_t stream) {
-  int lo, hi;
+                         int64_t nslab, int B, int openband, cudaStream_t stream) {
+  int lo, hi, rows, H;
   cudaError_t e = band(N, B, openband, &lo, &hi);
   if (e != cudaSuccess) return e;
+  if ((e = slab_rows(N, nslab, B, &rows, &H)) != cudaSuccess) return e;
+  const bool slab = nslab >= 0;
   int dev, max_smem;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
@@ -597,28 +643,33 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     }
   }
   if (tile == nullptr) return cudaErrorInvalidValue;
-  auto kernel = weighted ? &paint_kernel<T, true> : &paint_kernel<T, false>;
+  auto kernel = slab ? (weighted ? &paint_kernel<T, true, true> : &paint_kernel<T, false, true>)
+                     : (weighted ? &paint_kernel<T, true, false> : &paint_kernel<T, false, false>);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int n = static_cast<int>(N);
+  const int nx = slab ? rows + 2 * H : n;  // cell rows
   const dim3 grid((n + tile[2] - 1) / tile[2], (n + tile[1] - 1) / tile[1],
-                  (n + tile[0] - 1) / tile[0]);
+                  (nx + tile[0] - 1) / tile[0]);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, tile[0], tile[1],
-                                            tile[2]);
+  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, rows, H, lo, hi, tile[0],
+                                            tile[1], tile[2]);
   return cudaGetLastError();
 }
 
-template <typename T, int kMeshes>
+// nslab < 0: periodic (N, N, N) meshes and sites; nslab = S >= 1: (S, N, N)
+// sites reading (S + 2H, N, N) halo-extended meshes
+template <typename T, int kMeshes, bool kSlab>
 cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, const T* dy,
-                          const T* dz, T* o0, T* o1, T* o2, int64_t N, int B, int openband,
-                          cudaStream_t stream) {
-  int lo, hi;
+                          const T* dz, T* o0, T* o1, T* o2, int64_t N, int64_t nslab, int B,
+                          int openband, cudaStream_t stream) {
+  int lo, hi, rows, H;
   cudaError_t e = band(N, B, openband, &lo, &hi);
   if (e != cudaSuccess) return e;
+  if ((e = slab_rows(N, nslab, B, &rows, &H)) != cudaSuccess) return e;
   int dev, max_smem;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
@@ -628,24 +679,25 @@ cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, co
   using S = GatherShape<kMeshes>;
   const size_t smem = gather_smem<T, kMeshes>(lo, hi);
   if (smem <= static_cast<size_t>(max_smem) && N % (16 / sizeof(T)) == 0) {
-    auto kernel = &gather_kernel<T, kMeshes>;
+    auto kernel = &gather_kernel<T, kMeshes, kSlab>;
     if (smem > 48 * 1024) {
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
     const dim3 grid((n + kFaceZ - 1) / kFaceZ, (n + S::face_y - 1) / S::face_y,
-                    (n + kRun - 1) / kRun);
+                    (rows + kRun - 1) / kRun);
     if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-    kernel<<<grid, S::threads, smem, stream>>>(m0, m1, m2, dx, dy, dz, o0, o1, o2, n, lo, hi);
+    kernel<<<grid, S::threads, smem, stream>>>(m0, m1, m2, dx, dy, dz, o0, o1, o2, n, rows, H,
+                                                lo, hi);
     return cudaGetLastError();
   }
-  const int64_t n3 = N * N * N;
+  const int64_t n3 = static_cast<int64_t>(rows) * N * N;
   const int threads = 256;
   int64_t blocks = (n3 + threads - 1) / threads;
   if (blocks > (1 << 22)) blocks = 1 << 22;
-  gather_direct_kernel<T, kMeshes><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      m0, m1, m2, dx, dy, dz, o0, o1, o2, n, lo, hi);
+  gather_direct_kernel<T, kMeshes, kSlab><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      m0, m1, m2, dx, dy, dz, o0, o1, o2, n, rows, H, lo, hi);
   return cudaGetLastError();
 }
 
@@ -656,28 +708,32 @@ cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, co
 extern "C" int fbx_cic_paint_lattice_f32(const float* dx, const float* dy, const float* dz,
                                          const float* w, float* out, int64_t N, int B,
                                          int openband, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, B, openband, static_cast<cudaStream_t>(stream));
+  return launch_paint(dx, dy, dz, w, out, N, int64_t{-1}, B, openband,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_cic_paint_lattice_f64(const double* dx, const double* dy, const double* dz,
                                          const double* w, double* out, int64_t N, int B,
                                          int openband, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, B, openband, static_cast<cudaStream_t>(stream));
+  return launch_paint(dx, dy, dz, w, out, N, int64_t{-1}, B, openband,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // mesh, dx, dy, dz, out: (N, N, N).
 extern "C" int fbx_cic_gather_lattice_f32(const float* mesh, const float* dx, const float* dy,
                                           const float* dz, float* out, int64_t N, int B,
                                           int openband, void* stream) {
-  return launch_gather<float, 1>(mesh, nullptr, nullptr, dx, dy, dz, out, nullptr, nullptr, N,
-                                 B, openband, static_cast<cudaStream_t>(stream));
+  return launch_gather<float, 1, false>(mesh, nullptr, nullptr, dx, dy, dz, out, nullptr,
+                                        nullptr, N, int64_t{-1}, B, openband,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_cic_gather_lattice_f64(const double* mesh, const double* dx, const double* dy,
                                           const double* dz, double* out, int64_t N, int B,
                                           int openband, void* stream) {
-  return launch_gather<double, 1>(mesh, nullptr, nullptr, dx, dy, dz, out, nullptr, nullptr, N,
-                                  B, openband, static_cast<cudaStream_t>(stream));
+  return launch_gather<double, 1, false>(mesh, nullptr, nullptr, dx, dy, dz, out, nullptr,
+                                         nullptr, N, int64_t{-1}, B, openband,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // m0, m1, m2: the three (N, N, N) meshes; o0, o1, o2: their gathers.
@@ -685,14 +741,48 @@ extern "C" int fbx_cic_gather3_lattice_f32(const float* m0, const float* m1, con
                                            const float* dx, const float* dy, const float* dz,
                                            float* o0, float* o1, float* o2, int64_t N, int B,
                                            int openband, void* stream) {
-  return launch_gather<float, 3>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, B, openband,
-                                 static_cast<cudaStream_t>(stream));
+  return launch_gather<float, 3, false>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, int64_t{-1}, B,
+                                        openband, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_cic_gather3_lattice_f64(const double* m0, const double* m1, const double* m2,
                                            const double* dx, const double* dy, const double* dz,
                                            double* o0, double* o1, double* o2, int64_t N, int B,
                                            int openband, void* stream) {
-  return launch_gather<double, 3>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, B, openband,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_gather<double, 3, false>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, int64_t{-1}, B,
+                                         openband, static_cast<cudaStream_t>(stream));
+}
+
+// Slab mode, closed band [-B, B+1], H = B + 1.  dx, dy, dz, w (or null):
+// (S, N, N); out: the (S + 2H, N, N) buffer.
+extern "C" int fbx_cic_paint_lattice_slab_f32(const float* dx, const float* dy, const float* dz,
+                                              const float* w, float* out, int64_t S, int64_t N,
+                                              int B, void* stream) {
+  return launch_paint(dx, dy, dz, w, out, N, S, B, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fbx_cic_paint_lattice_slab_f64(const double* dx, const double* dy,
+                                              const double* dz, const double* w, double* out,
+                                              int64_t S, int64_t N, int B, void* stream) {
+  return launch_paint(dx, dy, dz, w, out, N, S, B, 0, static_cast<cudaStream_t>(stream));
+}
+
+// m0, m1, m2: (S + 2H, N, N) halo-extended meshes; dx, dy, dz, o0, o1, o2:
+// (S, N, N).
+extern "C" int fbx_cic_gather3_lattice_slab_f32(const float* m0, const float* m1,
+                                                const float* m2, const float* dx,
+                                                const float* dy, const float* dz, float* o0,
+                                                float* o1, float* o2, int64_t S, int64_t N,
+                                                int B, void* stream) {
+  return launch_gather<float, 3, true>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, S, B, 0,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fbx_cic_gather3_lattice_slab_f64(const double* m0, const double* m1,
+                                                const double* m2, const double* dx,
+                                                const double* dy, const double* dz, double* o0,
+                                                double* o1, double* o2, int64_t S, int64_t N,
+                                                int B, void* stream) {
+  return launch_gather<double, 3, true>(m0, m1, m2, dx, dy, dz, o0, o1, o2, N, S, B, 0,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -16,13 +16,22 @@ This is the plain version of the CUDA kernels in
 sums in the same order.  Exact (summation order aside) against the scatter
 ``fields/cola.py::cic_paint_particles`` / ``cic_gather`` whenever the
 bound holds; callers check it.
+
+The slab forms (``cic_paint_lattice_slab`` and the gathers) are the roll
+sums of the slab-sharded engine (``fastbox_tpu/parallel/lattice.py:48-87,
+:119-166``): an (S, N, N) slab of particles, the closed band, x not
+periodic.  The paint fills an (S + 2H, N, N) buffer (H = B + 1) whose
+first and last H rows belong to the neighbouring slabs; the gathers read
+a halo-extended (S + 2H, N, N) mesh.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["cic_paint_lattice", "cic_gather_lattice", "cic_gather3_lattice",
-           "wrapped_displacement", "wrapped_displacement_axes"]
+           "cic_paint_lattice_slab", "cic_gather_lattice_slab",
+           "cic_gather3_lattice_slab", "wrapped_displacement",
+           "wrapped_displacement_axes"]
 
 
 def wrapped_displacement(u, N: int):
@@ -134,3 +143,63 @@ def cic_gather3_lattice(meshes, disp, B: int = 2, openband: bool = False):
     """``cic_gather_lattice`` of three meshes at the same particles (the
     PM force components): three gathers."""
     return tuple(cic_gather_lattice(m, disp, B, openband) for m in meshes)
+
+
+def cic_paint_lattice_slab(disp, B: int, weights=None):
+    """CIC paint of an (S, N, N) particle slab into an (S + 2H, N, N)
+    buffer, H = B + 1, closed band: particle row s lands on buffer rows
+    H + s + o, y and z wrap (``buf`` of fastbox_tpu/parallel/lattice.py:
+    64-87).  ``weights``: optional (S, N, N)."""
+    dx, dy, dz = _disp_axes(disp)
+    S = dx.shape[0]
+    H = B + 1
+    wx = _axis_weights(dx, B, False)
+    wy = _axis_weights(dy, B, False)
+    wz = _axis_weights(dz, B, False)
+    buf = None
+    for ox in _offsets(B, False):
+        px = wx[ox] if weights is None else wx[ox] * weights
+        sx = None
+        for oy in _offsets(B, False):
+            pxy = px * wy[oy]
+            sy = None
+            for oz in _offsets(B, False):
+                t = torch.roll(pxy * wz[oz], oz, 2)
+                sy = t if sy is None else sy + t
+            sy = torch.roll(sy, oy, 1)
+            sx = sy if sx is None else sx + sy
+        if buf is None:
+            buf = sx.new_zeros((S + 2 * H,) + tuple(sx.shape[1:]))
+        buf[H + ox:H + ox + S] += sx
+    return buf
+
+
+def cic_gather_lattice_slab(ext, disp, B: int):
+    """CIC interpolation of a halo-extended (S + 2H, N, N) mesh at an (S, N,
+    N) particle slab, closed band: the adjoint of
+    :func:`cic_paint_lattice_slab` (fastbox_tpu/parallel/lattice.py:
+    135-166)."""
+    dx, dy, dz = _disp_axes(disp)
+    S = dx.shape[0]
+    H = B + 1
+    wx = _axis_weights(dx, B, False)
+    wy = _axis_weights(dy, B, False)
+    wz = _axis_weights(dz, B, False)
+    out = None
+    for oz in _offsets(B, False):
+        rz = torch.roll(ext, -oz, 2)
+        for oy in _offsets(B, False):
+            ryz = torch.roll(rz, -oy, 1)
+            sx = None
+            for ox in _offsets(B, False):
+                t = wx[ox] * ryz[H + ox:H + ox + S]
+                sx = t if sx is None else sx + t
+            term = wy[oy] * wz[oz] * sx
+            out = term if out is None else out + term
+    return out
+
+
+def cic_gather3_lattice_slab(exts, disp, B: int):
+    """``cic_gather_lattice_slab`` of three halo-extended meshes (the PM
+    force components): three gathers."""
+    return tuple(cic_gather_lattice_slab(m, disp, B) for m in exts)

@@ -1,15 +1,22 @@
-"""Radiometer-equation instrumental noise (copy of fastbox_tpu/models/noise.py:19-37).
+"""Radiometer-equation instrumental noise.
 
+Counterpart of ``fastbox_tpu/models/noise.py`` (``radiometer_sigma``
+:19-37 copied, ``realise_radiometer_noise`` and ``NoiseModel`` :41-61).
 Matches the reference's ``NoiseModel.realise_radiometer_noise``
 (reference noise.py:25-75): frequency-dependent sky temperature
-T_sky = 60 K (nu/300 MHz)^-2.5 and the per-channel RMS from the
-radiometer equation.  The draw itself is ``ops.rsd.add_scaled_normal``.
+T_sky = 60 K (nu/300 MHz)^-2.5, the per-channel RMS from the radiometer
+equation, and white noise scaled per frequency channel, drawn by
+``ops.rsd.add_scaled_normal`` (K1 on the card, its twin on the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["radiometer_sigma"]
+from ..device import resolve
+from ..ops.rsd import add_scaled_normal
+
+__all__ = ["radiometer_sigma", "realise_radiometer_noise", "NoiseModel"]
 
 
 def radiometer_sigma(freqs_mhz, ang_x_deg, Tinst, tp, fov, Ndish):
@@ -31,3 +38,32 @@ def radiometer_sigma(freqs_mhz, ang_x_deg, Tinst, tp, fov, Ndish):
     Tsky = 60e3 * (freqs / 300.0) ** (-2.5)  # mK (noise.py:66)
     Tsys = Tinst * 1e3 + Tsky                # mK
     return Tsys / np.sqrt(Ndish * t_res * (dnu * 1e6))  # dnu in Hz (noise.py:70)
+
+
+def realise_radiometer_noise(generator, grid, sigma_rms,
+                             dtype=torch.float32, device=None, normals=None):
+    """White noise cube scaled by the per-channel sigma(nu) along the last
+    axis (noise.py:73-74): ``normals * sigma`` with ``normals`` supplied
+    (grid-shaped, on ``device``) or drawn from ``generator``."""
+    device = normals.device if normals is not None else resolve(device)
+    sigma = torch.as_tensor(np.asarray(sigma_rms), dtype=dtype, device=device)
+    zero = torch.zeros(grid.shape, dtype=dtype, device=device)
+    return add_scaled_normal(zero, sigma, generator, normals)
+
+
+class NoiseModel:
+    """Reference-API shim (noise.py:11-75) over a ``CosmoBox``."""
+
+    def __init__(self, box):
+        self.box = box
+
+    def realise_radiometer_noise(self, Tinst, tp, fov, Ndish, redshift=None,
+                                 normals=None):
+        box = self.box
+        cosmology = box.cosmology_at(redshift)
+        freqs = box.grid.freq_array(cosmology)
+        ang_x, _ = box.grid.pixel_array(cosmology)
+        sigma = radiometer_sigma(freqs, ang_x, Tinst, tp, fov, Ndish)
+        return realise_radiometer_noise(
+            None if normals is not None else box.next_generator(), box.grid,
+            sigma, box.dtype, box.device, normals)

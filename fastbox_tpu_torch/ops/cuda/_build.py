@@ -66,6 +66,9 @@ _SIGNATURES = {
     "fbx_cic_gather_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather3_lattice": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                 _INT, _INT, _P),
+    "fbx_cic_paint_lattice_slab": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "fbx_cic_gather3_lattice_slab": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I64, _I64, _INT, _P),
     "fbx_dft_c2c_axis": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                          _INT, _INT, _INT, _P),
 }

@@ -9,6 +9,13 @@ sums in the same order, so the two agree bit for bit.  The displacements
 are a (dx, dy, dz) tuple of contiguous (N, N, N) tensors in cell units,
 wrapped to [-N/2, N/2); the COLA band ladder guarantees ``|d| < B`` for
 the open band (the default here, as in the engine).
+
+The slab mode (``*_slab``) serves the slab-sharded engine
+(``parallel/lattice.py``): an (S, N, N) particle slab, the closed band,
+a paint into an (S + 2H, N, N) buffer and a three-mesh gather from
+(S + 2H, N, N) halo-extended meshes, H = B + 1 (the JAX roll forms at
+``fastbox_tpu/parallel/lattice.py:48-166``).  Its twins are the slab roll
+forms of ``fields/lattice_cic.py``; kernel and twin agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,10 +27,15 @@ from . import _build
 __all__ = ["cic_paint_lattice", "cic_gather_lattice", "cic_gather3_lattice",
            "cic_paint_lattice_cuda", "cic_gather_lattice_cuda",
            "cic_gather3_lattice_cuda", "cic_paint_lattice_plain",
-           "cic_gather_lattice_plain", "cic_gather3_lattice_plain"]
+           "cic_gather_lattice_plain", "cic_gather3_lattice_plain",
+           "cic_paint_lattice_slab", "cic_paint_lattice_slab_cuda",
+           "cic_gather3_lattice_slab_cuda", "cic_paint_lattice_slab_plain",
+           "cic_gather3_lattice_slab_plain"]
 
 PAINT, GATHER, GATHER3 = ("cic_paint_lattice", "cic_gather_lattice",
                           "cic_gather3_lattice")
+PAINT_SLAB, GATHER3_SLAB = ("cic_paint_lattice_slab",
+                            "cic_gather3_lattice_slab")
 MAX_B = 16  # csrc/lattice_cic.cu kMaxB
 
 
@@ -40,6 +52,29 @@ def _check(name, meshes, disp, B):
         raise ValueError(f"{name}: B must be in [1, {MAX_B}], got {B}")
     _build.require_cuda(name, *meshes, *d, dtype=d[0].dtype)
     return d, N
+
+
+def _check_slab(name, disp, B, sites=(), exts=()):
+    """(d, S, N) of a slab call: disp and ``sites`` are (S, N, N), the
+    halo-extended ``exts`` (S + 2H, N, N), H = B + 1."""
+    d = tuple(disp)
+    if len(d) != 3:
+        raise ValueError(f"{name}: disp must be a (dx, dy, dz) tuple")
+    if not 1 <= int(B) <= MAX_B:
+        raise ValueError(f"{name}: B must be in [1, {MAX_B}], got {B}")
+    S, N = d[0].shape[0], d[0].shape[-1]
+    for t in d + tuple(sites):
+        if t.shape != (S, N, N):
+            raise ValueError(f"{name}: displacements and sites must be "
+                             f"(S, N, N) = {(S, N, N)}, got {tuple(t.shape)}")
+    for t in exts:
+        if t.shape != (S + 2 * (B + 1), N, N):
+            raise ValueError(f"{name}: halo-extended meshes must be "
+                             f"(S + 2(B + 1), N, N) = "
+                             f"{(S + 2 * (B + 1), N, N)}, got "
+                             f"{tuple(t.shape)}")
+    _build.require_cuda(name, *exts, *d, *sites, dtype=d[0].dtype)
+    return d, S, N
 
 
 def _launch(name, stem, dtype, device, *args):
@@ -91,6 +126,48 @@ def cic_gather3_lattice_cuda(meshes, disp, B: int, openband: bool = True,
     return outs
 
 
+def cic_paint_lattice_slab_cuda(disp, B: int, weights=None):
+    """K11a in slab mode: the (S + 2H, N, N) buffer of an (S, N, N) slab."""
+    d, S, N = _check_slab(PAINT_SLAB, disp, B,
+                          () if weights is None else (weights,))
+    out = torch.empty((S + 2 * (B + 1), N, N), dtype=d[0].dtype,
+                      device=d[0].device)
+    _launch(PAINT_SLAB, "fbx_cic_paint_lattice_slab", out.dtype, out.device,
+            *(t.data_ptr() for t in d), _build.ptr(weights), out.data_ptr(),
+            S, N, int(B))
+    return out
+
+
+def cic_gather3_lattice_slab_cuda(exts, disp, B: int, out=None):
+    """K11c in slab mode: three (S, N, N) gathers from three halo-extended
+    (S + 2H, N, N) meshes; ``out`` as in :func:`cic_gather3_lattice_cuda`."""
+    exts = tuple(exts)
+    if len(exts) != 3:
+        raise ValueError(f"{GATHER3_SLAB}: needs three meshes")
+    d0 = tuple(disp)[0]
+    outs = tuple(torch.empty_like(d0) for _ in range(3)) if out is None \
+        else tuple(out)
+    if len(outs) != 3:
+        raise ValueError(f"{GATHER3_SLAB}: out must be three tensors")
+    d, S, N = _check_slab(GATHER3_SLAB, disp, B, outs, exts)
+    ins = {t.untyped_storage().data_ptr() for t in exts + d}
+    if any(o.untyped_storage().data_ptr() in ins for o in outs):
+        raise ValueError(f"{GATHER3_SLAB}: out shares storage with an input")
+    _launch(GATHER3_SLAB, "fbx_cic_gather3_lattice_slab", outs[0].dtype,
+            outs[0].device, *(m.data_ptr() for m in exts),
+            *(t.data_ptr() for t in d), *(o.data_ptr() for o in outs), S, N,
+            int(B))
+    return outs
+
+
+def cic_paint_lattice_slab_plain(disp, B: int, weights=None):
+    return twin.cic_paint_lattice_slab(tuple(disp), B, weights)
+
+
+def cic_gather3_lattice_slab_plain(exts, disp, B: int):
+    return twin.cic_gather3_lattice_slab(tuple(exts), tuple(disp), B)
+
+
 def cic_paint_lattice_plain(disp, B: int, weights=None, openband: bool = True):
     return twin.cic_paint_lattice(tuple(disp), B, weights, openband)
 
@@ -129,3 +206,10 @@ def cic_gather3_lattice(meshes, disp, B: int, openband: bool = True):
     if _on(GATHER3, meshes[0]) == "cuda":
         return cic_gather3_lattice_cuda(meshes, disp, B, openband)
     return cic_gather3_lattice_plain(meshes, disp, B, openband)
+
+
+def cic_paint_lattice_slab(disp, B: int, weights=None):
+    """K11a's slab mode on CUDA tensors, the slab twin on CPU tensors."""
+    if _on(PAINT_SLAB, disp[0]) == "cuda":
+        return cic_paint_lattice_slab_cuda(disp, B, weights)
+    return cic_paint_lattice_slab_plain(disp, B, weights)

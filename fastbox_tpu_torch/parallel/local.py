@@ -13,7 +13,9 @@ temporary directory.
 ``sharded_step`` and ``ensemble`` (``make_ensemble_pipeline`` over a mesh
 of the world's ranks), ``spectra``, ``filters`` and ``halos`` (the sharded
 estimators, PCA filter and halo counts on this rank's rows, 'space' = the
-world).
+world), ``lattice`` (the halo-exchange paint and gather on this rank's
+rows) and ``cola`` (``make_sharded_cola`` on supplied white noise, and its
+ensemble mode against single calls).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["launch", "tasks", "fft", "sharded_step", "ensemble", "spectra",
-           "filters", "halos"]
+           "filters", "halos", "lattice", "cola"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 
@@ -214,8 +216,71 @@ def halos(payload: dict) -> dict:
     return {"counts": counts, "delta_h": delta_h, "cross": cross}
 
 
+def lattice(payload: dict) -> dict:
+    """{B: outputs} of the halo primitives on this rank's rows of
+    ``payload["lattice"]``'s full cubes, 'space' = the world: for each B of
+    ``disp`` ({B: (N, N, N, 3)}), ``paint``, ``paint_w`` (``weights``
+    (N, N, N)), ``paint_many`` and ``gather_many`` of ``meshes``
+    (3, N, N, N), and ``paint_single``/``gather_single``, the per-channel
+    calls."""
+    from . import lattice as hl
+    from .mesh import axis_group, make_mesh
+
+    spec = payload["lattice"]
+    P = dist.get_world_size()
+    group, _, r = axis_group(make_mesh(P, space=P, device="cpu"), "space")
+    n = spec["weights"].shape[0]
+    rows = slice(r * n // P, (r + 1) * n // P)
+    w, m = spec["weights"][rows], spec["meshes"][:, rows]
+    out = {}
+    for B, disp in spec["disp"].items():
+        d = disp[rows]
+        out[B] = {"paint": hl.halo_paint(d, B, group),
+                  "paint_w": hl.halo_paint(d, B, group, weights=w),
+                  "paint_many": hl.halo_paint_many(d, B, group, m),
+                  "gather_many": hl.halo_gather_many(m, d, B, group),
+                  "paint_single": [hl.halo_paint(d, B, group, weights=c)
+                                   for c in m],
+                  "gather_single": [hl.halo_gather(c, d, B, group)
+                                    for c in m]}
+    return out
+
+
+def cola(payload: dict) -> list:
+    """``make_sharded_cola`` for each spec of ``payload["cola"]`` on a mesh
+    of every rank with 'space' = ``spec["space"]``, in the spec's dtype on
+    its grid (box, N, z) and cosmology parameters: ``fn(white=...)`` on the
+    full white field ``spec["white"]``, or, with ``spec["seeds"]``, the
+    ensemble call ``fn(seeds=...)`` beside single calls on each seed
+    (``{"ensemble": ..., "single": [...]}``)."""
+    from ..cosmology import build_cosmology
+    from ..grid import GridSpec
+    from .cola import make_sharded_cola
+    from .mesh import make_mesh
+
+    outs = []
+    for spec in payload["cola"]:
+        box, n, z = spec["grid"]
+        grid = GridSpec.create(box_scale=box, nsamp=n, redshift=z)
+        cosmo = build_cosmology(spec["cosmo"], redshift=z)
+        mesh = make_mesh(dist.get_world_size(), space=spec["space"],
+                         device="cpu")
+        kw = dict(spec["kw"], device="cpu")
+        if "seeds" not in spec:
+            outs.append(make_sharded_cola(mesh, grid, cosmo, **kw)(
+                white=spec["white"]))
+            continue
+        one = make_sharded_cola(mesh, grid, cosmo, **kw)
+        outs.append({
+            "ensemble": make_sharded_cola(mesh, grid, cosmo, ensemble=True,
+                                          **kw)(seeds=spec["seeds"]),
+            "single": [one(seed=sd) for sd in spec["seeds"]]})
+    return outs
+
+
 _TASKS = {"fft": fft, "sharded_step": sharded_step, "ensemble": ensemble,
-          "spectra": spectra, "filters": filters, "halos": halos}
+          "spectra": spectra, "filters": filters, "halos": halos,
+          "lattice": lattice, "cola": cola}
 
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
