@@ -118,6 +118,19 @@ failure:
      the same white noise, the engine with the plain twins on the card: the
      first force evaluation per particle, the final field (bitwise equal),
      std(delta) and the binned P(k), and bench_cola.py's health bounds;
+ 8c. still on the one-rank mesh, the foregrounds and the cleaners: (a)
+     the README quickstart at 256^3 in the 4 Gpc box at z=0.8, f32
+     (CosmoBox, HI tracer, log-normal, RSD at sigma_NL 120, T_b,
+     ForegroundModel, PointSourceModel, NoiseModel), then every cleaner
+     of filters/ on the cube (kernel PCA on its 64 x 64-pixel cut) and
+     binned_power_spectrum (K6) of each cleaned cube, each step's wall ms
+     (median of 3) and peak device memory, launch counters reset just
+     before and read just after (K1, K2 and K6 must launch), every output
+     finite; (b) the same chain on supplied noise at 64^3 in a 1 Gpc box,
+     the card against the CPU in f32 and in f64, every output within its
+     bound, the point-source shot maps equal; (c) a 256^3 f32 slab as a
+     DTensor through io.save_sharded/load_sharded and the 256^3 box
+     through io.save_box/load_box, bitwise, with write and read times;
   9. the K10 route of the cube transforms (ops/mmfft.PALLAS_DFT on, and
      off again after): the pipeline at 256^3 (three realisations) and 512^3
      (two), each with launch counters reset just before and read just
@@ -2077,6 +2090,324 @@ def phase_box(dev) -> None:
     check(e <= BOX_FIELD_BOUND, f"beam convolution: {e}")
 
 
+# ----------------------------------------------------------------------
+# Phase 8c: the foreground models, the cleaners and the checkpoints
+# ----------------------------------------------------------------------
+FG_CHECK_N, FG_CHECK_BOX = 64, 1e3   # (b): the card against the CPU
+KPCA_PIX = {N_MAIN: 64, FG_CHECK_N: 32}   # the kernel PCA's pixel cut
+FG_REPS = 3
+# (b) max|card - CPU| / max|CPU| of each output, on the same noise (PERF.md
+# §4, stated before the first run).  The chain's fields: FFT, pow and exp
+# rounding, which the f32 RSD remap's brackets magnify (1.67e-5 of max on
+# each device's own fields at 256^3, PERF.md §6).  The cleaned cubes are
+# ~1e-6 of the data, whose bright point sources reach ~4e6 mK: a
+# covariance rounding of eps * 1e12 mK^2 then
+# reaches the noise-level eigenvalues that separate the 4th mode from the
+# 5th, in f32 and, at eps64, still near them.  On this cube fastbox_tpu and
+# the port, both in f64 on the CPU, differ by 6.7e-4 (PCA), 2.4e-3
+# (band-power PCA), 1.1e-3 (ICA), 6.1e-2 and 1.0e-1 (kernel PCA), 1.2e-4
+# (GPR's 500 Adam steps), 2.1e-8 (LSQ) and 1.1e-11 (NMF) of the cleaned
+# cube's max.  In f32 each cleaned cube is held to 3x the CPU's own f32
+# floor (the CPU f32 run against the CPU f64 run, measured in the same
+# call), as the truth gate holds the card.
+FG_STAGE_BOUND = {torch.float64: 1e-10, torch.float32: 1e-4}
+FG_CLEAN_BOUND_F64 = {"mean_spectrum_filter": 1e-8,
+                      "angular_bandpass_filter": 1e-8, "nmf_filter": 1e-8,
+                      "LSQfitting.run_fit": 1e-6,
+                      "LSQfitting.give_hest": 1e-6, "gpr_filter": 1e-2,
+                      "pca_filter": 0.5, "bandpower_pca_filter": 0.5,
+                      "ica_filter": 0.5, "kernel_pca_filter": 0.5,
+                      "kernel_pca_filter_legacy": 0.5}
+FG_F32_FLOORS = 3.0
+
+
+def fg_chain(box, noise=None, step=None) -> dict:
+    """The README quickstart on ``box`` with the point sources added:
+    density, HI bias, log-normal, RSD at sigma_NL 120 km/s (K2, K1), T_b,
+    the diffuse foregrounds, the point sources and the radiometer noise
+    (K1).  ``noise``: the supplied numbers of every draw (None: the box's
+    generator); ``step(label, fn)`` runs each stage (default: once)."""
+    from fastbox_tpu_torch.models import (ForegroundModel, HITracer,
+                                          NoiseModel, PointSourceModel)
+
+    s = noise or {}
+    step = step or (lambda label, fn: fn())
+    out = {}
+    step("realise_density", lambda: box.realise_density(white=s.get("white")))
+    tracer = HITracer(box)
+    out["delta_ln"] = step("HITracer bias + lognormal", lambda: box.lognormal(
+        box.delta_x * tracer.bias_HI()))
+    vel_z = step("realise_velocity + ifftn", lambda: torch.fft.ifftn(
+        box.realise_velocity(delta_x=box.delta_x)[2]).real.contiguous())
+    out["delta_s"] = step("redshift_space_density sigma_nl=120", lambda:
+                          box.redshift_space_density(
+                              out["delta_ln"], vel_z, sigma_nl=120.0,
+                              normals=s.get("rsd")))
+    out["T_b"] = step("T_b", lambda: tracer.signal_amplitude()
+                      * (1.0 + out["delta_s"]))
+    fgm = ForegroundModel(box)
+    out["fg_amp"] = step("ForegroundModel.realise_foreground_amp", lambda:
+                         fgm.realise_foreground_amp(
+                             57.0, 1.1, 10.0, smoothing_scale=4.0,
+                             white=s.get("fg_white")))
+    out["fg_alpha"] = step("ForegroundModel.realise_spectral_index", lambda:
+                           fgm.realise_spectral_index(
+                               2.07, 2e-4, 15.0, normals=s.get("fg_normals")))
+    out["fg"] = step("ForegroundModel.construct_cube", lambda:
+                     fgm.construct_cube(out["fg_amp"], out["fg_alpha"],
+                                        freq_ref=130.0))
+    ps = PointSourceModel(box)
+    out["ps"], out["tpsmean"] = step(
+        "PointSourceModel.construct_cube", lambda: ps.construct_cube(
+            flux_cutoff=0.1, beta=-2.7, delta_beta=0.1, seed_clustering=1,
+            seed_poisson=2, white_clustering=s.get("ps_white_c"),
+            white_poisson=s.get("ps_white_p"),
+            spidx_normals=s.get("ps_normals")))
+    out["shot"] = torch.as_tensor(ps.shot_map(0.1, seed_poisson=2))
+    out["noise"] = step("NoiseModel.realise_radiometer_noise", lambda:
+                        NoiseModel(box).realise_radiometer_noise(
+                            18.0, 2.0, 1.0, 64, normals=s.get("noise")))
+    out["data"] = out["T_b"] + out["fg"] + out["ps"] + out["noise"]
+    return out
+
+
+def fg_cleaners(box, data, tpsmean, w0=None) -> list:
+    """(name, call) of every cleaner on ``data``: NMF on the cube shifted
+    to be non-negative (where it is not), kernel PCA on the KPCA_PIX cut,
+    LSQ's residual reshaped to the cube."""
+    import fastbox_tpu_torch.filters as flt
+
+    n = box.N
+    lsq = flt.LSQfitting(box)
+    freqs = box.freq_array()
+    nonneg = data - torch.clamp(data.min(), max=0.0)
+    cut = data[:KPCA_PIX[n], :KPCA_PIX[n]].contiguous()
+    return [
+        ("pca_filter", lambda: flt.pca_filter(data, 4)),
+        ("mean_spectrum_filter", lambda: flt.mean_spectrum_filter(data)),
+        ("angular_bandpass_filter", lambda: flt.angular_bandpass_filter(
+            data, 0.05, 0.3).real.contiguous()),
+        ("bandpower_pca_filter", lambda: flt.bandpower_pca_filter(data, 3,
+                                                                  4)),
+        ("ica_filter", lambda: flt.ica_filter(data, 4, w0=w0)),
+        ("nmf_filter", lambda: flt.nmf_filter(nonneg, 4)),
+        ("LSQfitting.run_fit", lambda: lsq.run_fit(
+            data, freqs, n * n, tpsmean, -2.1)[0].reshape(data.shape)),
+        ("LSQfitting.give_hest", lambda: lsq.give_hest(data, -2.1, -2.7, 0.1,
+                                                       0.1)[0]),
+        ("gpr_filter", lambda: flt.gpr_filter(data)),
+        ("kernel_pca_filter", lambda: flt.kernel_pca_filter(cut, 4)),
+        ("kernel_pca_filter_legacy", lambda: flt.kernel_pca_filter_legacy(
+            cut, 4)),
+    ]
+
+
+def timed_step(times: dict):
+    """A ``fg_chain`` step that runs each stage FG_REPS times, logs its
+    wall ms (median) and peak device memory, and keeps the median in
+    ``times``."""
+    def step(label, fn):
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(FG_REPS):
+            out, t = wall_ms(fn)
+            ms.append(t)
+        times[label] = statistics.median(ms)
+        log(f"8c {label}: {times[label]:.2f} ms (median of {FG_REPS}: "
+            + ", ".join(f"{t:.2f}" for t in ms) + "), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return out
+    return step
+
+
+def ica_iterations(fn) -> tuple:
+    """(result of ``fn``, the number of symmetric decorrelations it made:
+    one for the start and one per FastICA iteration)."""
+    ica = sys.modules["fastbox_tpu_torch.filters.ica"]
+    inner, calls = ica._sym_decorrelation, []
+
+    def counting(W):
+        calls.append(1)
+        return inner(W)
+
+    ica._sym_decorrelation = counting
+    try:
+        return fn(), len(calls)
+    finally:
+        ica._sym_decorrelation = inner
+
+
+def phase_foregrounds(dev, mesh) -> None:
+    """Phase 8c, on phase 7's one-rank NCCL mesh: (a) the quickstart chain
+    and every cleaner at 256^3 on the card, timed, K1/K2/K6 counted; (b)
+    the chain on supplied noise at 64^3, card against CPU in f32 and f64;
+    (c) save_sharded/load_sharded of a 256^3 slab and save_box/load_box of
+    the 256^3 box."""
+    from fastbox_tpu_torch.box import CosmoBox
+    from fastbox_tpu_torch.ops.cuda import _build
+
+    # (a) the quickstart at 256^3, counted from zero
+    kw = dict(cosmo=COSMO, box_scale=BOX, nsamp=N_MAIN, redshift=Z,
+              realise_now=False, seed=10, dtype=torch.float32)
+    box = CosmoBox(device=dev, **kw)
+    times = {}
+    step = timed_step(times)
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    chain = fg_chain(box, step=step)
+    data = chain["data"]
+    check(bool(torch.isfinite(data).all()), "8c: the data cube")
+    cleaned = {}
+    for name, call in fg_cleaners(box, data, chain["tpsmean"]):
+        if name == "ica_filter":
+            (out, n_dec) = step(name, lambda: ica_iterations(call))
+            log(f"8c ica_filter: {n_dec - 1} FastICA iterations, "
+                f"{times[name] / max(n_dec - 1, 1):.3f} ms per iteration")
+        else:
+            out = step(name, call)
+        check(bool(torch.isfinite(out).all()),
+              f"8c {name}: non-finite values in the cleaned cube")
+        cleaned[name] = out
+    for name, cube in cleaned.items():
+        if cube.shape != box.grid.shape:
+            continue    # the kernel PCA's pixel cut
+        k, pk, _ = step(f"binned_power_spectrum of {name}",
+                        lambda: box.binned_power_spectrum(delta_x=cube))
+        check(bool(torch.isfinite(pk[1:]).any()), f"8c P(k) of {name}")
+    counts = _build.launch_counts()
+    log(f"8c launch counts over the quickstart and the cleaners: "
+        f"{json.dumps(counts)}")
+    check_route_off(counts, "phase 8c")
+    for name in ("add_scaled_normal", "rsd_remap_wrap", "binned_pk_full"):
+        check(counts.get(name, 0) > 0, f"8c: {name} never launched")
+    dec = torch.randn((4, 4), dtype=torch.float64, device=dev)
+    eigh_ms = median_ms(lambda: torch.linalg.eigh(dec @ dec.T))
+    log(f"8c: one 4x4 f64 eigh on the card {eigh_ms:.4f} ms (cuSOLVER, "
+        f"FastICA's decorrelation); phase (a) {time.perf_counter() - t0:.1f}"
+        " s")
+
+    # (b) card against CPU on supplied noise, f32 and f64
+    t0 = time.perf_counter()
+    fg_versus_cpu(dev)
+    log(f"8c (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) the checkpoints
+    fg_checkpoints(dev, mesh, box)
+
+
+def fg_noise(n: int, seed: int) -> dict:
+    """Every draw of ``fg_chain`` at N = n, from a CPU generator: float64."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    def cnormal(*shape):
+        return torch.complex(normal(*shape), normal(*shape))
+
+    return {"white": cnormal(n, n, n), "rsd": normal(n, n, n),
+            "fg_white": cnormal(n, n), "fg_normals": normal(n, n),
+            "ps_white_c": cnormal(n, n), "ps_white_p": cnormal(n, n),
+            "ps_normals": normal(n, n), "noise": normal(n, n, n),
+            "w0": normal(4, 4)}
+
+
+def fg_versus_cpu(dev) -> None:
+    """(b): the chain and every cleaner at FG_CHECK_N^3 on the same supplied
+    noise on the card and on the CPU, in f32 and in f64; each output's
+    max|card - CPU| / max|CPU| against its bound (FG_STAGE_BOUND,
+    FG_CLEAN_BOUND_F64, FG_F32_FLOORS x the CPU's f32 floor); the shot
+    maps equal."""
+    from fastbox_tpu_torch.box import CosmoBox
+    from fastbox_tpu_torch.fields.gaussian import complex_dtype
+
+    noise = fg_noise(FG_CHECK_N, 8)
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        for tag, where in (("card", dev), ("cpu", "cpu")):
+            box = CosmoBox(cosmo=COSMO, box_scale=FG_CHECK_BOX,
+                           nsamp=FG_CHECK_N, redshift=Z, realise_now=False,
+                           dtype=dtype, device=where)
+            s = {k: v.to(complex_dtype(dtype) if v.is_complex() else dtype)
+                 .to(where) for k, v in noise.items()}
+            out = fg_chain(box, s)
+            for name, call in fg_cleaners(box, out["data"], out["tpsmean"],
+                                          w0=s["w0"]):
+                out[name] = call()
+            got[tag, dtype] = out
+    cpu32, cpu64 = got["cpu", torch.float32], got["cpu", torch.float64]
+    stages = ("delta_ln", "delta_s", "T_b", "fg_amp", "fg_alpha", "fg", "ps",
+              "noise", "data")
+    for dtype in (torch.float32, torch.float64):
+        card, cpu = got["card", dtype], got["cpu", dtype]
+        check(torch.equal(card["shot"], cpu["shot"]),
+              "8c: the shot maps differ between the card and the CPU")
+        for name, want in cpu.items():
+            if name in ("shot", "tpsmean"):
+                continue
+            check(bool(torch.isfinite(card[name]).all()),
+                  f"8c (b) {name}: non-finite values on the card")
+            e = norm_err(card[name].cpu(), want)
+            floor = norm_err(cpu32[name], cpu64[name])
+            if name in stages:
+                bound = FG_STAGE_BOUND[dtype]
+            elif dtype == torch.float64:
+                bound = FG_CLEAN_BOUND_F64[name]
+            else:
+                bound = FG_F32_FLOORS * floor + 1e-6
+            log(f"8c (b) {str(dtype)[6:]} {name}: card vs CPU {e:.3e} of max "
+                f"(bound {bound:.3e}; CPU f32 vs f64 {floor:.3e})")
+            check(e <= bound, f"8c (b) {name} {dtype}: {e} > {bound}")
+    log("8c (b): every output within its bound; shot maps torch.equal")
+
+
+def fg_checkpoints(dev, mesh, box) -> None:
+    """(c): a 256^3 f32 slab as a DTensor (this rank's rows over 'space')
+    saved and restored bitwise, and the 256^3 box through save_box /
+    load_box, with write and read times.  Files go under build/ and are
+    removed."""
+    import shutil
+    from pathlib import Path
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from fastbox_tpu_torch import io as fio
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_io"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        slab = box.delta_x.contiguous()
+        placements = [Replicate(), Shard(0)]
+        tree = {"delta": DTensor.from_local(slab, mesh, placements)}
+        _, w = wall_ms(lambda: fio.save_sharded(str(root / "ckpt"), tree))
+        template = {"delta": DTensor.from_local(torch.full_like(slab, -1.0),
+                                                mesh, placements)}
+        got, r = wall_ms(lambda: fio.load_sharded(str(root / "ckpt"),
+                                                  template))
+        same = torch.equal(got["delta"].to_local(), slab)
+        mb = slab.numel() * slab.element_size() / 2**20
+        log(f"8c (c) save_sharded of a {N_MAIN}^3 f32 slab ({mb:.0f} MiB): "
+            f"write {w:.1f} ms, read {r:.1f} ms, bitwise equal {same}")
+        check(same, "8c: save_sharded/load_sharded round trip differs")
+        path = str(root / "box.npz")
+        _, w = wall_ms(lambda: fio.save_box(path, box))
+        back, r = wall_ms(lambda: fio.load_box(path, device=dev))
+        names = ("delta_x", "delta_k")
+        same = (all(torch.equal(getattr(back, n), getattr(box, n))
+                    for n in names)
+                and all(torch.equal(a, b) for a, b in zip(back.velocity_k,
+                                                          box.velocity_k))
+                and back.grid == box.grid and back.dtype == box.dtype)
+        log(f"8c (c) save_box/load_box of the {N_MAIN}^3 box (delta_x, "
+            f"delta_k, velocity_k; {Path(path).stat().st_size / 2**20:.0f} "
+            f"MiB compressed): write {w:.0f} ms, read {r:.0f} ms, bitwise "
+            f"equal {same}")
+        check(same, "8c: save_box/load_box round trip differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     from fastbox_tpu_torch.timing import StageClock
 
@@ -3554,6 +3885,9 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     cola = phase_cola(dev, k11)
     slab = phase_sharded_cola(dev, mesh)
+    t0 = time.perf_counter()
+    phase_foregrounds(dev, mesh)
+    log(f"phase 8c: {time.perf_counter() - t0:.1f} s")
     dist.destroy_process_group()
 
     # The K10 route: the pipeline, then COLA, counted apart

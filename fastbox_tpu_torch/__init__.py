@@ -21,11 +21,16 @@ Main path::
     fn = make_pipeline(grid, cosmo, PipelineConfig(), device="cuda")
     out = fn(torch.Generator(device="cuda").manual_seed(0))
 
-The reference's object API is ``CosmoBox`` (``box.py``); the slab-sharded
-COLA engine is ``parallel.make_sharded_cola``.
+The reference's object API is ``CosmoBox`` (``box.py``) with the models
+(``models``), the cleaners (``filters``) and checkpoints (``io``); the
+slab-sharded COLA engine is ``parallel.make_sharded_cola``.
 """
-from . import cosmology, fields, filters, grid, models, ops, pipeline, utils
+from . import cosmology, fields, filters, grid, io, models, ops, pipeline, utils
 from .box import CosmoBox, default_cosmo
 
-__all__ = ["cosmology", "fields", "filters", "grid", "models", "ops",
-           "pipeline", "utils", "CosmoBox", "default_cosmo"]
+# Reference-style module aliases (`fastbox.tracers`, `fastbox.noise`, ...)
+from .models import foregrounds, noise, tracers
+
+__all__ = ["cosmology", "fields", "filters", "grid", "io", "models", "ops",
+           "pipeline", "utils", "CosmoBox", "default_cosmo", "foregrounds",
+           "noise", "tracers"]

@@ -31,12 +31,22 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pca_filter", "pca_filter_subspace", "pca_project",
-           "topk_eigvecs_subspace", "top_eigvecs", "covariance"]
+           "mean_spectrum_filter", "topk_eigvecs_subspace", "top_eigvecs",
+           "covariance"]
 
 
 def _work(field: torch.Tensor) -> torch.Tensor:
     """The field in the dtype the clean computes in: float64 for float32."""
     return field.double() if field.dtype == torch.float32 else field
+
+
+def mean_spectrum_filter(field: torch.Tensor) -> torch.Tensor:
+    """Subtract the pixel-mean spectrum from each channel (filters.py:35-55);
+    the mean of a float32 field is taken in float64 (``_work``)."""
+    f = _work(field)
+    d = f.reshape(-1, f.shape[-1])  # (Npix, Nfreq)
+    return (d - torch.mean(d, dim=0, keepdim=True)).reshape(
+        field.shape).to(field.dtype)
 
 
 def _centre(field: torch.Tensor):

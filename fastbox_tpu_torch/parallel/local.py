@@ -14,8 +14,9 @@ temporary directory.
 of the world's ranks), ``spectra``, ``filters`` and ``halos`` (the sharded
 estimators, PCA filter and halo counts on this rank's rows, 'space' = the
 world), ``lattice`` (the halo-exchange paint and gather on this rank's
-rows) and ``cola`` (``make_sharded_cola`` on supplied white noise, and its
-ensemble mode against single calls).
+rows), ``cola`` (``make_sharded_cola`` on supplied white noise, and its
+ensemble mode against single calls) and ``io`` (``io.save_sharded`` of
+this rank's rows, ``io.load_sharded`` into slab and whole templates).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["launch", "tasks", "fft", "sharded_step", "ensemble", "spectra",
-           "filters", "halos", "lattice", "cola"]
+           "filters", "halos", "lattice", "cola", "io"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 
@@ -278,9 +279,57 @@ def cola(payload: dict) -> list:
     return outs
 
 
+def io(payload: dict) -> dict:
+    """Each mode of ``payload["io"]["modes"]``, in order, on a mesh of every
+    rank ('space' = the world): 'save' writes this rank's rows of ``cube``
+    (N, ...) as a plain tensor over the mesh and ``steps`` as a replicated
+    ``DTensor`` to ``path``; 'load' restores ``path`` into ``DTensor`` slab
+    templates (this rank's rows) and into a plain tensor (the whole cube on
+    every rank); 'unsharded' saves this rank's rows with no mesh to
+    ``path`` + '_unsharded', which must be refused on more than one rank
+    (the error's message, or None)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from .. import io as fio
+    from .mesh import make_mesh
+
+    spec = payload["io"]
+    P, r = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh(P, space=P, device="cpu")
+    cube, path = spec["cube"], spec["path"]
+    n = cube.shape[0]
+    rows = cube[r * n // P:(r + 1) * n // P].clone()
+    replicated = [Replicate(), Replicate()]
+    out = {}
+    for mode in spec["modes"]:
+        if mode == "save":
+            steps = DTensor.from_local(torch.tensor(spec["steps"]), mesh,
+                                       replicated)
+            fio.save_sharded(path, {"delta": rows, "meta": {"steps": steps}},
+                             mesh)
+        elif mode == "unsharded":
+            try:
+                fio.save_sharded(path + "_unsharded", {"delta": rows})
+                out[mode] = None
+            except ValueError as exc:
+                out[mode] = str(exc)
+        else:
+            slab = fio.load_sharded(path, {
+                "delta": DTensor.from_local(torch.full_like(rows, torch.nan),
+                                            mesh, [Replicate(), Shard(0)]),
+                "meta": {"steps": DTensor.from_local(torch.tensor(-1), mesh,
+                                                     replicated)}})
+            whole = fio.load_sharded(path, {
+                "delta": torch.full_like(cube, torch.nan)})
+            out[mode] = {"rows": slab["delta"].to_local(),
+                         "steps": slab["meta"]["steps"].to_local().item(),
+                         "whole": whole["delta"]}
+    return out
+
+
 _TASKS = {"fft": fft, "sharded_step": sharded_step, "ensemble": ensemble,
           "spectra": spectra, "filters": filters, "halos": halos,
-          "lattice": lattice, "cola": cola}
+          "lattice": lattice, "cola": cola, "io": io}
 
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
