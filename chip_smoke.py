@@ -131,6 +131,26 @@ failure:
      bound, the point-source shot maps equal; (c) a 256^3 f32 slab as a
      DTensor through io.save_sharded/load_sharded and the 256^3 box
      through io.save_box/load_box, bitwise, with write and read times;
+ 8d. the analysis package, each step in timing.stage (Timings.report() at
+     the end): (a) example_void_detection.py's void path at 256^3 in a
+     1 Gpc box (CosmoBox seed 12, z = 0, f32, RSD with sigma_NL 120 km/s),
+     launch counters reset just before the field and read just after (K1
+     and K3, the exact RSD tier, must launch), watershed_labels on the card
+     equal element for element to the CPU's on the same field (the device
+     descent timed), apply_watershed with its merge, the volume cut,
+     centroids, radii and the stack of 40 voids (its centre finite and
+     negative); (b) the
+     example's field at 128^3 (sigma_NL 0, counted: K2 must launch),
+     apply_watershed with markers=512 and with 300 explicit markers, card
+     equal to CPU, masked voxels 0; (c) grid_catalogue of
+     4,000,000 points onto 256^3 (counts equal to the CPU's, weighted f32
+     within 1e-5 of max) and interpolate_onto_grid of the 256^3 field with
+     1% NaNs to 200 x 200 x 300 past one edge (f32 1e-6, f64 1e-12 of
+     max, NaN masks equal); (d) gaussian_cr_1d on 64 x 64 pixels x 128
+     channels, f64, 2 realisations, cg_tol 1e-12 (its batched eigh timed
+     apart; the CPU on the first 256 pixels, 1e-6 of max|s|) and LSSA on
+     1024 channels and modes (1e-10 of max); (e) example_fisher.py's
+     forecast (finite, C_x^2 <= C_gal C_im, F > 0);
   9. the K10 route of the cube transforms (ops/mmfft.PALLAS_DFT on, and
      off again after): the pipeline at 256^3 (three realisations) and 512^3
      (two), each with launch counters reset just before and read just
@@ -2408,6 +2428,360 @@ def fg_checkpoints(dev, mesh, box) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 8d: the analysis package (voids, datacube, inpaint, forecast)
+# example_void_detection.py's box and seed, at 256^3 (the example: 64^3)
+VOID_N, VOID_BOX, VOID_SEED = 256, 1e3, 12
+# RSD at (a) sigma_NL 120 km/s, PipelineConfig's default (K1 draws the
+# velocities; at 256^3 the displacements reach ~6 cells, so the remap takes
+# the exact tier, K3) and (b) the example's sigma_NL 0 (~3 cells at 128^3:
+# the band-4 bracket scan, K2)
+VOID_SIGMA_NL = {VOID_N: 120.0, 128: 0.0}
+VOID_KERNELS = {VOID_N: ("add_scaled_normal", "interp_sorted"),
+                128: ("rsd_remap_wrap",)}
+MARKER_N, MARKER_COUNT, MARKER_POINTS = 128, 512, 300   # (b)
+CAT_POINTS, CAT_N = 4_000_000, 256
+CAT_WEIGHTED_BOUND = 1e-5    # index_add_'s atomic order is not fixed
+REGRID_SHAPE, REGRID_NAN = (200, 200, 300), 0.01
+REGRID_BOUND = {torch.float32: 1e-6, torch.float64: 1e-12}
+GCR_SIDE, GCR_NFREQ, GCR_REALISATIONS, GCR_CPU_PIX = 64, 128, 2, 256
+GCR_BOUND = 1e-6         # of max|s|: CG to 1e-12 on matrices of cond ~1e4
+LSSA_NFREQ, LSSA_BOUND = 1024, 1e-10
+
+
+def void_field(dev, n: int):
+    """example_void_detection.py's field at n^3 in the 1 Gpc box (seed 12,
+    z = 0, f32), with incoherent velocities of VOID_SIGMA_NL[n] km/s."""
+    from fastbox_tpu_torch.box import CosmoBox, default_cosmo
+
+    box = CosmoBox(cosmo=default_cosmo, box_scale=(VOID_BOX,) * 3, nsamp=n,
+                   realise_now=False, seed=VOID_SEED, dtype=torch.float32,
+                   device=dev)
+    delta_x = box.realise_density()
+    vel_k = box.realise_velocity(delta_x=delta_x)
+    vel_z = torch.fft.ifftn(vel_k[2]).real.contiguous()
+    delta_s = box.redshift_space_density(delta_x=delta_x, velocity_z=vel_z,
+                                         sigma_nl=VOID_SIGMA_NL[n])
+    return box, delta_s
+
+
+def counted_field(dev, n: int, timings):
+    """``void_field`` in a stage, launch counters reset just before and
+    read just after: VOID_KERNELS[n] must launch."""
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.timing import stage
+
+    _build.reset_launch_counts()
+    with stage(f"8d realise + RSD {n}^3", timings=timings) as s:
+        box, delta_s = void_field(dev, n)
+        s["sync"] = delta_s
+    counts = _build.launch_counts()
+    log(f"8d launch counts over the {n}^3 field: {json.dumps(counts)}")
+    check_route_off(counts, "phase 8d")
+    for name in VOID_KERNELS[n]:
+        check(counts.get(name, 0) > 0, f"8d: {name} never launched at {n}^3")
+    return box, delta_s
+
+
+def analysis_voids(dev, timings):
+    """(a): the void path at VOID_N^3 on the card, K1/K3 counted, its basins
+    equal to the CPU's on the same field; (b) the marker flood at
+    MARKER_N^3, card against CPU.  Returns (a)'s redshift-space field."""
+    from fastbox_tpu_torch.analysis import voids
+    from fastbox_tpu_torch.timing import stage
+
+    box, delta_s = counted_field(dev, VOID_N, timings)
+    f = voids._contrast(delta_s)
+    mask = ~(f > 0.0)
+    with stage("8d (a) watershed_labels on the card", timings=timings) as s:
+        card = voids.watershed_labels(f, mask)
+        s["sync"] = card
+    descent_ms = median_ms(lambda: voids._steepest_descent_labels(f, mask))
+    t0 = time.perf_counter()
+    cpu = voids.watershed_labels(f.cpu(), mask.cpu())
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(card.cpu(), cpu)
+    log(f"8d (a) basins at {VOID_N}^3: {int(card.max())} regions; device "
+        f"descent {descent_ms:.3f} ms (CUDA events), CPU watershed_labels "
+        f"{cpu_s:.2f} s; card == CPU element for element: {same}")
+    check(same, "8d: the card's basins differ from the CPU's")
+
+    with stage(f"8d (a) apply_watershed {VOID_N}^3", timings=timings):
+        labels = voids.apply_watershed(delta_s, markers=None,
+                                       mask_threshold=0.0,
+                                       merge_threshold=0.2)
+    with stage("8d (a) catalogue, centroids, radii", timings=timings):
+        cat = voids.trim_by_volume(labels, nmin=30, nmax=100000)
+        cat = cat[cat > 0]
+        cents = voids.void_centroid(cat, labels, box, field=delta_s,
+                                    kind="uniform")
+        radii = voids.void_radii(cat, labels, box)
+    check(cat.size > 0 and len(cents) == len(radii) == cat.size,
+          "8d: no void passed the volume cut")
+    rs = np.array([radii[lbl] for lbl in cat])
+    with stage("8d (a) stack_voids of 40", timings=timings):
+        stack, failures = voids.stack_voids(cat[:40], labels, box, delta_s,
+                                            grid_pix=15)
+    centre = float(stack[7, 7, 7])
+    log(f"8d (a) {cat.size} voids pass the volume cut (radii median "
+        f"{np.median(rs):.1f} Mpc, max {rs.max():.1f}); stack centre density "
+        f"{centre:.3f}, {len(failures)} failures")
+    check(np.isfinite(centre) and centre < 0.0,
+          f"8d: the stacked void centre is {centre}, not underdense")
+
+    # (b) the marker flood, card against CPU on a torch.equal copy
+    _, field = counted_field(dev, MARKER_N, timings)
+    host = field.cpu()
+    pts = np.random.default_rng(3).integers(0, MARKER_N, (MARKER_POINTS, 3))
+    arr = np.zeros((MARKER_N,) * 3, np.int64)
+    arr[tuple(pts.T)] = np.arange(1, MARKER_POINTS + 1)
+    over = (voids._contrast(host) > 0.0).numpy()
+    for what, markers in ((f"markers={MARKER_COUNT}", MARKER_COUNT),
+                          (f"{MARKER_POINTS} explicit markers", arr)):
+        with stage(f"8d (b) apply_watershed {what} {MARKER_N}^3, card",
+                   timings=timings):
+            card = voids.apply_watershed(field, markers=markers,
+                                         verbose=False)
+        with stage(f"8d (b) apply_watershed {what} {MARKER_N}^3, CPU",
+                   timings=timings):
+            cpu = voids.apply_watershed(host, markers=markers,
+                                        verbose=False)
+        same = np.array_equal(card, cpu)
+        log(f"8d (b) {what}: {np.unique(card).size} labels; card == CPU "
+            f"{same}; masked voxels 0: {bool(np.all(card[over] == 0))}")
+        check(same, f"8d: the marker flood ({what}) differs from the CPU's")
+        check(bool(np.all(card[over] == 0)), f"8d: {what} labelled masked "
+              "voxels")
+    return delta_s
+
+
+def cat_points(n: int, seed: int) -> np.ndarray:
+    """(3, n) f32 positions in the 1 Gpc box: half uniform, half in 64
+    Gaussian blobs of 20 Mpc."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    u = rng.uniform(-0.5 * VOID_BOX, 0.5 * VOID_BOX, (half, 3))
+    centres = rng.uniform(-0.5 * VOID_BOX, 0.5 * VOID_BOX, (64, 3))
+    c = (centres[rng.integers(0, 64, n - half)]
+         + 20.0 * rng.standard_normal((n - half, 3)))
+    return np.concatenate([u, c]).T.astype(np.float32)
+
+
+def analysis_datacube(dev, timings, delta_s) -> None:
+    """(c): grid_catalogue of CAT_POINTS onto CAT_N^3 and
+    interpolate_onto_grid to REGRID_SHAPE, card against CPU."""
+    from fastbox_tpu_torch.analysis import datacube
+    from fastbox_tpu_torch.timing import stage
+
+    pts = cat_points(CAT_POINTS, 5)
+    w = np.random.default_rng(6).random(CAT_POINTS).astype(np.float32)
+    lim = (-0.5 * VOID_BOX, 0.5 * VOID_BOX)
+    lims = dict(xlim=lim, ylim=lim, zlim=lim)
+    card_pts = [torch.as_tensor(a, device=dev) for a in pts]
+    cpu_pts = [torch.as_tensor(a) for a in pts]
+    bins = dict(nx=CAT_N, ny=CAT_N, nz=CAT_N)
+    for label, kw in (("counts", {}),
+                      ("weighted f32", dict(w=torch.as_tensor(w), **lims))):
+        kw_card = {k: (v.to(dev) if torch.is_tensor(v) else v)
+                   for k, v in kw.items()}
+        with stage(f"8d (c) grid_catalogue {label}", timings=timings) as s:
+            card, cbins = datacube.grid_catalogue(*card_pts, **kw_card,
+                                                  **bins)
+            s["sync"] = card
+        ms = median_ms(lambda: datacube.grid_catalogue(*card_pts, **kw_card,
+                                                       **bins))
+        cpu, pbins = datacube.grid_catalogue(*cpu_pts, **kw, **bins)
+        same_bins = all(np.array_equal(a, b) for a, b in zip(cbins, pbins))
+        if label == "counts":
+            ok = torch.equal(card.cpu(), cpu)
+            err = 0.0 if ok else float("inf")
+        else:
+            err = norm_err(card.cpu(), cpu)
+            ok = err <= CAT_WEIGHTED_BOUND
+        log(f"8d (c) grid_catalogue {label} of {CAT_POINTS} points onto "
+            f"{CAT_N}^3: {ms:.3f} ms (CUDA events); card vs CPU {err:.3e} of "
+            f"max, bins equal {same_bins}")
+        check(ok and same_bins, f"8d: grid_catalogue {label} differs")
+
+    # interpolate_onto_grid: the box's coordinates to a grid past an edge
+    x = np.linspace(-0.5 * VOID_BOX, 0.5 * VOID_BOX, VOID_N)
+    nx, ny, nz = REGRID_SHAPE
+    new = (np.linspace(-400.0, 400.0, nx), np.linspace(-450.0, 450.0, ny),
+           np.linspace(-300.0, 600.0, nz))          # past the upper z edge
+    field = delta_s.clone()
+    nan = np.random.default_rng(7).choice(field.numel(),
+                                          int(REGRID_NAN * field.numel()),
+                                          replace=False)
+    field.view(-1)[torch.as_tensor(nan, device=field.device)] = torch.nan
+    for dtype in (torch.float32, torch.float64):
+        npd = np.float32 if dtype == torch.float32 else np.float64
+        orig = (x.astype(npd),) * 3
+        tgt = tuple(c.astype(npd) for c in new)
+        src = field.to(dtype)
+        with stage(f"8d (c) interpolate_onto_grid {str(dtype)[6:]}",
+                   timings=timings) as s:
+            card = datacube.interpolate_onto_grid(src, orig, tgt)
+            s["sync"] = card
+        ms = median_ms(lambda: datacube.interpolate_onto_grid(src, orig,
+                                                              tgt))
+        cpu = datacube.interpolate_onto_grid(src.cpu(), orig, tgt)
+        card = card.cpu()
+        same_nan = torch.equal(torch.isnan(card), torch.isnan(cpu))
+        ok = ~torch.isnan(cpu)
+        err = norm_err(card[ok], cpu[ok])
+        log(f"8d (c) interpolate_onto_grid {str(dtype)[6:]} {VOID_N}^3 -> "
+            f"{nx}x{ny}x{nz}: {ms:.3f} ms (CUDA events); card vs CPU "
+            f"{err:.3e} of max (bound {REGRID_BOUND[dtype]:.0e}), NaN masks "
+            f"equal {same_nan} ({int((~ok).sum())} NaN)")
+        check(same_nan and err <= REGRID_BOUND[dtype],
+              f"8d: interpolate_onto_grid {dtype} differs")
+
+
+def gcr_inputs(seed: int) -> dict:
+    """(d): 64 x 64 pixels of 128 channels, f64: a smooth signal drawn from
+    simple_signal_cov, correlated noise, a 10-channel gap and 5% random
+    flags, and the realisations' unit normals."""
+    from fastbox_tpu_torch.analysis import inpaint
+
+    rng = np.random.default_rng(seed)
+    npix = GCR_SIDE * GCR_SIDE
+    freqs = np.linspace(400.0, 400.0 + GCR_NFREQ - 1.0, GCR_NFREQ)
+    S = inpaint.simple_signal_cov(freqs, 1.0, 8.0, device="cpu").numpy()
+    L = np.linalg.cholesky(S + 1e-8 * np.eye(GCR_NFREQ))
+    a = 0.3 * rng.standard_normal((GCR_NFREQ, GCR_NFREQ))
+    N = 1e-3 * (np.eye(GCR_NFREQ) + a @ a.T / GCR_NFREQ)
+    d = ((L @ rng.standard_normal((GCR_NFREQ, npix))).T
+         + rng.standard_normal((npix, GCR_NFREQ)) @ np.linalg.cholesky(N).T)
+    w = (rng.random((npix, GCR_NFREQ)) > 0.05).astype(np.float64)
+    w[:, 60:70] = 0.0
+    shape = (GCR_REALISATIONS, npix, GCR_NFREQ)
+    return dict(d=d, w=w, S=S, N=N, omegas=(rng.standard_normal(shape),
+                                            rng.standard_normal(shape)))
+
+
+def analysis_inpaint(dev, timings) -> None:
+    """(d): gaussian_cr_1d (its batched eigh timed apart) and LSSA, card
+    against CPU."""
+    from fastbox_tpu_torch.analysis import inpaint
+    from fastbox_tpu_torch.timing import stage
+
+    g = gcr_inputs(8)
+    args = {k: torch.as_tensor(v, device=dev) for k, v in g.items()
+            if k != "omegas"}
+    omegas = tuple(torch.as_tensor(o, device=dev) for o in g["omegas"])
+    w, Ninv = args["w"], torch.linalg.inv(args["N"])
+    Ninvw = w[:, :, None] * Ninv * w[:, None, :]
+    inpaint._psd_sqrt(Ninvw[:2])          # cuSOLVER's first call apart
+    _, eigh_ms = wall_ms(lambda: inpaint._psd_sqrt(Ninvw))
+    torch.cuda.reset_peak_memory_stats()
+    with stage("8d (d) gaussian_cr_1d", timings=timings) as s:
+        s["sync"], ms = wall_ms(lambda: inpaint.gaussian_cr_1d(
+            **args, realisations=GCR_REALISATIONS, omegas=omegas,
+            cg_tol=1e-12))
+    card = s["sync"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p = GCR_CPU_PIX
+    t0 = time.perf_counter()
+    cpu = inpaint.gaussian_cr_1d(
+        **{k: torch.as_tensor(g[k][:p] if k in ("d", "w") else g[k])
+           for k in ("d", "w", "S", "N")},
+        realisations=GCR_REALISATIONS,
+        omegas=tuple(torch.as_tensor(o[:, :p]) for o in g["omegas"]),
+        cg_tol=1e-12)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card).all()), "8d: gaussian_cr_1d non-finite")
+    err = norm_err(card[:, :p].cpu(), cpu)
+    log(f"8d (d) gaussian_cr_1d {GCR_SIDE}x{GCR_SIDE} pixels x {GCR_NFREQ} "
+        f"channels f64, {GCR_REALISATIONS} realisations, cg_tol 1e-12: "
+        f"{ms:.1f} ms, peak device memory {peak:.2f} GiB; its batched eigh "
+        f"of {GCR_SIDE * GCR_SIDE} {GCR_NFREQ}x{GCR_NFREQ} matrices "
+        f"{eigh_ms:.1f} ms; CPU on the first {p} pixels {cpu_s:.1f} s; card "
+        f"vs CPU {err:.3e} of max|s| (bound {GCR_BOUND:.0e})")
+    check(err <= GCR_BOUND, "8d: gaussian_cr_1d differs from the CPU")
+
+    # LSSA: the same host arrays on both devices (the default tau follows
+    # the channel spacing, and a phase of ~1e4 rad magnifies any rounding
+    # of it)
+    rng = np.random.default_rng(9)
+    ghz = np.linspace(0.4, 0.4 + (LSSA_NFREQ - 1) * 2e-4, LSSA_NFREQ)
+    d = rng.standard_normal(LSSA_NFREQ) + 1j * rng.standard_normal(LSSA_NFREQ)
+    flags = (rng.random(LSSA_NFREQ) > 0.1).astype(np.float64)
+    host = (d, ghz, np.diag(flags), flags, ghz * 1e3)
+
+    def fit(t):
+        return inpaint.lssa_fit_modes(t[0], t[1], invcov=t[2],
+                                      fit_amp_phase=False)
+
+    def pspec(t, tau, A_re, A_im):
+        return inpaint.lssa_pspec(A_re, A_im, t[3], tau, t[4])
+
+    outs = {}
+    for where in (dev, "cpu"):
+        t = [torch.as_tensor(a, device=where) for a in host]
+        with stage(f"8d (d) LSSA on {where}", timings=timings) as s:
+            tau, A_re, A_im = fit(t)
+            ps = pspec(t, tau, A_re, A_im)
+            s["sync"] = ps
+        outs[where] = (t, (tau, A_re, A_im), ps)
+    t, (tau, A_re, A_im), ps = outs[dev]
+    torch.cuda.reset_peak_memory_stats()
+    fit_ms = median_ms(lambda: fit(t))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ps_ms = median_ms(lambda: pspec(t, tau, A_re, A_im))
+    ct, cfit, cps = outs["cpu"]
+    err = max(norm_err(a.cpu(), b) for a, b in zip((A_re, A_im, ps),
+                                                   cfit[1:] + (cps,)))
+    log(f"8d (d) lssa_fit_modes {LSSA_NFREQ} channels x {LSSA_NFREQ} modes "
+        f"f64 {fit_ms:.3f} ms, lssa_pspec {ps_ms:.3f} ms (CUDA events), peak "
+        f"device memory {peak:.2f} GiB; card vs CPU {err:.3e} of max (bound "
+        f"{LSSA_BOUND:.0e})")
+    check(err <= LSSA_BOUND, "8d: LSSA differs from the CPU")
+
+
+def analysis_forecast(timings) -> None:
+    """(e): example_fisher.py's sequence (host numpy)."""
+    from fastbox_tpu_torch.analysis import forecast
+    from fastbox_tpu_torch.cosmology import CosmoParams
+    from fastbox_tpu_torch.timing import stage
+
+    t0 = time.perf_counter()
+    with stage("8d (e) Fisher forecast", timings=timings):
+        cosmo = CosmoParams()
+        zmin, zmax = 0.7, 0.9
+        ells = np.arange(20, 400, 20).astype(float)
+        t_gal = forecast.tracer_spectro(cosmo, zmin, zmax, "galaxy")
+        t_im = forecast.tracer_spectro(cosmo, zmin, zmax, "im")
+        cl_gal = forecast.angular_cl(cosmo, t_gal, t_gal, ells)
+        cl_im = forecast.angular_cl(cosmo, t_im, t_im, ells)
+        cl_x = forecast.angular_cl(cosmo, t_gal, t_im, ells)
+        n_im = forecast.noise_im(cosmo, forecast.inst_meerkatuhf, ells, zmin,
+                                 zmax)
+        n_gal = 1.0 / forecast.number_density_to_area_density(cosmo, 1e-3,
+                                                               zmin, zmax)
+        F = forecast.fisher_bandpowers(ells, 20.0,
+                                       forecast.inst_meerkatuhf["fsky"],
+                                       cl_gal, cl_im, cl_x, n_gal, n_im[:, 0])
+    snr = np.sqrt(np.sum(cl_x**2 * F))
+    ok = (all(np.all(np.isfinite(a)) for a in (cl_gal, cl_im, cl_x, n_im, F))
+          and np.all(cl_x**2 <= cl_gal * cl_im) and np.all(F > 0))
+    log(f"8d (e) Fisher forecast: {time.perf_counter() - t0:.2f} s; total "
+        f"cross-spectrum S/N {snr:.1f}; finite, C_x^2 <= C_gal C_im, F > 0: "
+        f"{ok}")
+    check(ok, "8d: the Fisher forecast failed its checks")
+
+
+def phase_analysis(dev) -> None:
+    """Phase 8d: the analysis package on the card, each step in
+    timing.stage, Timings.report() at the end."""
+    from fastbox_tpu_torch.timing import Timings
+
+    timings = Timings()
+    delta_s = analysis_voids(dev, timings)
+    analysis_datacube(dev, timings, delta_s)
+    analysis_inpaint(dev, timings)
+    analysis_forecast(timings)
+    log(timings.report())
+
+
 def run_pipeline(fn, dev, label: str, grid, **kw) -> dict:
     from fastbox_tpu_torch.timing import StageClock
 
@@ -3889,6 +4263,9 @@ def main() -> None:
     phase_foregrounds(dev, mesh)
     log(f"phase 8c: {time.perf_counter() - t0:.1f} s")
     dist.destroy_process_group()
+    t0 = time.perf_counter()
+    phase_analysis(dev)
+    log(f"phase 8d: {time.perf_counter() - t0:.1f} s")
 
     # The K10 route: the pipeline, then COLA, counted apart
     k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)

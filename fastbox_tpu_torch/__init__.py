@@ -23,14 +23,21 @@ Main path::
 
 The reference's object API is ``CosmoBox`` (``box.py``) with the models
 (``models``), the cleaners (``filters``) and checkpoints (``io``); the
-slab-sharded COLA engine is ``parallel.make_sharded_cola``.
+slab-sharded COLA engine is ``parallel.make_sharded_cola``; voids,
+in-painting, forecasts and datacube helpers are ``analysis``; ``timing.stage``
+times a stage as the reference's examples print it.  Importing the package
+creates no process group and touches no CUDA context.
 """
-from . import cosmology, fields, filters, grid, io, models, ops, pipeline, utils
+from . import analysis, cosmology, fields, filters, grid, io, models, ops
+from . import parallel, pipeline, timing, utils
 from .box import CosmoBox, default_cosmo
+from .cosmology import CosmoParams, build_cosmology
+from .grid import GridSpec
 
 # Reference-style module aliases (`fastbox.tracers`, `fastbox.noise`, ...)
 from .models import foregrounds, noise, tracers
 
-__all__ = ["cosmology", "fields", "filters", "grid", "io", "models", "ops",
-           "pipeline", "utils", "CosmoBox", "default_cosmo", "foregrounds",
-           "noise", "tracers"]
+__all__ = ["analysis", "cosmology", "fields", "filters", "grid", "io",
+           "models", "ops", "parallel", "pipeline", "timing", "utils",
+           "CosmoBox", "default_cosmo", "CosmoParams", "build_cosmology",
+           "GridSpec", "foregrounds", "noise", "tracers"]

@@ -92,6 +92,15 @@ class Cosmology:
     pk_nl: PowerSpectrumTable
     pk_lin_z0: PowerSpectrumTable
 
+    @property
+    def H(self) -> float:
+        """H(a) in km/s/Mpc."""
+        return 100.0 * self.h * self.Ea
+
+    def pk(self, k, linear: bool = False):
+        """Matter power spectrum at the bundle's redshift."""
+        return self.pk_lin(k) if linear else self.pk_nl(k)
+
 
 def build_cosmology(cosmo, redshift: float = 0.0,
                     k_table: np.ndarray | None = None,

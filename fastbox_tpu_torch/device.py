@@ -2,13 +2,16 @@
 
 Entry points take ``device=None``, which means the CUDA card; a run on the
 CPU (the plain twins of every kernel) has to be asked for with
-``device="cpu"``.  Without CUDA, None raises rather than falling back.
+``device="cpu"``.  Without CUDA, None raises rather than falling back.  A
+function given tensors runs on their device (``of``) and moves other
+arrays there (``on``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "of", "on"]
 
 
 def resolve(device=None) -> torch.device:
@@ -21,3 +24,20 @@ def resolve(device=None) -> torch.device:
             "no CUDA device: pass device=\"cpu\" to run on the CPU "
             "(the kernels' plain twins)")
     return torch.device("cuda")
+
+
+def of(*arrays, device=None) -> torch.device:
+    """The device of the first tensor among ``arrays``; with none,
+    ``resolve(device)``."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return resolve(device)
+
+
+def on(a, device: torch.device) -> torch.Tensor:
+    """``a`` (a tensor, numpy array or scalar) as a tensor on ``device``,
+    keeping numpy's dtype (a Python float becomes float64)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.as_tensor(np.asarray(a), device=device)

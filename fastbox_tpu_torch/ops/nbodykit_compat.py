@@ -13,9 +13,8 @@ dict-like with 'k', 'power', 'modes' (plus 'power_l' for poles), and
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..device import resolve
+from .. import device as devices
 from ..grid import GridSpec
 from . import painting, spectra
 
@@ -23,9 +22,8 @@ __all__ = ["ArrayMesh", "ArrayCatalog", "FFTPower", "FFTCorr"]
 
 
 def _tensor(x, device):
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x), device=resolve(device))
+    """A tensor stays on its device; anything else goes to ``device``."""
+    return devices.on(x, devices.of(x, device=device))
 
 
 def _box(BoxSize) -> tuple[float, float, float]:

@@ -26,8 +26,22 @@ def test_import_every_module_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 74
     assert bad == "[]"
+
+
+def test_package_import_starts_no_group_and_no_cuda_context():
+    """``import fastbox_tpu_torch`` (which imports analysis, parallel and
+    timing) creates no process group and initialises no CUDA context."""
+    code = ("import torch, fastbox_tpu_torch as p; "
+            "print(torch.distributed.is_initialized(), "
+            "torch.cuda.is_initialized(), p.GridSpec.__module__, "
+            "p.analysis.__name__, p.timing.stage.__name__)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "False", "fastbox_tpu_torch.grid",
+                                  "fastbox_tpu_torch.analysis", "stage"]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
