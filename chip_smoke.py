@@ -118,6 +118,17 @@ failure:
      the same white noise, the engine with the plain twins on the card: the
      first force evaluation per particle, the final field (bitwise equal),
      std(delta) and the binned P(k), and bench_cola.py's health bounds;
+ 8b. on the one-rank mesh, the slab-sharded COLA engine: K11a/K11c's slab
+     mode bitwise equal to the slab twins and repeatable (one 256-row slab
+     and four of 64 of the engine's own and of uniform displacements, f32
+     and f64, B = 1-3; the paint unweighted, weighted and with a C = 3
+     weight stack, and on edge cases at 64^3 and 62^3), the four slabs'
+     folded paints against the periodic paint; the slab paint timed at B =
+     1-3 beside one index_add_ of its corners, its scratch peak at 256^3
+     and 512^3; make_sharded_cola at 256^3 (x3) and 512^3 with launch
+     counters reset just before and read just after (69 slab paints, 64
+     slab gathers, no periodic K11); the plain slab twins on the same
+     noise (bitwise); f64 64^3 card vs CPU; then CosmoBox against the CPU;
  8c. still on the one-rank mesh, the foregrounds and the cleaners: (a)
      the README quickstart at 256^3 in the 4 Gpc box at z=0.8, f32
      (CosmoBox, HI tracer, log-normal, RSD at sigma_NL 120, T_b,
@@ -1720,41 +1731,119 @@ def capture_slab_inputs(fn) -> tuple:
     return out, seen["last"]
 
 
+# index_add_ (the slab paint's library yardstick) against the kernel, of
+# max|value|: float atomics sum a cell's terms in any order, up to
+# (2B + 3)^3 of them in a collapsed halo's cell.
+SLAB_LIB_BOUND = 1e-4
+
+
+def slab_edge_cases():
+    """tests/test_torch_slab_paint_order.py's edge cases of the slab paint,
+    its KINDS and slab_disp(rng, kind, S, n, B), so that the card and the
+    CPU test hold the kernel on the same cases."""
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from test_torch_slab_paint_order import KINDS, slab_disp
+
+    return KINDS, slab_disp
+
+
+def slab_paint_held(d, B: int, weights, what: str) -> None:
+    """The slab paint bitwise equal to its twin and to itself, unweighted,
+    on the first channel of ``weights`` (C, S, N, N) and on all of them
+    (C twins)."""
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    for wt in (None, weights[0], weights):
+        got = k.cic_paint_lattice_slab_cuda(d, B, wt)
+        same = torch.equal(got, k.cic_paint_lattice_slab_plain(d, B, wt))
+        again = torch.equal(got, k.cic_paint_lattice_slab_cuda(d, B, wt))
+        label = "unweighted" if wt is None else f"weights {tuple(wt.shape)}"
+        check(same and again, f"K11a slab {what} {label}: bitwise equal to "
+              f"the twin {same}, repeatable {again}")
+
+
+def slab_corners(d, B: int, weights=None) -> tuple:
+    """The operands of one index_add_ that paints what the slab paint does:
+    the buffer cell of every in-band CIC corner of an (S, N, N) slab's
+    particles (x not wrapped, offsets in [-B, B + 1]) and its weight, (M,
+    C): a column per channel of ``weights`` (C, S, N, N), one without."""
+    S, N = d[0].shape[0], d[0].shape[-1]
+    H = B + 1
+    dev = d[0].device
+    fl, fr = zip(*((torch.floor(a), a - torch.floor(a)) for a in d))
+    site = [torch.arange(m, device=dev).reshape(shape) for m, shape in
+            ((S, (S, 1, 1)), (N, (1, N, 1)), (N, (1, 1, N)))]
+    idx, w = [], []
+    for e in range(8):
+        c = (e >> 2, (e >> 1) & 1, e & 1)
+        o = [fl[a].long() + c[a] for a in range(3)]
+        inb = ((o[0] >= -B) & (o[0] <= H) & (o[1] >= -B) & (o[1] <= H)
+               & (o[2] >= -B) & (o[2] <= H))
+        cell = ((H + site[0] + o[0]) * N + (site[1] + o[1]) % N) * N \
+            + (site[2] + o[2]) % N
+        wt = ((fr[0] if c[0] else 1 - fr[0]) * (fr[1] if c[1] else 1 - fr[1])
+              * (fr[2] if c[2] else 1 - fr[2]))
+        idx.append(cell[inb])
+        w.append((wt[None] if weights is None else wt * weights)[:, inb].T)
+    return torch.cat(idx), torch.cat(w)
+
+
+def slab_index_add(idx, src, ncell: int):
+    """One index_add_ of the corner weights into a zeroed (ncell, C)."""
+    return torch.zeros((ncell, src.shape[1]), dtype=src.dtype,
+                       device=src.device).index_add_(0, idx, src)
+
+
 def slab_kernels(dev, meshes, d) -> list[dict]:
     """(a) K11a/K11c's slab mode against the slab twins, bitwise and
     repeatable, f32 and f64, B = 1, 2, 3, on the 256^3 sharded engine's own
-    displacements and force meshes cut into one slab of 256 rows and four
-    of 64; the four slabs' paints, each strip added to its neighbour,
-    against the periodic closed-band paint, and their gathers against the
-    periodic gathers' rows (bitwise).  Times at B = 3 on one slab beside
-    the periodic mode, index_add_ (paint) and grid_sample (gather)."""
+    displacements and force meshes and on uniform ones, cut into one slab
+    of 256 rows and four of 64; the paint unweighted, weighted and with the
+    three force meshes as a C = 3 stack (three twins); the four slabs'
+    paints, each strip added to its neighbour, against the periodic
+    closed-band paint, and their gathers against the periodic gathers' rows
+    (bitwise).  (b) The paint on the CPU order test's edge cases
+    (slab_edge_cases) at 64^3 and 62^3, on the minimum slab S = B + 1 and a
+    full one.  (c) The paint's times at B = 1,
+    2, 3 on both inputs, f32 and f64, unweighted, weighted and C = 3, each
+    beside one index_add_ of its in-band corners; its scratch memory's
+    peak at 256^3 and 512^3.  The rows' times are at B = 3 on the engine's
+    displacements, one slab, f32, beside the periodic mode and grid_sample
+    (gather)."""
     from fastbox_tpu_torch.ops.cuda import lattice_cic as k
 
+    kinds, slab_disp = slab_edge_cases()
     N = d[0].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rng = np.random.default_rng(17)
+    inputs = {B: {"engine": d, "uniform": tuple(
+        ((torch.rand((N, N, N), generator=gen, device=dev) * 2 - 1) * B)
+        .contiguous() for _ in range(3))} for B in (1, 2, 3)}
     for dt in (torch.float32, torch.float64):
-        dd = tuple(a.to(dt).contiguous() for a in d)
         mm = tuple(m.to(dt).contiguous() for m in meshes)
         for B in (1, 2, 3):
             H = B + 1
+            dd = tuple(a.to(dt).contiguous() for a in d)
             periodic = k.cic_paint_lattice_cuda(dd, B, None, openband=False)
             periodic3 = k.cic_gather3_lattice_cuda(mm, dd, B, openband=False)
             for nslab in (1, N // SLAB_ROWS):
                 S = N // nslab
                 full = torch.zeros_like(periodic)
                 for j in range(nslab):
-                    ds = tuple(a[j * S:(j + 1) * S] for a in dd)
+                    part = slice(j * S, (j + 1) * S)
+                    w3 = torch.stack([m[part] for m in mm])
+                    for label, disp in inputs[B].items():
+                        slab_paint_held(tuple(a[part].to(dt).contiguous()
+                                              for a in disp), B, w3,
+                                        f"{dt} B={B} {label} {nslab} slabs")
+                    ds = tuple(a[part] for a in dd)
                     rows = torch.arange(j * S - H, (j + 1) * S + H,
                                         device=dev) % N
                     exts = tuple(m.index_select(0, rows) for m in mm)
-                    for wt in (None, mm[0][j * S:(j + 1) * S]):
-                        got = k.cic_paint_lattice_slab_cuda(ds, B, wt)
-                        same = torch.equal(got, k.cic_paint_lattice_slab_plain(
-                            ds, B, wt))
-                        again = torch.equal(got, k.cic_paint_lattice_slab_cuda(
-                            ds, B, wt))
-                        check(same and again, f"K11a slab {dt} B={B} "
-                              f"{nslab} slabs: bitwise equal to the twin "
-                              f"{same}, repeatable {again}")
                     full.index_add_(0, rows, k.cic_paint_lattice_slab_cuda(
                         ds, B))
                     got3 = k.cic_gather3_lattice_slab_cuda(exts, ds, B)
@@ -1762,7 +1851,7 @@ def slab_kernels(dev, meshes, d) -> list[dict]:
                         got3, k.cic_gather3_lattice_slab_plain(exts, ds, B)))
                     again = all(torch.equal(a, b) for a, b in zip(
                         got3, k.cic_gather3_lattice_slab_cuda(exts, ds, B)))
-                    rows_eq = all(torch.equal(a, b[j * S:(j + 1) * S])
+                    rows_eq = all(torch.equal(a, b[part])
                                   for a, b in zip(got3, periodic3))
                     check(same and again and rows_eq, f"K11c slab {dt} B={B} "
                           f"{nslab} slabs: bitwise equal to the twin {same}, "
@@ -1774,24 +1863,80 @@ def slab_kernels(dev, meshes, d) -> list[dict]:
                     f"(bound {SLAB_FOLD_BOUND[dt]:.0e})")
                 check(e <= SLAB_FOLD_BOUND[dt], f"K11a slab fold {dt} B={B}")
             del periodic, periodic3, full
+            # (b) the edge cases
+            for n in (64, 62):
+                for S in (B + 1, n):
+                    for kind in kinds:
+                        de = tuple(torch.from_numpy(a).to(dev, dt).contiguous()
+                                   for a in slab_disp(rng, kind, S, n, B))
+                        w3 = torch.randn((3, S, n, n), generator=gen,
+                                         device=dev, dtype=dt)
+                        slab_paint_held(de, B, w3,
+                                        f"{dt} B={B} {n}^2 x {S} {kind}")
         log(f"K11a/K11c slab mode {dt}: bitwise equal to the slab twins and "
-            "repeatable at B = 1, 2, 3, one slab and four")
-    B, H = 3, 4
+            "repeatable at B = 1, 2, 3, one slab and four, engine and "
+            "uniform displacements, unweighted, weighted and C = 3; the "
+            f"paint on {', '.join(kinds)} displacements at 64^3 and "
+            "62^3, S = B + 1 and S = n")
+    # (c) times beside index_add_ of the same corners
     n3 = N ** 3
+    times = {}
+    for B in (1, 2, 3):
+        for label, disp in inputs[B].items():
+            for dt in (torch.float32, torch.float64):
+                dd = tuple(a.to(dt).contiguous() for a in disp)
+                w3 = torch.stack([m.to(dt) for m in meshes])
+                for wname, wt in (("unweighted", None), ("weighted", w3[0]),
+                                  ("C=3", w3)):
+                    got = k.cic_paint_lattice_slab_cuda(dd, B, wt)
+                    idx, src = slab_corners(dd, B, None if wt is None else
+                                            wt.reshape((-1, N, N, N)))
+                    buf = (src.shape[1], N + 2 * (B + 1), N, N)
+                    ncell = buf[1] * N * N
+                    lib = slab_index_add(idx, src, ncell).T.reshape(buf)
+                    e = norm_err(lib, got.reshape(buf))
+                    check(e <= SLAB_LIB_BOUND, f"index_add_ off the slab "
+                          f"paint B={B} {label} {dt} {wname}: {e}")
+                    ms = median_ms(lambda: k.cic_paint_lattice_slab_cuda(
+                        dd, B, wt))
+                    lib_ms = median_ms(lambda: slab_index_add(idx, src, ncell))
+                    times[(B, label, dt, wname)] = (ms, lib_ms)
+                    log(f"K11a slab B={B} {label} {dt} {wname}, one {N}-row "
+                        f"slab: kernel {ms:.4f} ms, index_add_ {lib_ms:.4f} "
+                        f"ms ({e:.1e} of max apart)")
+                    del idx, src, got, lib
+    for big in (N, 2 * N):
+        d3 = tuple(((torch.rand((big,) * 3, generator=gen, device=dev) * 2
+                     - 1) * 3).contiguous() for _ in range(3))
+        w3 = torch.randn((3, big, big, big), generator=gen, device=dev)
+        for wt in (None, w3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = k.cic_paint_lattice_slab_cuda(d3, 3, wt)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base - nbytes(out)
+            ms = median_ms(lambda: k.cic_paint_lattice_slab_cuda(d3, 3, wt))
+            log(f"K11a slab {big}^3 B=3 f32 "
+                f"{'unweighted' if wt is None else 'C=3'}: scratch peak "
+                f"{peak / 2**20:.1f} MiB ({peak / big ** 3:.2f} bytes a "
+                f"particle) beside the {nbytes(out) / 2**20:.1f} MiB output; "
+                f"kernel {ms:.4f} ms")
+            del out
+        del d3, w3
+    B, H = 3, 4
     ext_rows = torch.arange(-H, N + H, device=dev) % N
     exts = tuple(m.index_select(0, ext_rows) for m in meshes)
-    times = {
-        PAINT_SLAB: (median_ms(lambda: k.cic_paint_lattice_slab_cuda(d, B)),
-                     median_ms(lambda: k.cic_paint_lattice_slab_plain(d, B))),
-        GATHER3_SLAB: (
-            median_ms(lambda: k.cic_gather3_lattice_slab_cuda(exts, d, B)),
-            median_ms(lambda: k.cic_gather3_lattice_slab_plain(exts, d, B)))}
+    plain = {
+        PAINT_SLAB: median_ms(lambda: k.cic_paint_lattice_slab_plain(d, B)),
+        GATHER3_SLAB: median_ms(lambda: k.cic_gather3_lattice_slab_plain(
+            exts, d, B))}
+    ms = {PAINT_SLAB: times[(B, "engine", torch.float32, "unweighted")][0],
+          GATHER3_SLAB: median_ms(lambda: k.cic_gather3_lattice_slab_cuda(
+              exts, d, B))}
     per = (median_ms(lambda: k.cic_paint_lattice_cuda(d, B, None, False)),
            median_ms(lambda: k.cic_gather3_lattice_cuda(meshes, d, B, False)))
-    idx8, w8 = cic_corners(d, N)
-    lib_paint = median_ms(lambda: torch.zeros(n3, device=dev)
-                          .index_add_(0, idx8, w8))
-    del idx8, w8
+    lib_paint = times[(B, "engine", torch.float32, "unweighted")][1]
     lib_gather = grid_sample_ms(meshes, d, B)[1]
     rows_out = N + 2 * H
     bounds = {PAINT_SLAB: roofline(4 * (3 * n3 + rows_out * N * N), 32 * n3),
@@ -1799,14 +1944,14 @@ def slab_kernels(dev, meshes, d) -> list[dict]:
                                      3 * 32 * n3)}
     for name, lib, p in ((PAINT_SLAB, lib_paint, per[0]),
                          (GATHER3_SLAB, lib_gather, per[1])):
-        log(f"{name} B=3, one {N}-row slab, f32: kernel {times[name][0]:.4f} "
-            f"ms, plain {times[name][1]:.4f} ms, bound "
+        log(f"{name} B=3, one {N}-row slab, f32: kernel {ms[name]:.4f} "
+            f"ms, plain {plain[name]:.4f} ms, bound "
             f"{bounds[name]['bound_ms']:.4f} ms; periodic mode {p:.4f} ms; "
             f"{'index_add_' if name == PAINT_SLAB else 'grid_sample'} "
             f"{lib:.4f} ms")
     # max_abs_err: the kernels equal their twins bit for bit (checked)
-    return [dict(name=name, max_abs_err=0.0, ms=times[name][0],
-                 plain_ms=times[name][1], library_ms=lib, **bounds[name])
+    return [dict(name=name, max_abs_err=0.0, ms=ms[name],
+                 plain_ms=plain[name], library_ms=lib, **bounds[name])
             for name, lib in ((PAINT_SLAB, lib_paint),
                               (GATHER3_SLAB, lib_gather))]
 
@@ -1905,7 +2050,9 @@ def phase_sharded_cola(dev, mesh) -> list[dict]:
     log(f"launch counts over the sharded COLA path: {json.dumps(counts)}")
     check_route_off(counts, "the sharded COLA path")
     steps = kw["n_steps"]
-    want = {PAINT_SLAB: 4 * (steps + 1) + 3, GATHER3_SLAB: 4 * steps}
+    # a paint per force evaluation and the final one; the momenta's three
+    # channels on one launch
+    want = {PAINT_SLAB: 4 * (steps + 1) + 1, GATHER3_SLAB: 4 * steps}
     for name, n in want.items():
         check(counts.get(name, 0) == n, f"{name}: {counts.get(name, 0)} "
               f"launches, the code makes {n}")

@@ -76,16 +76,26 @@
 // arithmetic and its order, and the band tests, are the twin's, so kernel
 // and twin agree bit for bit (H100 80GB HBM3, 700 W; PERF.md).
 //
-// Slab mode (kSlab): the slab-sharded COLA engine's halo paint and force
-// gather (fastbox_tpu/parallel/lattice.py:48-87, :119-166, whose roll sums
-// reach K11a and K11c's arithmetic).  The particles are a slab of S rows,
-// (S, N, N), and the band is closed.  The paint writes an (S + 2H, N, N)
-// buffer, H = B + 1, particle row s landing on buffer row H + s + o: x does
-// not wrap (a source row outside [0, S) is absent), y and z do.  The gather
-// reads a halo-extended (S + 2H, N, N) mesh at row H + s + o.  The sums are
-// the periodic mode's, in the slab twins' order
-// (fastbox_tpu_torch/fields/lattice_cic.py), so the slab mode too agrees
-// with its twins bit for bit.
+// Slab mode: the slab-sharded COLA engine's halo paint and force gather
+// (fastbox_tpu/parallel/lattice.py:48-132, :135-166, whose roll sums reach
+// K11a and K11c's arithmetic).  The particles are a slab of S rows, (S, N,
+// N), and the band is closed.  The paint writes an (S + 2H, N, N) buffer,
+// H = B + 1, particle row s landing on buffer row H + s + o: x does not
+// wrap, y and z do.  The gather (kSlab) reads a halo-extended (S + 2H, N,
+// N) mesh at row H + s + o with K11c's body.  The paint is a global
+// counting sort by lower-corner cell in five passes over the slab, each a
+// kernel: count (an atomic on the bucket of each particle), scan (reduce,
+// then scan, over blocks), fill (an atomic claims the particle a place in
+// its bucket for a record of its key and fractions), sort (each bucket by
+// key) and sum (a thread per cell merges its 8 buckets in the twin's
+// order, for every weight channel of a call on one sort).  Where the tile
+// kernel above re-read each displacement ~(1 + span/8)^3 times and ran its
+// phases one after another in each block, each pass here streams the slab
+// once; the sum still visits each record from 8 cells, through a chain of
+// scattered loads where buckets hold several records (times: PERF.md,
+// section 6).  The sums and their order are the periodic mode's, in the
+// slab twin's order (fastbox_tpu_torch/fields/lattice_cic.py), so the slab
+// paint agrees with its twin bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -156,14 +166,12 @@ __device__ void block_exclusive_scan(int* cnt, int* start, int n, int* scratch) 
   if (threadIdx.x == blockDim.x - 1) start[n] = offset;
 }
 
-// kSlab: rows particle rows at cell rows H + s; otherwise rows == N, H == 0
-template <typename T, bool kWeighted, bool kSlab>
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
-             const T* __restrict__ w, T* __restrict__ out, int N, int rows, int H, int lo, int hi,
-             int tx, int ty, int tz) {
+             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi, int tx, int ty,
+             int tz) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int NX = kSlab ? rows + 2 * H : N;  // cell rows
   const int span = hi - lo;
   const int WX = tx + span, WY = ty + span, WZ = tz + span;
   const int S = WX * WY * WZ;
@@ -184,8 +192,7 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   __syncthreads();
 
   // 1. Source p = (a, b, c) of the tile is particle (c0 - hi + (a, b, c))
-  // mod N (in slab mode x is row c0.x - hi + a - H, absent outside the
-  // slab); its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
+  // mod N; its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
   // steps p by blockDim.x, carrying (a, b, c) along without divisions, and
   // loads kStage sources before it uses any, to keep loads in flight.
   const int WYZ = WY * WZ;
@@ -194,23 +201,18 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   for (int p0 = threadIdx.x; p0 < S; p0 += kStage * blockDim.x) {
     T v[kStage][3], wv[kStage];
     int pos[kStage][3];
-    bool have[kStage];
 #pragma unroll
     for (int u = 0; u < kStage; ++u) {
       if (p0 + u * static_cast<int>(blockDim.x) >= S) break;
       pos[u][0] = pa;
       pos[u][1] = pb;
       pos[u][2] = pc;
-      const int px = kSlab ? cx0 - hi + pa - H : wrap_near(cx0 - hi + pa, N);
-      have[u] = !kSlab || (px >= 0 && px < rows);
-      if (have[u]) {
-        const int64_t g = (static_cast<int64_t>(px) * N + wrap_near(cy0 - hi + pb, N)) * N +
-                          wrap_near(cz0 - hi + pc, N);
-        v[u][0] = dx[g];
-        v[u][1] = dy[g];
-        v[u][2] = dz[g];
-        if (kWeighted) wv[u] = w[g];
-      }
+      const int64_t g = (static_cast<int64_t>(wrap_near(cx0 - hi + pa, N)) * N +
+                         wrap_near(cy0 - hi + pb, N)) * N + wrap_near(cz0 - hi + pc, N);
+      v[u][0] = dx[g];
+      v[u][1] = dy[g];
+      v[u][2] = dz[g];
+      if (kWeighted) wv[u] = w[g];
       pc += dc;
       pb += db;
       pa += da;
@@ -227,10 +229,6 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
     for (int u = 0; u < kStage; ++u) {
       const int p = p0 + u * blockDim.x;
       if (p >= S) break;
-      if (!have[u]) {  // beyond the slab: reaches no cell
-        code[p] = 0;
-        continue;
-      }
       const int ext[3] = {tx, ty, tz};
       int packed = 0, bkt = 0;
       bool ok = true;
@@ -282,7 +280,7 @@ paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __rest
   for (int cell = threadIdx.x; cell < ncell; cell += blockDim.x) {
     const int ix = cell / (ty * tz), iy = (cell / tz) % ty, iz = cell % tz;
     const int cx = cx0 + ix, cy = cy0 + iy, cz = cz0 + iz;
-    if (cx >= NX || cy >= N || cz >= N) continue;
+    if (cx >= N || cy >= N || cz >= N) continue;
     int at[8], end[8], head[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -611,16 +609,12 @@ cudaError_t slab_rows(int64_t N, int64_t nslab, int B, int* rows, int* H) {
   return cudaSuccess;
 }
 
-// nslab < 0: the periodic (N, N, N) cube; nslab = S >= 1: an (S, N, N)
-// slab painting into an (S + 2H, N, N) buffer
 template <typename T>
 cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* out, int64_t N,
-                         int64_t nslab, int B, int openband, cudaStream_t stream) {
-  int lo, hi, rows, H;
+                         int B, int openband, cudaStream_t stream) {
+  int lo, hi;
   cudaError_t e = band(N, B, openband, &lo, &hi);
   if (e != cudaSuccess) return e;
-  if ((e = slab_rows(N, nslab, B, &rows, &H)) != cudaSuccess) return e;
-  const bool slab = nslab >= 0;
   int dev, max_smem;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
@@ -643,20 +637,18 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     }
   }
   if (tile == nullptr) return cudaErrorInvalidValue;
-  auto kernel = slab ? (weighted ? &paint_kernel<T, true, true> : &paint_kernel<T, false, true>)
-                     : (weighted ? &paint_kernel<T, true, false> : &paint_kernel<T, false, false>);
+  auto kernel = weighted ? &paint_kernel<T, true> : &paint_kernel<T, false>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int n = static_cast<int>(N);
-  const int nx = slab ? rows + 2 * H : n;  // cell rows
   const dim3 grid((n + tile[2] - 1) / tile[2], (n + tile[1] - 1) / tile[1],
-                  (nx + tile[0] - 1) / tile[0]);
+                  (n + tile[0] - 1) / tile[0]);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, rows, H, lo, hi, tile[0],
-                                            tile[1], tile[2]);
+  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, tile[0], tile[1],
+                                            tile[2]);
   return cudaGetLastError();
 }
 
@@ -701,6 +693,443 @@ cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, co
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Slab paint (K11a's slab mode): a global counting sort by lower-corner cell.
+// Five passes over the whole slab, each a kernel of its own on the caller's
+// stream, on scratch from the caller (slab_scratch_words int32 words).
+
+constexpr int kRowThreads = 256;   // count and fill: a row of z per block
+constexpr int kSortThreads = 256;  // one bucket per thread
+constexpr int kSumThreads = 256;   // cells of a row per block
+constexpr int kScanThreads = 1024;
+constexpr int kScanTile = 4 * kScanThreads;  // counts per scan block, 4 a thread
+constexpr int kNoKey = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
+
+// A slab source's record: its sort key and per-axis fractions d - floor(d).
+template <typename T>
+struct __align__(16) SlabRecord {
+  int key;
+  T fr[3];
+};
+
+// The key: floors fl + kFlBias in 6 bits per axis, x highest, so integer
+// order is (fl_x, fl_y, fl_z) order, and key + corner_key(e) (offset o = fl
+// + e; no carry, fl + kFlBias + 1 < 64) is (o_x, o_y, o_z) order, the twin's.
+__device__ __forceinline__ int slab_key(int fx, int fy, int fz) {
+  return ((fx + kFlBias) << 12) | ((fy + kFlBias) << 6) | (fz + kFlBias);
+}
+__device__ __forceinline__ int key_axis(int key, int ax) {
+  return ((key >> (12 - 6 * ax)) & 63) - kFlBias;
+}
+__device__ __forceinline__ int corner_key(int e) {
+  return ((e >> 2) << 12) | (((e >> 1) & 1) << 6) | (e & 1);
+}
+
+// Within a bucket the floors lie in [lo - 1, hi]^3, W = hi - lo + 2 a side:
+// a key's dense index there and back, both in key order.
+__device__ __forceinline__ int key_dense(int key, int lo, int W) {
+  return ((key_axis(key, 0) - lo + 1) * W + key_axis(key, 1) - lo + 1) * W + key_axis(key, 2) -
+         lo + 1;
+}
+__device__ __forceinline__ int dense_key(int d, int lo, int W) {
+  return slab_key(d / (W * W) + lo - 1, (d / W) % W + lo - 1, d % W + lo - 1);
+}
+
+// Particle (s, y, z) at g: whether it paints at all (every floor in [lo -
+// 1, hi], else no weight is non-zero on [lo, hi]), and then its key, its
+// fractions and its lower-corner cell L = (H + s + fl_x, y + fl_y, z + fl_z)
+// of the (S + 2H, N, N) buffer, y and z wrapped.
+template <typename T>
+__device__ __forceinline__ bool slab_source(const T* __restrict__ dx, const T* __restrict__ dy,
+                                            const T* __restrict__ dz, int64_t g, int s, int y,
+                                            int z, int N, int H, int lo, int hi,
+                                            SlabRecord<T>* rec, int64_t* L) {
+  const T v[3] = {dx[g], dy[g], dz[g]};
+  int fl[3];
+  bool ok = true;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const T f = floor_t(v[ax]);
+    rec->fr[ax] = v[ax] - f;  // exact
+    ok = ok && f >= T(lo - 1) && f <= T(hi);
+    fl[ax] = ok ? static_cast<int>(f) : 0;
+  }
+  rec->key = slab_key(fl[0], fl[1], fl[2]);
+  *L = (static_cast<int64_t>(H + s + fl[0]) * N + wrap_near(y + fl[1], N)) * N +
+       wrap_near(z + fl[2], N);
+  return ok;
+}
+
+// 1. Count, a thread per particle (blockIdx.x = s N + y): bucket L's count
+// goes to A[L + 1] (A[0] stays 0).
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+slab_count_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
+                  int* __restrict__ A, int N, int H, int lo, int hi) {
+  const int z = blockIdx.y * blockDim.x + threadIdx.x;
+  if (z >= N) return;
+  const int s = blockIdx.x / N, y = blockIdx.x - s * N;
+  SlabRecord<T> rec;
+  int64_t L;
+  if (slab_source(dx, dy, dz, static_cast<int64_t>(blockIdx.x) * N + z, s, y, z, N, H, lo, hi,
+                  &rec, &L))
+    atomicAdd(&A[L + 1], 1);
+}
+
+// 2. Scan A in place, exclusive, reduce then scan: each tile's sum, the
+// tiles' exclusive scan (one block), each tile's own from its start.  A
+// holds whole tiles (zeros past the last bucket); A[L + 1] becomes bucket
+// L's start.
+__global__ void __launch_bounds__(kScanThreads)
+scan_reduce_kernel(const int* __restrict__ A, int* __restrict__ tile_sum) {
+  __shared__ int warp_sum[32];
+  const int4 q = reinterpret_cast<const int4*>(A)[static_cast<int64_t>(blockIdx.x) * kScanThreads +
+                                                  threadIdx.x];
+  int v = q.x + q.y + q.z + q.w;
+  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(kFull, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = warp_sum[threadIdx.x];
+    for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(kFull, v, off);
+    if (threadIdx.x == 0) tile_sum[blockIdx.x] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan_tiles_kernel(int* tile_sum, int ntile) {
+  __shared__ int scratch[32];
+  block_exclusive_scan(tile_sum, tile_sum, ntile, scratch);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan_down_kernel(int* __restrict__ A, const int* __restrict__ tile_start) {
+  __shared__ int sums[kScanThreads + 1];
+  __shared__ int scratch[32];
+  int4* a = reinterpret_cast<int4*>(A) + static_cast<int64_t>(blockIdx.x) * kScanThreads +
+            threadIdx.x;
+  const int4 q = *a;
+  sums[threadIdx.x] = q.x + q.y + q.z + q.w;
+  __syncthreads();
+  block_exclusive_scan(sums, sums, kScanThreads, scratch);
+  __syncthreads();
+  const int base = tile_start[blockIdx.x] + sums[threadIdx.x];
+  *a = make_int4(base, base + q.x, base + q.x + q.y, base + q.x + q.y + q.z);
+}
+
+// 3. Fill: each painting particle claims the next place of its bucket
+// (atomics, in arbitrary order) and writes its record there.  A[L + 1]
+// ends at bucket L's end, so bucket L is [A[L], A[L + 1]) from here on.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+slab_fill_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
+                 int* __restrict__ A, SlabRecord<T>* __restrict__ records, int N, int H, int lo,
+                 int hi) {
+  const int z = blockIdx.y * blockDim.x + threadIdx.x;
+  if (z >= N) return;
+  const int s = blockIdx.x / N, y = blockIdx.x - s * N;
+  SlabRecord<T> rec;
+  int64_t L;
+  if (slab_source(dx, dy, dz, static_cast<int64_t>(blockIdx.x) * N + z, s, y, z, N, H, lo, hi,
+                  &rec, &L))
+    records[atomicAdd(&A[L + 1], 1)] = rec;
+}
+
+// 4. Each bucket in ascending key, which removes the atomics' order: a key
+// is unique within its bucket (source = L - fl).  A thread sorts a bucket
+// of up to 32 records by insertion.  The whole warp takes each longer one
+// (up to (2B + 3)^3 records, a collapsed halo) in turn: a bitmap of its
+// keys' dense indices in shared memory (words 32-bit words a warp), read
+// back in order, each record's fractions read again at its source.
+template <typename T>
+__device__ __forceinline__ void insertion_sort(SlabRecord<T>* r, int n) {
+  for (int i = 1; i < n; ++i) {
+    const SlabRecord<T> cur = r[i];
+    int j = i - 1;
+    while (j >= 0 && r[j].key > cur.key) {
+      r[j + 1] = r[j];
+      --j;
+    }
+    r[j + 1] = cur;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSortThreads)
+slab_sort_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
+                 const int* __restrict__ A, SlabRecord<T>* __restrict__ records, int64_t ncell,
+                 int N, int H, int lo, int W, int words) {
+  extern __shared__ unsigned bitmap[];
+  unsigned* bits = bitmap + (threadIdx.x >> 5) * words;
+  const int lane = threadIdx.x & 31;
+  const int64_t L = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int b0 = L < ncell ? A[L] : 0;
+  const int n = L < ncell ? A[L + 1] - b0 : 0;
+  if (n >= 2 && n <= 32) insertion_sort(records + b0, n);
+  for (unsigned todo = __ballot_sync(kFull, n > 32); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    SlabRecord<T>* r = records + __shfl_sync(kFull, b0, src);
+    const int rn = __shfl_sync(kFull, n, src);
+    const int64_t cell = L - lane + src;
+    const int cx = static_cast<int>(cell / N / N), cy = static_cast<int>(cell / N % N),
+              cz = static_cast<int>(cell % N);
+    for (int i = lane; i < words; i += 32) bits[i] = 0u;
+    __syncwarp();
+    for (int i = lane; i < rn; i += 32) {
+      const int d = key_dense(r[i].key, lo, W);
+      atomicOr(&bits[d >> 5], 1u << (d & 31));
+    }
+    __syncwarp();
+    int base = 0;
+    for (int w0 = 0; w0 < words; w0 += 32) {
+      unsigned m = w0 + lane < words ? bits[w0 + lane] : 0u;
+      const int c = __popc(m);
+      int incl = c;
+      for (int off = 1; off < 32; off *= 2) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += u;
+      }
+      for (int at = base + incl - c; m; m &= m - 1) {
+        SlabRecord<T> rec;
+        rec.key = dense_key((w0 + lane) * 32 + __ffs(m) - 1, lo, W);
+        const int64_t g = (static_cast<int64_t>(cx - H - key_axis(rec.key, 0)) * N +
+                           wrap_near(cy - key_axis(rec.key, 1), N)) * N +
+                          wrap_near(cz - key_axis(rec.key, 2), N);
+        const T v[3] = {dx[g], dy[g], dz[g]};
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) rec.fr[ax] = v[ax] - floor_t(v[ax]);
+        r[at++] = rec;
+      }
+      base += __shfl_sync(kFull, incl, 31);
+    }
+    __syncwarp();
+  }
+}
+
+// 5. Sum: a block per kSumThreads cells of a row (X, y) (blockIdx.x = X N +
+// y, blockIdx.y the chunk of z).  A cell c = (X, y, z) takes the entries of
+// its 8 buckets L = c - e in ascending (o << 3) | e, o = key + corner_key(e):
+// (o_x, o_y, o_z) order, the twin's: a merge of the 8 buckets.  A cell's
+// work is its number of entries, which
+// clustering spreads widely, so the block first deals its cells to its
+// threads by that number (classes of 4), so that a warp's cells take
+// alike.  Each term with o in [lo, hi] is summed as the twin nests its
+// rolls, ox { oy { oz } }: partial sums sy -> sx -> acc, every product and
+// sum rounded explicitly; the terms the twin adds with weight zero add
+// exactly nothing.  The kC weight channels' weights are read at the source
+// c - o; the sums leave through shared memory, coalesced.
+template <typename T, bool kWeighted, int kC>
+__global__ void __launch_bounds__(kSumThreads)
+slab_sum_kernel(const T* __restrict__ w, const int* __restrict__ A,
+                const SlabRecord<T>* __restrict__ records, T* __restrict__ out, int N, int H,
+                int lo, int hi, int64_t np, int64_t ncell) {
+  constexpr int kClasses = 32;
+  __shared__ int at_s[8][kSumThreads], end_s[8][kSumThreads];
+  __shared__ int hist[kClasses + 1], deal[kSumThreads];
+  __shared__ T sums[kC][kSumThreads];
+  const int t = threadIdx.x;
+  const int X = blockIdx.x / N, y = blockIdx.x - X * N;
+  const int ym = y == 0 ? N - 1 : y - 1;
+  const int z0 = blockIdx.y * kSumThreads;
+  const int ncz = N - z0 < kSumThreads ? N - z0 : kSumThreads;  // this block's cells
+  // the starts of bucket row q = 2 ex + ey, (X - ex, y - ey), or null
+  // before the buffer's first row
+  const int* row[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    row[q] = X - (q >> 1) < 0
+                 ? nullptr
+                 : A + (static_cast<int64_t>(X - (q >> 1)) * N + (q & 1 ? ym : y)) * N;
+  // bucket e of cell z: A[L], A[L + 1]
+  auto bucket = [&](int z, int e, int* b0, int* b1) {
+    *b0 = *b1 = 0;
+    if (row[e >> 1] != nullptr) {
+      const int* r = row[e >> 1] + (e & 1 ? (z == 0 ? N - 1 : z - 1) : z);
+      *b0 = r[0];
+      *b1 = r[1];
+    }
+  };
+  if (t <= kClasses) hist[t] = 0;
+  __syncthreads();
+  int cls = 0, rank = 0;
+  if (t < ncz) {
+    int n = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      int b0, b1;
+      bucket(z0 + t, e, &b0, &b1);
+      n += b1 - b0;
+    }
+    cls = n / 4 < kClasses - 1 ? n / 4 : kClasses - 1;
+    rank = atomicAdd(&hist[cls + 1], 1);
+  }
+  __syncthreads();
+  if (t < 32) {  // hist[c] becomes the first place of class c
+    int v = hist[t + 1];
+    for (int off = 1; off < 32; off *= 2) {
+      const int u = __shfl_up_sync(kFull, v, off);
+      if (t >= off) v += u;
+    }
+    hist[t + 1] = v;
+  }
+  __syncthreads();
+  if (t < ncz) deal[hist[cls] + rank] = t;
+  __syncthreads();
+  if (t < ncz) {
+    const int iz = deal[t], z = z0 + iz;
+    // bucket e: records [at, end); head: (o << 3) | e of its first, or kNoKey
+    int head[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      int b0, b1;
+      bucket(z, e, &b0, &b1);
+      at_s[e][t] = b0;
+      end_s[e][t] = b1;
+      head[e] = b0 < b1 ? ((records[b0].key + corner_key(e)) << 3) | e : kNoKey;
+    }
+    T acc[kC], sx[kC], sy[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = sx[c] = sy[c] = T(0);
+    int cur_ox = lo - 2, cur_oy = lo - 2;
+    // the term of packed entry p = (o << 3) | e, record r
+    auto add = [&](int p, const SlabRecord<T>& r) {
+      const int e = p & 7;
+      const int ox = key_axis(p >> 3, 0), oy = key_axis(p >> 3, 1), oz = key_axis(p >> 3, 2);
+      if (ox < lo || ox > hi || oy < lo || oy > hi || oz < lo || oz > hi) return;
+      // e = 0: weight 1 - fr, e = 1: weight fr
+      const T wx = e >> 2 ? r.fr[0] : fbx::sub_rn(T(1), r.fr[0]);
+      const T wy = (e >> 1) & 1 ? r.fr[1] : fbx::sub_rn(T(1), r.fr[1]);
+      const T wz = e & 1 ? r.fr[2] : fbx::sub_rn(T(1), r.fr[2]);
+      if (ox != cur_ox) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          sx[c] = fbx::add_rn(sx[c], sy[c]);
+          acc[c] = fbx::add_rn(acc[c], sx[c]);
+          sx[c] = sy[c] = T(0);
+        }
+        cur_ox = ox;
+        cur_oy = oy;
+      } else if (oy != cur_oy) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          sx[c] = fbx::add_rn(sx[c], sy[c]);
+          sy[c] = T(0);
+        }
+        cur_oy = oy;
+      }
+      int64_t src = 0;
+      if (kWeighted)
+        src = (static_cast<int64_t>(X - H - ox) * N + wrap_near(y - oy, N)) * N +
+              wrap_near(z - oz, N);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const T px = kWeighted ? fbx::mul_rn(wx, w[c * np + src]) : wx;
+        sy[c] = fbx::add_rn(sy[c], fbx::mul_rn(fbx::mul_rn(px, wy), wz));
+      }
+    };
+    while (true) {
+      int p = head[0];
+#pragma unroll
+      for (int e = 1; e < 8; ++e) p = min(p, head[e]);
+      if (p == kNoKey) break;
+      const int e = p & 7, pos = at_s[e][t];
+      const int next =
+          pos + 1 < end_s[e][t] ? ((records[pos + 1].key + corner_key(e)) << 3) | e : kNoKey;
+      at_s[e][t] = pos + 1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (e == j) head[j] = next;
+      add(p, records[pos]);
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      sx[c] = fbx::add_rn(sx[c], sy[c]);
+      sums[c][iz] = fbx::add_rn(acc[c], sx[c]);
+    }
+  }
+  __syncthreads();
+  if (t < ncz) {
+    const int64_t cell = static_cast<int64_t>(blockIdx.x) * N + z0 + t;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) out[c * ncell + cell] = sums[c][t];
+  }
+}
+
+// The buffer's buckets and the scan's tiles of a call: ncell = (S + 2H) N^2
+// cells, ntile tiles of A's ncell + 1 counts; false where out of range
+// (bucket starts are int32).
+bool slab_layout(int64_t S, int64_t N, int B, int64_t* ncell, int64_t* ntile) {
+  int lo, hi, rows, H;
+  if (band(N, B, 0, &lo, &hi) != cudaSuccess || slab_rows(N, S, B, &rows, &H) != cudaSuccess)
+    return false;
+  *ncell = (S + 2 * H) * N * N;
+  *ntile = (*ncell + kScanTile) / kScanTile;
+  return *ntile * kScanTile < (int64_t{1} << 31);
+}
+
+// The int32 words of a slab paint's scratch: the records (one a particle,
+// elem_bytes the dtype's size), A (whole scan tiles) and the tile sums; -1
+// where the call is out of range.
+int64_t slab_scratch_words(int64_t S, int64_t N, int B, int elem_bytes) {
+  int64_t ncell, ntile;
+  if (!slab_layout(S, N, B, &ncell, &ntile) || (elem_bytes != 4 && elem_bytes != 8)) return -1;
+  const int64_t rec = elem_bytes == 4 ? sizeof(SlabRecord<float>) : sizeof(SlabRecord<double>);
+  return S * N * N * rec / 4 + ntile * kScanTile + ntile + 1;
+}
+
+// dx, dy, dz: (S, N, N); w: C (S, N, N) channels, or null (C = 1,
+// unweighted); out: C (S + 2H, N, N) buffers.  The sum runs in groups of up
+// to three channels, on one sort.
+template <typename T>
+cudaError_t launch_paint_slab(const T* dx, const T* dy, const T* dz, const T* w, int64_t C,
+                              T* out, int64_t S, int64_t N, int B, int* scratch,
+                              cudaStream_t stream) {
+  int lo, hi, rows, H;
+  int64_t ncell, ntile;
+  cudaError_t e = band(N, B, 0, &lo, &hi);
+  if (e != cudaSuccess) return e;
+  if ((e = slab_rows(N, S, B, &rows, &H)) != cudaSuccess) return e;
+  if (!slab_layout(S, N, B, &ncell, &ntile) || C < 1 || (w == nullptr && C != 1) ||
+      scratch == nullptr)
+    return cudaErrorInvalidValue;
+  const int n = static_cast<int>(N);
+  const int64_t np = S * N * N;
+  SlabRecord<T>* records = reinterpret_cast<SlabRecord<T>*>(scratch);
+  int* A = reinterpret_cast<int*>(records + np);
+  int* tile_sum = A + ntile * kScanTile;
+  const int threads = N < kRowThreads ? (n + 31) / 32 * 32 : kRowThreads;
+  const unsigned zblocks = static_cast<unsigned>((N + threads - 1) / threads);
+  const dim3 particles(static_cast<unsigned>(rows * n), zblocks);
+  if ((e = cudaMemsetAsync(A, 0, ntile * kScanTile * sizeof(int), stream)) != cudaSuccess)
+    return e;
+  slab_count_kernel<T><<<particles, threads, 0, stream>>>(dx, dy, dz, A, n, H, lo, hi);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  scan_reduce_kernel<<<static_cast<unsigned>(ntile), kScanThreads, 0, stream>>>(A, tile_sum);
+  scan_tiles_kernel<<<1, kScanThreads, 0, stream>>>(tile_sum, static_cast<int>(ntile));
+  scan_down_kernel<<<static_cast<unsigned>(ntile), kScanThreads, 0, stream>>>(A, tile_sum);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  slab_fill_kernel<T><<<particles, threads, 0, stream>>>(dx, dy, dz, A, records, n, H, lo, hi);
+  const int W = hi - lo + 2, words = (W * W * W + 31) / 32;
+  slab_sort_kernel<T><<<static_cast<unsigned>((ncell + kSortThreads - 1) / kSortThreads),
+                        kSortThreads, (kSortThreads / 32) * words * sizeof(unsigned), stream>>>(
+      dx, dy, dz, A, records, ncell, n, H, lo, W, words);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const dim3 cells(static_cast<unsigned>((rows + 2 * H) * n), (n + kSumThreads - 1) / kSumThreads);
+  for (int64_t c0 = 0; c0 < C; c0 += 3) {
+    const int64_t kc = C - c0 < 3 ? C - c0 : 3;
+    auto kernel = w == nullptr ? &slab_sum_kernel<T, false, 1>
+                  : kc == 1    ? &slab_sum_kernel<T, true, 1>
+                  : kc == 2    ? &slab_sum_kernel<T, true, 2>
+                               : &slab_sum_kernel<T, true, 3>;
+    kernel<<<cells, kSumThreads, 0, stream>>>(w == nullptr ? nullptr : w + c0 * np, A, records,
+                                              out + c0 * ncell, n, H, lo, hi, np, ncell);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // dx, dy, dz: (N, N, N) wrapped displacements in cell units; w: (N, N, N)
@@ -708,15 +1137,13 @@ cudaError_t launch_gather(const T* m0, const T* m1, const T* m2, const T* dx, co
 extern "C" int fbx_cic_paint_lattice_f32(const float* dx, const float* dy, const float* dz,
                                          const float* w, float* out, int64_t N, int B,
                                          int openband, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, int64_t{-1}, B, openband,
-                      static_cast<cudaStream_t>(stream));
+  return launch_paint(dx, dy, dz, w, out, N, B, openband, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_cic_paint_lattice_f64(const double* dx, const double* dy, const double* dz,
                                          const double* w, double* out, int64_t N, int B,
                                          int openband, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, int64_t{-1}, B, openband,
-                      static_cast<cudaStream_t>(stream));
+  return launch_paint(dx, dy, dz, w, out, N, B, openband, static_cast<cudaStream_t>(stream));
 }
 
 // mesh, dx, dy, dz, out: (N, N, N).
@@ -753,22 +1180,30 @@ extern "C" int fbx_cic_gather3_lattice_f64(const double* m0, const double* m1, c
                                          openband, static_cast<cudaStream_t>(stream));
 }
 
-// Slab mode, closed band [-B, B+1], H = B + 1.  dx, dy, dz, w (or null):
-// (S, N, N); out: the (S + 2H, N, N) buffer.
+// Slab mode, closed band [-B, B+1], H = B + 1.  dx, dy, dz: (S, N, N); w:
+// a (C, S, N, N) weight stack, or null with C = 1; out: (C, S + 2H, N, N);
+// scratch: fbx_cic_paint_lattice_slab_scratch(S, N, B, dtype size) int32
+// words on the device.
+extern "C" int64_t fbx_cic_paint_lattice_slab_scratch(int64_t S, int64_t N, int B,
+                                                       int elem_bytes) {
+  return slab_scratch_words(S, N, B, elem_bytes);
+}
+
 extern "C" int fbx_cic_paint_lattice_slab_f32(const float* dx, const float* dy, const float* dz,
-                                              const float* w, float* out, int64_t S, int64_t N,
-                                              int B, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, S, B, 0, static_cast<cudaStream_t>(stream));
+                                              const float* w, int64_t C, float* out, int64_t S,
+                                              int64_t N, int B, void* scratch, void* stream) {
+  return launch_paint_slab(dx, dy, dz, w, C, out, S, N, B, static_cast<int*>(scratch),
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fbx_cic_paint_lattice_slab_f64(const double* dx, const double* dy,
-                                              const double* dz, const double* w, double* out,
-                                              int64_t S, int64_t N, int B, void* stream) {
-  return launch_paint(dx, dy, dz, w, out, N, S, B, 0, static_cast<cudaStream_t>(stream));
+                                              const double* dz, const double* w, int64_t C,
+                                              double* out, int64_t S, int64_t N, int B,
+                                              void* scratch, void* stream) {
+  return launch_paint_slab(dx, dy, dz, w, C, out, S, N, B, static_cast<int*>(scratch),
+                           static_cast<cudaStream_t>(stream));
 }
 
-// m0, m1, m2: (S + 2H, N, N) halo-extended meshes; dx, dy, dz, o0, o1, o2:
-// (S, N, N).
 extern "C" int fbx_cic_gather3_lattice_slab_f32(const float* m0, const float* m1,
                                                 const float* m2, const float* dx,
                                                 const float* dy, const float* dz, float* o0,

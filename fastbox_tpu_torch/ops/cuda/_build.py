@@ -66,7 +66,8 @@ _SIGNATURES = {
     "fbx_cic_gather_lattice": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "fbx_cic_gather3_lattice": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                 _INT, _INT, _P),
-    "fbx_cic_paint_lattice_slab": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "fbx_cic_paint_lattice_slab": (_P, _P, _P, _P, _I64, _P, _I64, _I64,
+                                   _INT, _P, _P),
     "fbx_cic_gather3_lattice_slab": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I64, _I64, _INT, _P),
     "fbx_dft_c2c_axis": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
@@ -165,6 +166,9 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.fbx_error_string.argtypes = [ctypes.c_int]
     lib.fbx_error_string.restype = ctypes.c_char_p
+    lib.fbx_cic_paint_lattice_slab_scratch.argtypes = [_I64, _I64, _INT,
+                                                       _INT]
+    lib.fbx_cic_paint_lattice_slab_scratch.restype = _I64
     return lib
 
 

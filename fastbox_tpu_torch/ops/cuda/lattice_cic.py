@@ -16,6 +16,12 @@ a paint into an (S + 2H, N, N) buffer and a three-mesh gather from
 (S + 2H, N, N) halo-extended meshes, H = B + 1 (the JAX roll forms at
 ``fastbox_tpu/parallel/lattice.py:48-166``).  Its twins are the slab roll
 forms of ``fields/lattice_cic.py``; kernel and twin agree bit for bit.
+The slab paint is a global counting sort of the particles by the buffer
+cell of their lower CIC corner, then one thread per cell summing its 8
+buckets in the twin's order; it takes a (C, S, N, N) stack of weight
+channels and paints them all on one sort, into (C, S + 2H, N, N).  Its
+scratch (a record of 4 dtype words a particle, an int32 a buffer cell)
+comes from the caching allocator on the tensors' device.
 """
 from __future__ import annotations
 
@@ -54,9 +60,10 @@ def _check(name, meshes, disp, B):
     return d, N
 
 
-def _check_slab(name, disp, B, sites=(), exts=()):
+def _check_slab(name, disp, B, sites=(), exts=(), stacks=()):
     """(d, S, N) of a slab call: disp and ``sites`` are (S, N, N), the
-    halo-extended ``exts`` (S + 2H, N, N), H = B + 1."""
+    halo-extended ``exts`` (S + 2H, N, N), H = B + 1, and ``stacks`` (C, S,
+    N, N) with C >= 1."""
     d = tuple(disp)
     if len(d) != 3:
         raise ValueError(f"{name}: disp must be a (dx, dy, dz) tuple")
@@ -73,7 +80,12 @@ def _check_slab(name, disp, B, sites=(), exts=()):
                              f"(S + 2(B + 1), N, N) = "
                              f"{(S + 2 * (B + 1), N, N)}, got "
                              f"{tuple(t.shape)}")
-    _build.require_cuda(name, *exts, *d, *sites, dtype=d[0].dtype)
+    for t in stacks:
+        if t.dim() != 4 or t.shape[0] < 1 or t.shape[1:] != (S, N, N):
+            raise ValueError(f"{name}: a weight stack must be (C, S, N, N) "
+                             f"with C >= 1 and (S, N, N) = {(S, N, N)}, got "
+                             f"{tuple(t.shape)}")
+    _build.require_cuda(name, *exts, *d, *sites, *stacks, dtype=d[0].dtype)
     return d, S, N
 
 
@@ -126,15 +138,32 @@ def cic_gather3_lattice_cuda(meshes, disp, B: int, openband: bool = True,
     return outs
 
 
+def _stacked(weights) -> bool:
+    """Whether slab-paint ``weights`` is a (C, S, N, N) channel stack."""
+    return weights is not None and weights.dim() != 3
+
+
 def cic_paint_lattice_slab_cuda(disp, B: int, weights=None):
-    """K11a in slab mode: the (S + 2H, N, N) buffer of an (S, N, N) slab."""
-    d, S, N = _check_slab(PAINT_SLAB, disp, B,
-                          () if weights is None else (weights,))
-    out = torch.empty((S + 2 * (B + 1), N, N), dtype=d[0].dtype,
-                      device=d[0].device)
+    """K11a in slab mode: the (S + 2H, N, N) buffer of an (S, N, N) slab,
+    or with a (C, S, N, N) weight stack its (C, S + 2H, N, N) buffers, all
+    channels in one launch."""
+    stack = _stacked(weights)
+    d, S, N = _check_slab(
+        PAINT_SLAB, disp, B,
+        sites=() if weights is None or stack else (weights,),
+        stacks=(weights,) if stack else ())
+    C = weights.shape[0] if stack else 1
+    out = torch.empty(((C,) if stack else ()) + (S + 2 * (B + 1), N, N),
+                      dtype=d[0].dtype, device=d[0].device)
+    words = _build.load_library().fbx_cic_paint_lattice_slab_scratch(
+        S, N, int(B), out.element_size())
+    if words < 0:
+        raise ValueError(f"{PAINT_SLAB}: a slab of {(S, N, N)} at B = {B} is "
+                         "beyond the kernel's int32 bucket starts")
+    scratch = torch.empty(words, dtype=torch.int32, device=out.device)
     _launch(PAINT_SLAB, "fbx_cic_paint_lattice_slab", out.dtype, out.device,
-            *(t.data_ptr() for t in d), _build.ptr(weights), out.data_ptr(),
-            S, N, int(B))
+            *(t.data_ptr() for t in d), _build.ptr(weights), C,
+            out.data_ptr(), S, N, int(B), scratch.data_ptr())
     return out
 
 
@@ -161,6 +190,10 @@ def cic_gather3_lattice_slab_cuda(exts, disp, B: int, out=None):
 
 
 def cic_paint_lattice_slab_plain(disp, B: int, weights=None):
+    """The slab twin; a (C, S, N, N) weight stack is C twin paints."""
+    if _stacked(weights):
+        return torch.stack([twin.cic_paint_lattice_slab(tuple(disp), B, w)
+                            for w in weights])
     return twin.cic_paint_lattice_slab(tuple(disp), B, weights)
 
 
@@ -209,7 +242,8 @@ def cic_gather3_lattice(meshes, disp, B: int, openband: bool = True):
 
 
 def cic_paint_lattice_slab(disp, B: int, weights=None):
-    """K11a's slab mode on CUDA tensors, the slab twin on CPU tensors."""
+    """K11a's slab mode on CUDA tensors, the slab twin on CPU tensors;
+    ``weights`` (S, N, N), or a (C, S, N, N) stack painted on one sort."""
     if _on(PAINT_SLAB, disp[0]) == "cuda":
         return cic_paint_lattice_slab_cuda(disp, B, weights)
     return cic_paint_lattice_slab_plain(disp, B, weights)

@@ -106,12 +106,12 @@ def halo_paint(disp, B: int, group, weights=None):
 
 def halo_paint_many(disp, B: int, group, weights):
     """:func:`halo_paint` of a channel stack ``weights`` (C, S, N, N) with
-    one strip exchange for all channels; returns (C, S, N, N)."""
+    one strip exchange for all channels; returns (C, S, N, N).  On the card
+    one K11a launch paints every channel."""
     d = tuple(t.contiguous() for t in _disp_axes(disp))
     S = d[0].shape[0]
     H = _check_rows(S, B)
-    buf = torch.stack([k11.cic_paint_lattice_slab(d, B, w.contiguous())
-                       for w in weights])
+    buf = k11.cic_paint_lattice_slab(d, B, weights.contiguous())
     return _fold(buf, S, H, group)
 
 

@@ -39,6 +39,7 @@ from fastbox_tpu_torch.ops.cuda import lattice_cic as k11
 from fastbox_tpu_torch.parallel import (halo_gather, halo_gather_many,
                                         halo_paint, halo_paint_many, local,
                                         make_mesh, make_sharded_cola)
+from test_torch_slab_paint_order import KINDS, slab_disp
 
 COSMO = dict(Omega_c=0.25, Omega_b=0.05, h=0.7, n_s=0.95, sigma8=0.8)
 N = 16
@@ -232,6 +233,33 @@ def test_slab_dispatch_takes_the_twins_on_the_cpu_and_the_kernels_raise():
         k11.cic_paint_lattice_slab_cuda(d, 0)
 
 
+def test_slab_paint_channel_stack_is_checked_before_any_build(monkeypatch):
+    """The slab paint's (C, S, N, N) weight stack: its shape and C >= 1 are
+    checked before the kernels are built; on the CPU a stack paints as a
+    stack of twins."""
+    from fastbox_tpu_torch.ops.cuda import _build
+
+    def no_build():
+        raise AssertionError("the kernels were built")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    rng = np.random.default_rng(6)
+    d = tuple(torch.as_tensor(a) for a in
+              np.moveaxis(bounded_disp(rng, N, 2)[:8], -1, 0).copy())
+    w3 = torch.as_tensor(rng.standard_normal((3, 8, N, N)))
+    got = k11.cic_paint_lattice_slab(d, 2, w3)
+    assert got.shape == (3, 8 + 2 * 3, N, N)
+    for c in range(3):
+        assert torch.equal(got[c], twin.cic_paint_lattice_slab(d, 2, w3[c]))
+    for bad in (w3[:0], w3[:, :7], w3[..., :8], w3[None], w3[0, 0]):
+        with pytest.raises(ValueError, match="weight stack|must be"):
+            k11.cic_paint_lattice_slab_cuda(d, 2, bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        k11.cic_paint_lattice_slab_cuda(d, 2, w3)
+    with pytest.raises(ValueError, match="B must be"):
+        k11.cic_paint_lattice_slab_cuda(d, 17, w3)
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_cola_matches_fastbox_tpu(ranks, jax_cola, world):
     outs = [r["cola"][0] for r in ranks[world]]
@@ -337,7 +365,11 @@ def cuda():
 @pytest.mark.parametrize("n, S", ((64, 64), (64, 16), (62, 8)))
 def test_slab_kernels_equal_twins(cuda, B, dtype, n, S):
     """K11a/K11c's slab mode bit for bit against the slab twins (the
-    staged gather at 64, the direct path on 62-cell rows), repeatable."""
+    staged gather at 64, the direct path on 62-cell rows), repeatable.  The
+    paint also on the minimum slab S = B + 1 and on the order test's cases
+    (uniform, across the y/z wrap, a region aimed at one cell, integer
+    displacements, |d| > B), unweighted, weighted and with a C = 3 weight
+    stack, which equals three single-channel twins."""
     gen = torch.Generator(device=cuda).manual_seed(100 * B + S)
     d = tuple(((torch.rand((S, n, n), generator=gen, device=cuda,
                            dtype=dtype) * 2 - 1) * B).contiguous()
@@ -352,3 +384,16 @@ def test_slab_kernels_equal_twins(cuda, B, dtype, n, S):
     got = k11.cic_gather3_lattice_slab_cuda(exts, d, B)
     for a, b in zip(got, k11.cic_gather3_lattice_slab_plain(exts, d, B)):
         assert torch.equal(a, b)
+    rng = np.random.default_rng(100 * B + S + n)
+    for rows in (S, B + 1):
+        for kind in KINDS:
+            dk = tuple(torch.as_tensor(a, dtype=dtype, device=cuda)
+                       .contiguous() for a in slab_disp(rng, kind, rows, n, B))
+            w3 = torch.as_tensor(rng.standard_normal((3, rows, n, n)),
+                                 dtype=dtype, device=cuda)
+            for wt in (None, w3[0], w3):
+                got = k11.cic_paint_lattice_slab_cuda(dk, B, wt)
+                assert torch.equal(
+                    got, k11.cic_paint_lattice_slab_plain(dk, B, wt)), kind
+                assert torch.equal(
+                    got, k11.cic_paint_lattice_slab_cuda(dk, B, wt)), kind
