@@ -11,8 +11,8 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K11) from fastbox_tpu_torch/csrc (timed; ptxas's
-     registers and spills of every kernel);
+  2. build the kernels (K1-K11, R1/R2) from fastbox_tpu_torch/csrc (timed;
+     ptxas's registers and spills of every kernel);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with device
      times per call (median_ms: CUDA events around back-to-back calls,
@@ -59,6 +59,17 @@ failure:
      kernel's row also carries its bound (bytes or operations over the
      H100's published peaks) and, where one PyTorch call computes the same
      function, that call's time (library_ms);
+  R. the row draws (csrc/row_draw.cu, jax.random's threefry streams): R1
+     against its twin on the card, 8 keys (2^32 + 5 and negative seeds
+     among them), f32 and f64, uniforms bitwise and erfinv / Box-Muller
+     normals within R1_TWIN_ULP, on a 256^3 field's (N, N) and (N,) rows,
+     a 512^3 slab from row 100, 63-cell rows; the direct path (unaligned)
+     equal to the vector path; the first 8 rows of a 256^3 field against
+     the CPU twin (uniforms bitwise, normals within R1_CPU_SPACINGS); R2's
+     counts equal to its twin's on rates spanning 0, 1e-3..1e4 and NaN (f32,
+     f64; one key and eight) and on a 256^3 halo rate; times of both, their
+     twins, the per-row loops they replaced and torch.randn / torch.poisson
+     (other functions) at 256^3;
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
@@ -79,7 +90,9 @@ failure:
   7. the parallel/ slice on a one-rank ('ens' 1, 'space' 1) mesh under
      NCCL: the sharded ensemble step at 256^3 with B = 8 and at 512^3 with
      B = 2 (launch counters reset just before and read just after: K8, K4
-     and K1 must launch), at sigma_NL = 6000 km/s (K3), K8 bitwise equal
+     and K1 must launch, and R1 six times a call), its draw stage and wall
+     time with the replaced per-row loop swapped in and back, in turns,
+     at sigma_NL = 6000 km/s (K3), K8 bitwise equal
      to its twin on both steps' sorted nodes (f32 and f64, bands 2 and 4),
      on rows with duplicate nodes, nodes on targets and on the hull edges,
      and on 62-cell and unaligned rows and at band 3 (the direct path),
@@ -107,7 +120,7 @@ failure:
      on the card (rtol 1e-10, atol 1e-8); make_sharded_pca_filter against
      pca_filter on the 256^3 pipeline's data cube; make_sharded_halo_counts
      bitwise repeatable on one seed with its mean count within 20% of
-     nbar V_voxel; then the wall ms (median of 5) and peak device memory of
+     nbar V_voxel (R2 counted, once a call); then the wall ms (median of 5) and peak device memory of
      power_spectrum (nmu 1 and 5), power_multipoles, correlation_function
      and the sharded power spectrum at 256^3 and 512^3;
   8. the COLA engine (scripts/bench_cola.py's configuration: 256^3 in a
@@ -127,7 +140,7 @@ failure:
      1-3 beside one index_add_ of its corners, its scratch peak at 256^3
      and 512^3; make_sharded_cola at 256^3 (x3) and 512^3 with launch
      counters reset just before and read just after (69 slab paints, 64
-     slab gathers, no periodic K11); the plain slab twins on the same
+     slab gathers, 4 R1 white fields, no periodic K11); the plain slab twins on the same
      noise (bitwise); f64 64^3 card vs CPU; then CosmoBox against the CPU;
  8c. still on the one-rank mesh, the foregrounds and the cleaners: (a)
      the README quickstart at 256^3 in the 4 Gpc box at z=0.8, f32
@@ -255,6 +268,11 @@ KERNELS = {
                       "fastbox_tpu/ops/pallas/banded_interp.py:65"),
     "dft_c2c_axis": ("fastbox_tpu_torch/csrc/mmdft.cu",
                      "fastbox_tpu/ops/pallas/mmdft.py:172"),
+    # R1/R2 replace no Pallas kernel: jax.random's row draws under vmap
+    "row_normal": ("fastbox_tpu_torch/csrc/row_draw.cu",
+                   "fastbox_tpu/parallel/rng.py:81"),
+    "row_poisson": ("fastbox_tpu_torch/csrc/row_draw.cu",
+                    "fastbox_tpu/parallel/halos.py:29"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -310,6 +328,27 @@ SHARDED_RTOL, SHARDED_ATOL = 1e-10, 1e-8
 PCA_SHARDED_BOUND = 1e-6
 EST_N_PARTICLES = 2 ** 20
 EST_REPS = 5
+# Phase R: the row draws.  R1 against its twin on the card: the uniforms
+# bitwise, the normals within R1_TWIN_ULP (the kernel and torch call the
+# same CUDA erfinv, log, cos and sin); the card against the CPU twin within
+# R1_CPU_SPACINGS spacings of the value (torch's CPU erfinv against CUDA's;
+# the bound tests/test_torch_row_draws.py holds the twin to against jax);
+# R2's counts equal to its twin's.
+R1, R2 = "row_normal", "row_poisson"
+R1_TWIN_ULP = 2
+R1_CPU_SPACINGS = {torch.float32: 128, torch.float64: 2 ** 14}
+ROW_SEEDS = [0, 1, 2 ** 32 + 5, -7, 1234, 99, 2 ** 40 + 3, -2 ** 33]
+# Operations per value, counted from csrc/row_draw.cu: a threefry2x32 call
+# is 72 32-bit operations (20 rounds of add, funnel shift, xor; 5 key
+# injections of two adds; the first two adds); the uniform 7 (xor, shift,
+# or, exact subtract, multiply, add, max); CUDA's f32 erfinv ~25, then one
+# multiply: R1_OPS for an f32 erfinv normal.  R2: a Knuth step is one
+# threefry call for the bits (its chain keys are staged once a row), the
+# uniform, a log (~20), an add and a compare, ~100; a rejection step two
+# calls, two uniforms, two logs, lgamma (~40) and ~25 other operations,
+# ~250.
+R1_OPS = 105
+R2_KNUTH_OPS, R2_REJECTION_OPS = 100, 250
 
 
 def log(msg: str) -> None:
@@ -2052,7 +2091,8 @@ def phase_sharded_cola(dev, mesh) -> list[dict]:
     steps = kw["n_steps"]
     # a paint per force evaluation and the final one; the momenta's three
     # channels on one launch
-    want = {PAINT_SLAB: 4 * (steps + 1) + 1, GATHER3_SLAB: 4 * steps}
+    want = {PAINT_SLAB: 4 * (steps + 1) + 1, GATHER3_SLAB: 4 * steps,
+            R1: 4}   # one white field a realisation
     for name, n in want.items():
         check(counts.get(name, 0) == n, f"{name}: {counts.get(name, 0)} "
               f"launches, the code makes {n}")
@@ -3391,8 +3431,12 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
 
     (out, wall, peak256, wall512, peak512), counts = counted(
         "the sharded step", ("banded_interp", "binned_pk_half_dual_v2",
-                             "add_scaled_normal"), main_path)
-    launches = {"banded_interp": counts["banded_interp"]}
+                             "add_scaled_normal", R1), main_path)
+    # R1: one launch per field a call (density, sigma_nl, noise, fg_re,
+    # fg_im, alpha) over the batch's seeds; three calls
+    check(counts[R1] == 6 * 3, f"the sharded step: {counts[R1]} R1 "
+          "launches over three calls, the code makes 18")
+    launches = {"banded_interp": counts["banded_interp"], R1: counts[R1]}
     log(f"sharded step on the one-rank mesh: 256^3 B=8 "
         f"{wall * 1e3 / 8:.2f} ms per realisation (peak device memory "
         f"{peak256:.2f} GiB); 512^3 B=2 {wall512 * 1e3 / 2:.2f} ms per "
@@ -3400,7 +3444,8 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
         f"{counts.get('banded_interp', 0)}, K3 "
         f"{counts.get('interp_sorted', 0)}, K4 "
         f"{counts.get('binned_pk_half_dual_v2', 0)}, K1 "
-        f"{counts.get('add_scaled_normal', 0)}")
+        f"{counts.get('add_scaled_normal', 0)}, R1 {counts[R1]}")
+    step_draw_turns(step256, dev, list(range(100, 108)))
     # the clean in f64 (ROADMAP C3) against the f32 clean it replaced: the
     # same step with the f64 working copy taken out, in turns
     work, pca_ms = sharded._work, {"f32": [], "f64": []}
@@ -3504,7 +3549,7 @@ def phase_sharded(dev, cosmo, grid, fn256) -> tuple:
     run_pipeline(fn_near, dev, "rsd_method='nearest' 256^3", grid,
                  generator=torch.Generator(device=dev).manual_seed(2))
     launches[K4T] = phase_v2t(dev, cosmo, grid, fn256, mesh)
-    phase_estimators(dev, cosmo, grid, fn256, mesh)
+    launches[R2] = phase_estimators(dev, cosmo, grid, fn256, mesh)
     return [k8], launches, mesh
 
 
@@ -3566,14 +3611,15 @@ def est_time(fn) -> tuple:
             (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
 
 
-def phase_estimators(dev, cosmo, grid, fn256, mesh) -> None:
+def phase_estimators(dev, cosmo, grid, fn256, mesh) -> int:
     """Phase 7b, on the one-rank mesh: the estimators of ops/spectra.py and
     ops/nbodykit_compat.py on a realise_density cube on the card against
     the port on the CPU in f32 on the same cube; the sharded spectra in f64
     against the single-device f64 calls; the sharded PCA filter against
     pca_filter on the pipeline's 256^3 data cube; the sharded halo counts'
-    repeatability and mean; then wall ms and peak memory at 256^3 and
-    512^3.  Fails after logging every comparison if any failed."""
+    repeatability and mean (R2 counted: one launch a call); then wall ms
+    and peak memory at 256^3 and 512^3.  Fails after logging every
+    comparison if any failed; returns R2's launches."""
     from fastbox_tpu_torch.fields.gaussian import realise_density
     from fastbox_tpu_torch.filters.pca import pca_filter
     from fastbox_tpu_torch.grid import GridSpec
@@ -3705,7 +3751,10 @@ def phase_estimators(dev, cosmo, grid, fn256, mesh) -> None:
     # the sharded halo counts: the same field twice from one seed
     nbar = 1e-3
     halos = make_sharded_halo_counts(mesh, grid, nbar=nbar, bias=1.5)
-    c1, c2 = halos(11, a), halos(11, a)
+    (c1, c2), counts = counted("the sharded halo counts", (R2,),
+                               lambda: (halos(11, a), halos(11, a)))
+    if counts[R2] != 2:
+        failures.append(f"halo counts: {counts[R2]} R2 launches, not 2")
     mean = c1.double().mean().item() / (nbar * grid.voxel_volume)
     log(f"sharded halo counts at {grid.N}^3: bitwise repeatable "
         f"{torch.equal(c1, c2)}; mean / (nbar V_voxel) {mean:.4f}")
@@ -3739,6 +3788,7 @@ def phase_estimators(dev, cosmo, grid, fn256, mesh) -> None:
         del fn, timed
     log(f"estimators: phase took {time.perf_counter() - t_phase:.1f} s")
     check(not failures, "estimators: " + "; ".join(failures))
+    return counts[R2]
 
 
 def phase_v2t(dev, cosmo, grid, fn256, mesh) -> int:
@@ -3785,6 +3835,281 @@ def phase_v2t(dev, cosmo, grid, fn256, mesh) -> int:
             f"rel diff {rel.max():.3e}")
         check(rel.max() <= V2T_BOUND, f"v2t step vs default {name}")
     return launches + counts[K4T]
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def per_row_seed(seed: int, tag: int, row: int) -> int:
+    return _splitmix64(_splitmix64(_splitmix64(int(seed) & _MASK64)
+                                   ^ int(tag)) ^ int(row))
+
+
+def per_row_normal(seed, tag: int, row0: int, nrows: int, row_shape,
+                      dtype=torch.float32, device=None, out=None, **_):
+    """The per-row draws that R1 replaced, kept here for timing only (phase
+    R and the step's draw stage in turns): a torch.Generator reseeded from
+    a splitmix64 mix of (seed, tag, row) and one torch.randn per row, seed
+    after seed of a batch, as the sharded step looped over the batch before
+    R1.  Its stream is torch's, not jax's."""
+    batched = np.ndim(seed) == 1
+    seeds = list(seed) if batched else [seed]
+    if out is None:
+        out = torch.empty((len(seeds), nrows, *row_shape), dtype=dtype,
+                          device=device)
+    rows = out if batched or out.dim() > len(row_shape) + 1 else out[None]
+    gen = torch.Generator(device=out.device)
+    for j, s in enumerate(seeds):
+        for i in range(nrows):
+            gen.manual_seed(per_row_seed(s, tag, row0 + i))
+            torch.randn(tuple(row_shape), generator=gen, dtype=out.dtype,
+                        device=out.device, out=rows[j, i])
+    return out
+
+
+def per_row_poisson(seed: int, tag: int, row0: int, lam):
+    """The per-row halo counts that R2 replaced (timing only): one
+    torch.poisson per row on a generator reseeded as in
+    ``per_row_normal``."""
+    out = torch.empty_like(lam)
+    gen = torch.Generator(device=lam.device)
+    for i in range(lam.shape[0]):
+        gen.manual_seed(per_row_seed(seed, tag, row0 + i))
+        out[i] = torch.poisson(lam[i], generator=gen)
+    return out
+
+
+def spacing_err(got, want) -> float:
+    """max |got - want| over the spacing of |want| in its dtype."""
+    g, w = got.double().cpu().numpy(), want.cpu().numpy()
+    sp = np.spacing(np.abs(w)).astype(np.float64)
+    return float((np.abs(g - w) / sp).max())
+
+
+# (label, nrows, row0, row shape) of phase R's R1 cases; B = 8 keys each
+R1_CASES = (("256^3 field, (256, 256) rows", 256, 0, (256, 256)),
+            ("512^3 slab, rows 100-163", 64, 100, (512, 512)),
+            ("256^3 field, (256,) rows", 256, 0, (256,)),
+            ("512 (512,) rows from row 100", 64, 100, (512,)),
+            ("63^3 field, (63, 63) rows", 63, 0, (63, 63)),
+            ("(63,) rows from row 100", 63, 100, (63,)))
+
+
+def r1_checks(dev) -> list:
+    """R1 against its twin on the card over R1_CASES, f32/f64, every method;
+    the direct path (an unaligned output) against the vector path; the first
+    8 rows of a 256^3 field against the CPU twin.  Returns the failures."""
+    from fastbox_tpu_torch.ops.cuda import row_draw
+    from fastbox_tpu_torch.parallel.rng import TAGS, row_keys
+
+    failures = []
+    keys, _ = row_keys(ROW_SEEDS, dev)
+    tag = TAGS["noise"]
+    worst = {}
+    for label, nrows, row0, shape in R1_CASES:
+        for dtype in (torch.float32, torch.float64):
+            for method in ("uniform", "erfinv", "box_muller"):
+                got = row_draw.row_normal_cuda(keys, tag, row0, nrows, shape,
+                                               dtype, method)
+                want = row_draw.row_normal_plain(keys, tag, row0, nrows,
+                                                 shape, dtype, method)
+                if method == "uniform":
+                    err = 0 if torch.equal(got, want) else ulp_diff(got, want)
+                    ok = err == 0
+                else:
+                    err = ulp_diff(got, want)
+                    ok = err <= R1_TWIN_ULP
+                key = (method, str(dtype).split(".")[-1])
+                worst[key] = max(worst.get(key, 0), err)
+                if not ok:
+                    failures.append(f"R1 {label} {key}: {err} ulp from twin")
+                del got, want
+    log("R1 vs twin on the card (8 keys; 256^3, 512^3 slab from row 100, "
+        "(N,) and 63-cell rows), largest ulp by (method, dtype): "
+        + ", ".join(f"{m} {d} {e}" for (m, d), e in worst.items()))
+    for dtype in (torch.float32, torch.float64):
+        vec = row_draw.row_normal_cuda(keys, tag, 0, 64, (256, 256), dtype)
+        direct = unaligned(torch.empty_like(vec))
+        row_draw.row_normal_cuda(keys, tag, 0, 64, (256, 256), dtype,
+                                 out=direct)
+        same = torch.equal(vec, direct)
+        log(f"R1 {dtype}: direct path (unaligned output) equal to the vector "
+            f"path: {same}")
+        if not same:
+            failures.append(f"R1 {dtype}: direct path differs")
+    cpu_keys, _ = row_keys([2 ** 32 + 5], "cpu")
+    card_keys, _ = row_keys([2 ** 32 + 5], dev)
+    for dtype in (torch.float32, torch.float64):
+        for method in ("uniform", "erfinv", "box_muller"):
+            card = row_draw.row_normal_cuda(card_keys, TAGS["density"], 0, 8,
+                                            (256, 256), dtype, method)
+            cpu = row_draw.row_normal_plain(cpu_keys, TAGS["density"], 0, 8,
+                                            (256, 256), dtype, method)
+            if method == "uniform":
+                ok, err = torch.equal(card.cpu(), cpu), 0.0
+            else:
+                err = spacing_err(card, cpu)
+                ok = err <= R1_CPU_SPACINGS[dtype]
+            log(f"R1 card vs CPU twin, first 8 rows of a 256^3 field, "
+                f"{method} {dtype}: "
+                + ("bitwise" if method == "uniform" and ok else
+                   f"{err:.0f} spacings, "
+                   f"{(card.double().cpu() - cpu).abs().max().item():.3e} "
+                   "absolute"))
+            if not ok:
+                failures.append(f"R1 card vs CPU {method} {dtype}: {err}")
+    return failures
+
+
+def rate_field(shape, dev, dtype, seed: int) -> torch.Tensor:
+    """Rates log-uniform on 1e-3..1e4 (both of R2's loops in every row),
+    every 101st 0 and every 997th NaN."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lam = 10.0 ** (torch.rand(shape, generator=g, device=dev,
+                              dtype=torch.float64) * 7.0 - 3.0)
+    flat = lam.view(-1)
+    flat[::101] = 0.0
+    flat[5::997] = float("nan")
+    return lam.to(dtype)
+
+
+def r2_ops(lam, counts) -> float:
+    """The operations these rates need: Knuth's steps, count + 1 for a
+    positive rate (exact), and at least two rejection steps per rejection
+    element (its first acceptance and the row's last step)."""
+    lf = lam.float()
+    knuth = torch.isnan(lf) | (lf < 10.0)
+    steps = (counts.double() + 1.0)[knuth & (lf > 0)].sum().item()
+    return (steps * R2_KNUTH_OPS
+            + 2.0 * (~knuth).sum().item() * R2_REJECTION_OPS)
+
+
+def phase_rows(dev) -> list[dict]:
+    """Phase R: R1 and R2 (csrc/row_draw.cu) against their twins on the
+    card and R1 against the CPU twin (r1_checks); R2 on rate fields of
+    every regime (0, 1e-3..9.99, 10..1e4, NaN), f32 and f64, one key and
+    eight, counts equal to the twin's; times of both kernels, their twins,
+    the per-row loops they replaced and torch.randn / torch.poisson (other
+    functions, for scale) at 256^3.  Returns the kernels' rows."""
+    from fastbox_tpu_torch.ops.cuda import row_draw
+    from fastbox_tpu_torch.parallel.rng import TAGS, row_keys
+
+    t_phase = time.perf_counter()
+    failures = r1_checks(dev)
+
+    # R2 against its twin
+    for dtype in (torch.float32, torch.float64):
+        for seeds, shape in (([2 ** 32 + 5], (1, 256, 256, 256)),
+                             (ROW_SEEDS, (8, 16, 256, 256))):
+            keys, _ = row_keys(seeds, dev)
+            lam = rate_field(shape, dev, dtype, seed=len(seeds))
+            got = row_draw.row_poisson_cuda(keys, TAGS["halos"], 7, lam)
+            want = row_draw.row_poisson_plain(keys, TAGS["halos"], 7, lam)
+            differ = (got.nan_to_num(-9.0) != want.nan_to_num(-9.0))
+            n = int(differ.sum())
+            log(f"R2 vs twin, {len(seeds)} key(s), {tuple(shape)} rates "
+                f"1e-3..1e4 with 0 and NaN, {dtype}: {n} of {got.numel()} "
+                "counts differ"
+                + ("" if n == 0 else
+                   f" (worst {(got - want)[differ].abs().max().item()} at "
+                   f"rate {lam[differ][0].item()})"))
+            if n:
+                failures.append(f"R2 {dtype} {len(seeds)} keys: {n} differ")
+            del got, want, lam
+
+    # times at 256^3, one field, f32
+    keys1, _ = row_keys([2 ** 32 + 5], dev)
+    keys8, _ = row_keys(ROW_SEEDS, dev)
+    shape = (N_MAIN, N_MAIN)
+    tag = TAGS["density"]
+    r1 = lambda k=keys1, d=torch.float32, m="erfinv": \
+        row_draw.row_normal_cuda(k, tag, 0, N_MAIN, shape, d, m)  # noqa: E731
+    field = r1()
+    twin = row_draw.row_normal_plain(keys1, tag, 0, N_MAIN, shape)
+    err = (field - twin).abs().max().item()
+    t = {"kernel": median_ms(r1),
+         "kernel B=8": median_ms(lambda: r1(keys8)),
+         "kernel f64": median_ms(lambda: r1(d=torch.float64)),
+         "kernel box_muller": median_ms(lambda: r1(m="box_muller")),
+         "twin": median_ms(lambda: row_draw.row_normal_plain(
+             keys1, tag, 0, N_MAIN, shape)),
+         "per-row loop": median_ms(lambda: per_row_normal(
+             2 ** 32 + 5, tag, 0, N_MAIN, shape, device=dev)),
+         "torch.randn (another function)": median_ms(lambda: torch.randn(
+             (N_MAIN,) + shape, device=dev))}
+    log("R1 at 256^3, one field, f32 (ms per call): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    r1_row = dict(name=R1, ms=t["kernel"], plain_ms=t["twin"],
+                  max_abs_err=err, library_ms=None,
+                  **roofline(nbytes(field), R1_OPS * field.numel()))
+    del field, twin
+
+    # R2 on the estimators' halo rate at 256^3: nbar 1e-3 in 15.6 Mpc cells
+    # (3.8 a voxel), bias 1.5, on a field of sigma 0.5
+    g = torch.Generator(device=dev).manual_seed(31)
+    delta = 0.5 * torch.randn((N_MAIN,) * 3, generator=g, device=dev)
+    voxel = (BOX / N_MAIN) ** 3
+    lam = torch.clamp(voxel * 1e-3 * (1.0 + 1.5 * delta), min=0.0)
+    r2 = lambda: row_draw.row_poisson_cuda(keys1, TAGS["halos"], 0,  # noqa
+                                           lam[None])
+    counts = r2()[0]
+    twin = row_draw.row_poisson_plain(keys1, TAGS["halos"], 0, lam[None])[0]
+    err2 = (counts - twin).abs().max().item()
+    if err2 != 0:
+        failures.append(f"R2 on the halo rate: max |diff| {err2}")
+    t2 = {"kernel": median_ms(r2),
+          "twin": median_ms(lambda: row_draw.row_poisson_plain(
+              keys1, TAGS["halos"], 0, lam[None])),
+          "per-row loop": median_ms(lambda: per_row_poisson(
+              2 ** 32 + 5, TAGS["halos"], 0, lam)),
+          "torch.poisson (another function)": median_ms(
+              lambda: torch.poisson(lam))}
+    knuth = float((lam < 10.0).float().mean())
+    log(f"R2 on a 256^3 halo rate (mean {lam.mean().item():.3f}, "
+        f"{100 * knuth:.3f}% below 10), f32, counts equal to the twin's: "
+        f"{err2 == 0} (ms per call): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t2.items()))
+    r2_row = dict(name=R2, ms=t2["kernel"], plain_ms=t2["twin"],
+                  max_abs_err=err2, library_ms=None,
+                  **roofline(nbytes(lam, counts), r2_ops(lam, counts)))
+    log(f"phase R: {time.perf_counter() - t_phase:.1f} s")
+    check(not failures, "phase R: " + "; ".join(failures))
+    return [r1_row, r2_row]
+
+
+def step_draw_turns(step, dev, seeds) -> None:
+    """The 256^3 B = 8 step's draw stage (StageClock, summed over its six
+    fields) and wall ms per call, the per-row loop R1 replaced swapped in
+    and back, in turns (loop, R1, R1, loop; 3 calls each)."""
+    import fastbox_tpu_torch.parallel.sharded as sharded
+    from fastbox_tpu_torch.timing import StageClock
+
+    r1 = sharded.row_normal
+    res = {"per-row loop": [], "R1": []}
+    for kind in ("per-row loop", "R1", "R1", "per-row loop"):
+        sharded.row_normal = per_row_normal if kind == "per-row loop" else r1
+        try:
+            for _ in range(3):
+                clock = StageClock(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(seeds=seeds, clock=clock)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                res[kind].append((clock.ms()["draw"], wall))
+        finally:
+            sharded.row_normal = r1
+    for kind, v in res.items():
+        log(f"sharded 256^3 B=8, {kind}: draw stage ms "
+            + " ".join(f"{d:.2f}" for d, _ in v) + "; wall ms per call "
+            + " ".join(f"{w:.2f}" for _, w in v))
 
 
 def explore_1024(dev) -> None:
@@ -4339,7 +4664,8 @@ def main() -> None:
     others = [phase_k5(dev), phase_k6(dev)] + phase_k9(dev)
     k7 = phase_k7(dev, cosmo)
     k10 = phase_k10(dev)
-    for r in kernels + [k4t] + k11 + others + [k7, k10]:
+    rows = phase_rows(dev)
+    for r in kernels + [k4t] + k11 + others + [k7, k10] + rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -4402,7 +4728,7 @@ def main() -> None:
     truth_aniso(dev, cosmo_cpu, cosmo)
 
     k8, launches, mesh = phase_sharded(dev, cosmo, grid, fn256)
-    for r in [k7, k4t] + k8:
+    for r in [k7, k4t] + k8 + rows:
         r["launches"] = launches[r["name"]]
     cola = phase_cola(dev, k11)
     slab = phase_sharded_cola(dev, mesh)
@@ -4418,7 +4744,7 @@ def main() -> None:
     k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)
     phase_cola_route(dev, *cola)
     phase_gate(dev)
-    kernels += [k4t] + k11 + slab + others + [k7] + k8 + [k10]
+    kernels += [k4t] + k11 + slab + others + [k7] + k8 + [k10] + rows
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

@@ -67,6 +67,54 @@ __device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
   return c;
 }
 
+// jax.random's threefry2x32 (jax/_src/prng.py, _threefry2x32_lowering):
+// 20 rounds of add, rotate and xor on a pair of 32-bit words, the key
+// injected every four rounds with the round count.  R1/R2 (row_draw.cu)
+// reproduce jax's row streams with it.
+struct U2 {
+  uint32_t x, y;
+};
+
+template <int kR>
+__device__ __forceinline__ void threefry_round(uint32_t& x0, uint32_t& x1) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, kR) ^ x0;
+}
+
+template <int kA, int kB, int kC, int kD>
+__device__ __forceinline__ void threefry_rounds4(uint32_t& x0, uint32_t& x1) {
+  threefry_round<kA>(x0, x1);
+  threefry_round<kB>(x0, x1);
+  threefry_round<kC>(x0, x1);
+  threefry_round<kD>(x0, x1);
+}
+
+__device__ __forceinline__ U2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  threefry_rounds4<13, 15, 26, 6>(x0, x1);
+  x0 += k1;
+  x1 += k2 + 1u;
+  threefry_rounds4<17, 29, 16, 24>(x0, x1);
+  x0 += k2;
+  x1 += k0 + 2u;
+  threefry_rounds4<13, 15, 26, 6>(x0, x1);
+  x0 += k0;
+  x1 += k1 + 3u;
+  threefry_rounds4<17, 29, 16, 24>(x0, x1);
+  x0 += k1;
+  x1 += k2 + 4u;
+  threefry_rounds4<13, 15, 26, 6>(x0, x1);
+  x0 += k2;
+  x1 += k0 + 5u;
+  return U2{x0, x1};
+}
+
+// jax.random.fold_in(key, d), and the d-th key of the partitionable
+// jax.random.split(key, n): both hash the counter (0, d).
+__device__ __forceinline__ U2 threefry_fold(U2 k, uint32_t d) { return threefry2x32(k.x, k.y, 0u, d); }
+
 // The Philox key: the two halves of a seed drawn on the device (no host sync).
 __device__ __forceinline__ void seed_key(const int64_t* seed, uint32_t& k0, uint32_t& k1) {
   const uint64_t s = static_cast<uint64_t>(seed[0]);

@@ -1,6 +1,7 @@
 """The port's hand-written Hopper kernels (sources in ``fastbox_tpu_torch/csrc``).
 
-One module per TPU kernel it replaces:
+One module per TPU kernel it replaces (and ``row_draw``, the row-keyed
+``jax.random`` draws of the sharded paths):
 
 ====================  ===================================================
 ``noise``             K1 ``ops/pallas/noise.py::add_scaled_normal_pallas``
@@ -16,6 +17,9 @@ One module per TPU kernel it replaces:
 ``mmdft``             K10 ``ops/pallas/mmdft.py::dft_c2c_axis_pallas``
 ``lattice_cic``       K11 ``ops/pallas/lattice_cic.py::cic_paint_lattice_pallas``,
                       ``cic_gather_lattice_pallas``, ``cic_gather3_lattice_pallas``
+``row_draw``          R1 ``parallel/rng.py::row_normal``, R2
+                      ``parallel/halos.py::row_poisson`` (no Pallas kernel:
+                      jax.random's threefry row streams, one launch a field)
 ====================  ===================================================
 
 Each module holds the CUDA launcher (``*_cuda``), its plain PyTorch twin

@@ -72,6 +72,9 @@ _SIGNATURES = {
                                      _I64, _I64, _INT, _P),
     "fbx_dft_c2c_axis": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                          _INT, _INT, _INT, _P),
+    "fbx_row_normal": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _INT,
+                       _P, _P),
+    "fbx_row_poisson": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P),
 }
 
 _launches: collections.Counter = collections.Counter()

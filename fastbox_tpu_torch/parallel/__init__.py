@@ -16,14 +16,16 @@ from .halos import make_sharded_halo_counts
 from .lattice import (halo_extend, halo_gather, halo_gather_many, halo_paint,
                       halo_paint_many)
 from .mesh import largest_pow2_divisor, make_mesh
-from .rng import TAGS, row_complex_normal, row_normal, row_poisson
+from .rng import (TAGS, row_complex_normal, row_draws, row_keys, row_normal,
+                  row_poisson)
 from .spectra import (make_sharded_correlation, make_sharded_power_multipoles,
                       make_sharded_power_spectrum)
 
 __all__ = ["make_mesh", "largest_pow2_divisor", "make_sharded_ensemble_step",
            "pfft3_local", "pifft3_local", "pfft2_local", "pifft2_local",
-           "prfft3_local", "pirfft3_local", "TAGS", "row_normal",
-           "row_complex_normal", "row_poisson", "make_sharded_power_spectrum",
+           "prfft3_local", "pirfft3_local", "TAGS", "row_keys", "row_normal",
+           "row_complex_normal", "row_draws", "row_poisson",
+           "make_sharded_power_spectrum",
            "make_sharded_power_multipoles", "make_sharded_correlation",
            "make_sharded_pca_filter", "make_sharded_halo_counts",
            "make_sharded_cola", "halo_extend", "halo_paint",

@@ -53,7 +53,8 @@ def make_sharded_cola(mesh, grid: GridSpec, cosmology, redshift=None,
 
     Returns ``fn(seed=None, white=None) -> dict``.  ``seed`` draws this
     rank's rows of the white noise (``rng.row_normal`` with
-    ``TAGS["density"]``); ``white`` instead supplies the full (N, N, N) real
+    ``TAGS["density"]``, one R1 launch: fastbox_tpu's white field for
+    ``jax.random.PRNGKey(seed)``); ``white`` instead supplies the full (N, N, N) real
     white field (a numpy array or tensor), of which each rank takes its
     rows.  The dict holds ``delta_x`` (this rank's (N/P, N, N) rows of the
     window-deconvolved density contrast), ``vel`` ((3, N/P, N, N)

@@ -3,9 +3,10 @@
 Counterpart of ``fastbox_tpu/parallel/halos.py``.  The reference's halo
 workload (examples/example_halos.py: lognormal field -> Poisson halo
 counts -> cross-spectra) as ranks that each hold row slabs of the field:
-counts are drawn per voxel with the row-keyed scheme (``rng.row_poisson``),
-so a realisation is a function of its seed alone and every mesh shape
-draws the same count field.  Pairs with ``parallel.spectra`` for the
+counts are drawn per voxel with the row-keyed scheme (``rng.row_poisson``:
+one R2 launch on the card, ``jax.random.poisson``'s stream for
+``PRNGKey(seed)``), so a realisation is a function of its seed alone and
+every mesh shape draws the same count field.  Pairs with ``parallel.spectra`` for the
 cross-spectra.  Rate conventions of the reference (halos.py:53-117): the
 clip at zero only in the non-lognormal branch, nan_to_num on the rate.
 """

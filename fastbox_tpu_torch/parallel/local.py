@@ -124,7 +124,7 @@ def fft(payload: dict) -> dict:
 def sharded_step(payload: dict) -> list:
     """The outputs of the sharded step for each spec of ``payload["steps"]``,
     on a mesh of every rank with 'space' = ``spec["space"]``, on the B
-    realisations' ``spec["draws"]``."""
+    realisations' ``spec["draws"]``, or drawn from ``spec["seeds"]``."""
     from .mesh import make_mesh
     from .sharded import make_sharded_ensemble_step
 
@@ -135,7 +135,8 @@ def sharded_step(payload: dict) -> list:
                          device="cpu")
         step = make_sharded_ensemble_step(mesh, grid, cosmo, config, "cpu",
                                           amp)
-        outs.append(step(draws=spec["draws"]))
+        outs.append(step(seeds=spec["seeds"]) if "seeds" in spec
+                    else step(draws=spec["draws"]))
     return outs
 
 
@@ -251,7 +252,8 @@ def cola(payload: dict) -> list:
     """``make_sharded_cola`` for each spec of ``payload["cola"]`` on a mesh
     of every rank with 'space' = ``spec["space"]``, in the spec's dtype on
     its grid (box, N, z) and cosmology parameters: ``fn(white=...)`` on the
-    full white field ``spec["white"]``, or, with ``spec["seeds"]``, the
+    full white field ``spec["white"]``, ``fn(seed=...)`` with
+    ``spec["seed"]``, or, with ``spec["seeds"]``, the
     ensemble call ``fn(seeds=...)`` beside single calls on each seed
     (``{"ensemble": ..., "single": [...]}``)."""
     from ..cosmology import build_cosmology
@@ -267,6 +269,10 @@ def cola(payload: dict) -> list:
         mesh = make_mesh(dist.get_world_size(), space=spec["space"],
                          device="cpu")
         kw = dict(spec["kw"], device="cpu")
+        if "seed" in spec:
+            outs.append(make_sharded_cola(mesh, grid, cosmo, **kw)(
+                seed=spec["seed"]))
+            continue
         if "seeds" not in spec:
             outs.append(make_sharded_cola(mesh, grid, cosmo, **kw)(
                 white=spec["white"]))

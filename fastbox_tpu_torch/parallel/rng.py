@@ -1,26 +1,38 @@
-"""Mesh-independent row-keyed noise draws.
+"""Mesh-independent row-keyed noise draws, jax.random's own streams.
 
 Counterpart of ``fastbox_tpu/parallel/rng.py``.  Every noise field of the
 sharded step (and of the single pipeline's ``noise_scheme='rows'``) is
-drawn per leading-axis row, from a stream keyed by (seed, tag, global row
-index) alone, so a slab draws exactly its rows of the full field whatever
-the mesh shape, and the single pipeline draws the same field as any mesh.
+drawn per leading-axis row, row ``r`` of key ``k`` with
+``fold_in(fold_in(k, tag), row0 + r)``, so a slab draws exactly its rows
+of the full field whatever the mesh shape, and the single pipeline draws
+the same field as any mesh.
 
-``jax.random``'s threefry streams are not reproduced: each row is one
-``torch.randn`` on a generator seeded with a fixed 64-bit mix (splitmix64)
-of (seed, tag, row).  Streams differ between the CPU and the card, as
-``torch.Generator``'s do.  That is one small launch per row, N per field.
-``row_poisson`` draws the halo counts the same way, one ``torch.poisson``
-per row (fastbox_tpu/parallel/halos.py:29-42).
+The streams are ``fastbox_tpu``'s: a seed ``s`` stands for
+``jax.random.PRNGKey(s)`` with 64-bit integers on, the key words
+``((s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF)`` in two's complement; a
+(B, 2) integer tensor passes raw ``jax.random`` keys as they are.  The
+draws reproduce jax's threefry bits and uniforms exactly on every device
+(R1/R2, ``ops/cuda/row_draw.py``: the CUDA kernels on the card, their
+plain twins on the CPU), so the card, the CPU and ``fastbox_tpu`` draw the
+same rows for the same seed: the uniforms bit for bit, the normals within
+a few ulp of the ``erfinv`` (or ``sin``/``cos``/``log``) of each library,
+the Poisson counts as long as no ``log``/``lgamma`` rounding decides a
+draw (tests/test_torch_row_draws.py states the measured bounds).
+
+Each draw takes a seed (no batch axis), or a sequence of seeds, a 1-D
+integer tensor of seeds or a (B, 2) key tensor (a leading batch axis of
+length B), and draws the whole field of every key in one launch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops.cuda import row_draw
 
-__all__ = ["TAGS", "ROW_NDIM", "row_seed", "row_normal", "row_complex_normal",
-           "row_draws", "row_poisson"]
+__all__ = ["TAGS", "ROW_NDIM", "row_keys", "row_normal",
+           "row_complex_normal", "row_draws", "row_poisson"]
 
 # Stream tags (fastbox_tpu/parallel/rng.py:28-36)
 TAGS = {
@@ -37,67 +49,89 @@ TAGS = {
 ROW_NDIM = {"density": 2, "sigma_nl": 2, "noise": 2, "fg_re": 1, "fg_im": 1,
             "alpha": 1}
 
-_MASK = (1 << 64) - 1
+_M32 = row_draw.M32
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK
-    return x ^ (x >> 31)
+def _seed_words(seed) -> list:
+    s = int(seed)
+    if not -2 ** 63 <= s < 2 ** 63:
+        raise ValueError(f"seed {s} is outside the int64 range")
+    return [(s >> 32) & _M32, s & _M32]
 
 
-def row_seed(seed: int, tag: int, row: int) -> int:
-    """The 64-bit generator seed of global row ``row`` of stream ``tag``."""
-    return _splitmix64(_splitmix64(_splitmix64(int(seed) & _MASK) ^ int(tag))
-                       ^ int(row))
+def row_keys(seed, device=None) -> tuple[torch.Tensor, bool]:
+    """``(keys, batched)``: the (B, 2) int64 key words of ``seed`` on
+    ``device``, and whether ``seed`` carries a batch axis.  A seed is
+    ``PRNGKey(seed)``'s key; a (B, 2) tensor holds raw keys."""
+    device = resolve(device)
+    if torch.is_tensor(seed) and seed.dim() == 2:
+        if seed.shape[1] != 2 or seed.is_floating_point():
+            raise ValueError("a key tensor must be (B, 2) integer words, got "
+                             f"{tuple(seed.shape)} {seed.dtype}")
+        keys = seed.to(device=device, dtype=torch.int64) & _M32
+        return keys.contiguous(), True
+    batched = np.ndim(seed) == 1
+    seeds = [int(s) for s in seed] if batched else [seed]
+    keys = torch.tensor([_seed_words(s) for s in seeds],
+                        dtype=torch.int64).reshape(-1, 2)
+    if device.type == "cuda":
+        # pinned and asynchronous: no host sync on the draw's path
+        keys = keys.pin_memory().to(device, non_blocking=True)
+    else:
+        keys = keys.to(device)
+    return keys, batched
 
 
-def row_normal(seed: int, tag: int, row0: int, nrows: int, row_shape,
-               dtype=torch.float32, device=None, out=None) -> torch.Tensor:
-    """``nrows`` standard-normal rows of ``row_shape`` starting at global
-    row ``row0``: shape ``(nrows, *row_shape)`` on ``device`` (or written
-    into ``out``, whose device and dtype then rule)."""
-    if out is None:
-        out = torch.empty((nrows, *row_shape), dtype=dtype,
-                          device=resolve(device))
-    dtype, device = out.dtype, out.device
-    gen = torch.Generator(device=device)
-    for i in range(nrows):
-        gen.manual_seed(row_seed(seed, tag, row0 + i))
-        torch.randn(tuple(row_shape), generator=gen, dtype=dtype,
-                    device=device, out=out[i])
-    return out
+def row_normal(seed, tag: int, row0: int, nrows: int, row_shape,
+               dtype=torch.float32, device=None, out=None,
+               method: str = "erfinv") -> torch.Tensor:
+    """``nrows`` standard-normal rows of ``row_shape`` from global row
+    ``row0``: ``(nrows, *row_shape)``, with a leading batch axis for a
+    batch of seeds or keys; on ``device`` (or written into ``out``, whose
+    device and dtype then rule).  ``method``: 'erfinv' (``jax.random.
+    normal``) or 'box_muller' (``fastbox_tpu``'s lean stream)."""
+    if out is not None:
+        dtype, device = out.dtype, out.device
+    keys, batched = row_keys(seed, device)
+    res = row_draw.row_normal_draw(
+        keys, tag, row0, nrows, row_shape, dtype, method,
+        out if out is None or batched else out.unsqueeze(0))
+    if out is not None:
+        return out
+    return res if batched else res[0]
 
 
-def row_poisson(seed: int, tag: int, row0: int, lam) -> torch.Tensor:
-    """Poisson draws of the rates ``lam`` (nrows, ...), row ``i`` from a
-    generator seeded with ``row_seed(seed, tag, row0 + i)`` on ``lam``'s
-    device, so that a slab draws exactly its rows of the full field whatever
-    the mesh shape.  Returns counts in ``lam``'s dtype."""
-    out = torch.empty_like(lam)
-    gen = torch.Generator(device=lam.device)
-    for i in range(lam.shape[0]):
-        gen.manual_seed(row_seed(seed, tag, row0 + i))
-        out[i] = torch.poisson(lam[i], generator=gen)
-    return out
+def row_poisson(seed, tag: int, row0: int, lam) -> torch.Tensor:
+    """Poisson counts of the rates ``lam`` (nrows, ...), or (B, nrows, ...)
+    for a batch of B seeds or keys, row ``i`` of key ``k`` drawn with
+    ``fold_in(fold_in(k, tag), row0 + i)`` on ``lam``'s device, as
+    ``jax.random.poisson`` draws them (the rates rounded to float32), so
+    that a slab draws exactly its rows of the full field whatever the mesh
+    shape.  Returns counts in ``lam``'s dtype."""
+    keys, batched = row_keys(seed, lam.device)
+    lam = lam.contiguous()
+    res = row_draw.row_poisson_draw(keys, tag, row0,
+                                    lam if batched else lam.unsqueeze(0))
+    return res if batched else res[0]
 
 
-def row_complex_normal(seed: int, re_tag: int, im_tag: int, row0: int,
+def row_complex_normal(seed, re_tag: int, im_tag: int, row0: int,
                        nrows: int, row_shape, dtype=torch.float32,
-                       device=None) -> torch.Tensor:
+                       device=None, method: str = "erfinv") -> torch.Tensor:
     """Complex rows ``re + i im`` with independent unit-normal parts."""
     return torch.complex(
-        row_normal(seed, re_tag, row0, nrows, row_shape, dtype, device),
-        row_normal(seed, im_tag, row0, nrows, row_shape, dtype, device))
+        row_normal(seed, re_tag, row0, nrows, row_shape, dtype, device,
+                   method=method),
+        row_normal(seed, im_tag, row0, nrows, row_shape, dtype, device,
+                   method=method))
 
 
-def row_draws(seed: int, names, N: int, row0: int = 0,
+def row_draws(seed, names, N: int, row0: int = 0,
               nrows: int | None = None, dtype=torch.float32,
               device=None) -> dict:
     """Rows [row0, row0 + nrows) of the named pipeline fields (``TAGS``
-    keys in ``ROW_NDIM``) of an N^3 realisation: ``{name: (nrows, N[, N])}``.
-    """
+    keys in ``ROW_NDIM``) of an N^3 realisation: ``{name: (nrows, N[, N])}``
+    (a leading batch axis for a batch of seeds), one launch a field."""
     nrows = N - row0 if nrows is None else nrows
     return {n: row_normal(seed, TAGS[n], row0, nrows, (N,) * ROW_NDIM[n],
                           dtype, device) for n in names}

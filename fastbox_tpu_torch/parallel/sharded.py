@@ -59,7 +59,9 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
     """Build the step for this rank of ``mesh`` (``parallel.make_mesh``).
 
     Returns ``fn(seeds=None, draws=None, clock=None) -> dict``.  ``seeds``
-    is a sequence of B integer seeds, B a multiple of the 'ens' size;
+    is a sequence of B integer seeds (``jax.random.PRNGKey(seed)``'s
+    streams, ``parallel.rng``) or a (B, 2) key tensor, B a multiple of the
+    'ens' size, and each field of the batch is one R1 launch;
     ``draws`` instead gives B dicts of the full-field rows under the
     ``TAGS`` names the configuration uses (``density``, ``sigma_nl``,
     ``fg_re``, ``fg_im``, ``alpha``, ``noise``; numpy arrays or tensors),
@@ -225,17 +227,18 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         clock = clock or _NoClock()
 
         def draw(name, row_shape):
-            """This slab's rows of field ``name`` for the local batch."""
+            """This slab's rows of field ``name`` for the local batch: one
+            R1 launch over the batch's seeds, or the supplied draws."""
             out = torch.empty((B_loc, Np, *row_shape), dtype=dtype,
                               device=device)
-            for j, i in enumerate(range(lo, hi)):
-                if draws is not None:
+            if draws is None:
+                row_normal(seeds[lo:hi], TAGS[name], row0, Np, row_shape,
+                           out=out)
+            else:
+                for j, i in enumerate(range(lo, hi)):
                     a = draws[i][name][rows]
                     out[j] = a if torch.is_tensor(a) else torch.from_numpy(
                         np.array(a))
-                else:
-                    row_normal(seeds[i], TAGS[name], row0, Np, row_shape,
-                               out=out[j])
             clock.mark("draw")
             return out
 

@@ -35,8 +35,9 @@ arrays fastbox_tpu's ``fn_pre`` draws from its five keys
 
 This is the port's counterpart of fastbox_tpu's ``threefry_noise`` and
 ``draw_dtype`` truth-gate knobs.  With ``noise_scheme='rows'`` every field
-is drawn per leading-axis row instead (``parallel.rng``), keyed by a seed
-and the row index alone, as the sharded ensemble step draws it; ``draws``
+is drawn per leading-axis row instead (``parallel.rng``: jax.random's
+streams), keyed by a seed and the row index alone, as the sharded ensemble
+step draws it; ``draws``
 then holds the full-field rows under the ``parallel.rng.TAGS`` names
 (``ROWS_DRAW_NAMES``).  Without ``draws`` the function draws
 them itself from the ``torch.Generator`` it is given; the density draw
@@ -301,8 +302,9 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     sigma_NL dispersion, as on fastbox_tpu's ``threefry_noise`` path.
 
     With ``noise_scheme='rows'`` the fields are the row-keyed draws of
-    ``seed`` (default: ``generator.initial_seed()``), or ``draws`` holds
-    them (``ROWS_DRAW_NAMES``).
+    ``seed`` (default: ``generator.initial_seed()``), fastbox_tpu's fields
+    for ``jax.random.PRNGKey(seed)`` (one R1 launch a field on the card),
+    or ``draws`` holds them (``ROWS_DRAW_NAMES``).
 
     ``fn.pre(generator=None, draws=None, clock=None, want_cov=False,
     seed=None)`` runs

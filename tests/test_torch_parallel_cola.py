@@ -9,7 +9,9 @@ B = 1, 2 equal fastbox_tpu's ``halo_paint``/``halo_gather`` under
 ``*_many`` forms equal their per-channel calls bit for bit; the slab twins
 equal the periodic twins.  ``make_sharded_cola`` in float64 at 16^3 (B = 2,
 z 9 -> 0 in 3 steps, velocities, ``pk_nbins=8``), fed fastbox_tpu's
-row-keyed white field, equals fastbox_tpu's engine on the same key at
+row-keyed white field or drawing it from the seed itself
+(``parallel.rng``: jax's stream for ``PRNGKey(seed)``), equals
+fastbox_tpu's engine on the same key at
 tests/test_parallel_cola.py's tolerances (delta_x 1e-8, vel 1e-7 / 1e-6,
 max_disp 1e-8, pk 1e-8) on 1, 2 and 4 ranks, and the rank counts agree;
 the ensemble mode on a (2, 2) mesh equals per-seed calls bit for bit.
@@ -89,6 +91,7 @@ def ranks():
             specs.append(dict(base, space=2, seeds=ENS_SEEDS,
                               kw=dict(COLA_KW, dtype=torch.float64,
                                       keep_velocities=False)))
+        specs.append(dict(base, space=world, seed=SEED))
         out[world] = local.launch("fastbox_tpu_torch.parallel.local:tasks",
                                   world, dict(tasks=["lattice", "cola"],
                                               lattice=lat, cola=specs))
@@ -260,10 +263,8 @@ def test_slab_paint_channel_stack_is_checked_before_any_build(monkeypatch):
         k11.cic_paint_lattice_slab_cuda(d, 17, w3)
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_sharded_cola_matches_fastbox_tpu(ranks, jax_cola, world):
-    outs = [r["cola"][0] for r in ranks[world]]
-    want = jax_cola
+def assert_cola_matches(outs, want):
+    """The ranks' results against fastbox_tpu's at its tolerances."""
     np.testing.assert_allclose(
         np.concatenate([o["delta_x"].numpy() for o in outs]),
         want["delta_x"], rtol=1e-8, atol=1e-8)
@@ -279,6 +280,18 @@ def test_sharded_cola_matches_fastbox_tpu(ranks, jax_cola, world):
         np.testing.assert_allclose(o["pk_err"].numpy(), want["pk_err"],
                                    rtol=1e-6, atol=1e-12, equal_nan=True)
     assert float(want["max_disp"]) <= COLA_KW["lattice_B"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_cola_matches_fastbox_tpu(ranks, jax_cola, world):
+    assert_cola_matches([r["cola"][0] for r in ranks[world]], jax_cola)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_cola_from_a_seed_matches_fastbox_tpu(ranks, jax_cola, world):
+    """The port draws the white field from SEED itself (parallel.rng:
+    fastbox_tpu's field for PRNGKey(SEED)) on every rank count."""
+    assert_cola_matches([r["cola"][-1] for r in ranks[world]], jax_cola)
 
 
 def test_sharded_cola_rank_counts_agree(ranks):
