@@ -70,6 +70,23 @@ failure:
      f64; one key and eight) and on a 256^3 halo rate; times of both, their
      twins, the per-row loops they replaced and torch.randn / torch.poisson
      (other functions) at 256^3;
+  K. the whole-array keyed draws (csrc/row_draw.cu, jax.random.normal /
+     uniform / poisson on keys as given): R1w against its twin on the card,
+     uniforms ([0, 1), [-3, 3), [0, 1 - 1e-8), pairs) bitwise and normals
+     (erfinv, complex pairs, Box-Muller pairs) 0 ulp, f32 and f64, one key
+     at 256^3 and eight at 64^3 and on 4095 elements (the direct path); the
+     direct path equal to the vector path; a 256^3 f32 field and a 64^3
+     f64 uniform against the CPU twin; R2w's counts equal to its twin's on
+     rates spanning 0, 1e-3..1e4 and NaN (f32, f64; one key at 256^3,
+     eight at 32 x 64 x 64) and on a 256^3 halo rate; times of both, their
+     twins and torch.randn / torch.poisson (other functions).  After the
+     truth check (5), its paths, counted: the 256^3 pipeline from two keys
+     (R1w 6 and K1 2 launches a realisation, K9 none), equal to its run on
+     the key's draws supplied and, per populated bin, within TRUTH_BOUND of
+     the port in f64 on the CPU on those draws, timed beside the generator
+     path in turns; CosmoBox(seed=) at 256^3 on the card against the CPU
+     (delta_x) and its halo counts (R2w) on 32 planes of the CPU box's
+     field, card against CPU;
   4. the pipeline at 256^3 in a 4 Gpc box at z=0.8 (bench.py's defaults),
      f32: three realisations, one with sigma_NL raised so the RSD remap
      takes the exact tier (K3), then two realisations at 512^3, with
@@ -273,6 +290,11 @@ KERNELS = {
                    "fastbox_tpu/parallel/rng.py:81"),
     "row_poisson": ("fastbox_tpu_torch/csrc/row_draw.cu",
                     "fastbox_tpu/parallel/halos.py:29"),
+    # R1w/R2w replace no Pallas kernel: jax.random's whole-array draws
+    "key_normal": ("fastbox_tpu_torch/csrc/row_draw.cu",
+                   "fastbox_tpu/fields/gaussian.py:62"),
+    "key_poisson": ("fastbox_tpu_torch/csrc/row_draw.cu",
+                    "fastbox_tpu/models/halos.py:52"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -4084,6 +4106,273 @@ def phase_rows(dev) -> list[dict]:
     return [r1_row, r2_row]
 
 
+# Phase K: the whole-array keyed draws.  R1w's cases (method, pair,
+# minval/maxval) held to the twin on the card: uniforms bitwise, normals
+# 0 ulp (the kernel and torch call the same CUDA erfinv, log, cos, sin).
+R1W, R2W = "key_normal", "key_poisson"
+R1W_CASES = (("uniform", False, {}), ("uniform", False, dict(
+    minval=-3.0, maxval=3.0)), ("uniform", False, dict(
+        minval=0.0, maxval=1.0 - 1e-8)), ("erfinv", False, {}),
+    ("erfinv", True, {}), ("box_muller", True, {}),
+    ("uniform", True, dict(minval=0.5, maxval=2.5)))
+# R1w launches per 'half' realisation of the keyed pipeline: the density's
+# interior and two Hermitian planes, sigma_NL, the foreground pair, alpha,
+# the radiometer noise; K1 adds sigma_NL and the noise in supplied mode
+KEYED_R1W, KEYED_K1 = 6, 2
+KEYED_SEEDS = (11, 2 ** 32 + 5)
+# card vs CPU: the share of Knuth-rate halo counts that may differ, on
+# the CPU box's first KEYED_HALO_PLANES planes (the CPU twin's time)
+KEYED_KNUTH_DIFF = 1e-5
+KEYED_HALO_PLANES = 32
+
+
+def r1w_checks(dev) -> list:
+    """R1w against its twin on the card (R1W_CASES, f32 and f64, one key at
+    256^3, eight keys at 64^3 and on 4095 elements: the direct path), the
+    direct path (an unaligned output) against the vector path, and one
+    256^3 f32 field and a 64^3 f64 uniform against the CPU twin.  Returns
+    the failures."""
+    from fastbox_tpu_torch.keys import PRNGKey
+    from fastbox_tpu_torch.ops.cuda import row_draw
+
+    failures = []
+    one = PRNGKey(2 ** 32 + 5)[None].to(dev)
+    eight = torch.stack([PRNGKey(s) for s in ROW_SEEDS]).to(dev)
+    worst = {}
+    for label, k, n in (("256^3, 1 key", one, N_MAIN ** 3),
+                        ("64^3, 8 keys", eight, 64 ** 3),
+                        ("4095, 8 keys", eight, 4095)):
+        for dtype in (torch.float32, torch.float64):
+            for method, pair, kw in R1W_CASES:
+                got = row_draw.key_normal_cuda(k, n, dtype, method, pair, **kw)
+                want = row_draw.key_normal_plain(k, n, dtype, method, pair,
+                                                 **kw)
+                err = ulp_diff(got, want)
+                name = (method + (" pair" if pair else "")
+                        + (f" [{kw['minval']:g}, {kw['maxval']:g})"
+                           if kw else ""), str(dtype).split(".")[-1])
+                worst[name] = max(worst.get(name, 0), err)
+                if err:
+                    failures.append(f"R1w {label} {name}: {err} ulp")
+                del got, want
+    log("R1w vs twin on the card (256^3 one key, 64^3 and 4095 elements "
+        "eight keys), largest ulp by case: "
+        + ", ".join(f"{m} {d} {e}" for (m, d), e in worst.items()))
+    for dtype in (torch.float32, torch.float64):
+        for pair in (False, True):
+            vec = row_draw.key_normal_cuda(eight, 64 ** 3, dtype, "erfinv",
+                                           pair)
+            direct = unaligned(torch.empty_like(vec))
+            row_draw.key_normal_cuda(eight, 64 ** 3, dtype, "erfinv", pair,
+                                     out=direct)
+            if not torch.equal(vec, direct):
+                failures.append(f"R1w {dtype} pair={pair}: direct path "
+                                "differs")
+    log("R1w direct path (unaligned output) equal to the vector path: "
+        + str(not any("direct" in f for f in failures)))
+    t0 = time.perf_counter()
+    card = row_draw.key_normal_cuda(one, N_MAIN ** 3)
+    cpu = row_draw.key_normal_plain(one.cpu(), N_MAIN ** 3)
+    err = spacing_err(card, cpu)
+    u_card = row_draw.key_normal_cuda(one, 64 ** 3, torch.float64, "uniform",
+                                      minval=-3.0, maxval=3.0)
+    u_cpu = row_draw.key_normal_plain(one.cpu(), 64 ** 3, torch.float64,
+                                      "uniform", minval=-3.0, maxval=3.0)
+    same = torch.equal(u_card.cpu(), u_cpu)
+    log(f"R1w card vs CPU twin: a 256^3 f32 normal field {err:.0f} spacings "
+        f"({(card.double().cpu() - cpu).abs().max().item():.3e} absolute); "
+        f"a 64^3 f64 uniform on [-3, 3) bitwise {same} "
+        f"({time.perf_counter() - t0:.1f} s, most of it the CPU twin)")
+    if err > R1_CPU_SPACINGS[torch.float32] or not same:
+        failures.append(f"R1w card vs CPU: {err} spacings, uniform {same}")
+    return failures
+
+
+def phase_keys(dev) -> list[dict]:
+    """Phase K (kernels): R1w and R2w (csrc/row_draw.cu) against their
+    twins on the card and R1w against the CPU twin (r1w_checks); R2w on
+    rate fields of every regime (0, 1e-3..1e4, NaN), f32 and f64, one key
+    at 256^3 and eight at 32 x 64 x 64, and on the 256^3 halo rate, counts
+    equal to the twin's; times of both, their twins and torch.randn /
+    torch.poisson (other functions) at 256^3.  Returns the kernels' rows."""
+    from fastbox_tpu_torch.keys import PRNGKey
+    from fastbox_tpu_torch.ops.cuda import row_draw
+
+    t_phase = time.perf_counter()
+    failures = r1w_checks(dev)
+    one = PRNGKey(2 ** 32 + 5)[None].to(dev)
+    eight = torch.stack([PRNGKey(s) for s in ROW_SEEDS]).to(dev)
+    for dtype in (torch.float32, torch.float64):
+        for k, shape in ((one, (1, N_MAIN, N_MAIN, N_MAIN)),
+                         (eight, (8, 32, 64, 64))):
+            lam = rate_field(shape, dev, dtype, seed=k.shape[0])
+            got = row_draw.key_poisson_cuda(k, lam)
+            want = row_draw.key_poisson_plain(k, lam)
+            n = int((got.nan_to_num(-9.0) != want.nan_to_num(-9.0)).sum())
+            log(f"R2w vs twin, {k.shape[0]} key(s), {tuple(shape)} rates "
+                f"1e-3..1e4 with 0 and NaN, {dtype}: {n} of {got.numel()} "
+                "counts differ")
+            if n:
+                failures.append(f"R2w {dtype} {k.shape[0]} keys: {n} differ")
+            del got, want, lam
+
+    # times at 256^3, one field, f32
+    r1 = lambda d=torch.float32, m="erfinv", p=False: \
+        row_draw.key_normal_cuda(one, N_MAIN ** 3, d, m, p)  # noqa: E731
+    field = r1()
+    twin = row_draw.key_normal_plain(one, N_MAIN ** 3)
+    err = (field - twin).abs().max().item()
+    t = {"kernel": median_ms(r1),
+         "kernel f64": median_ms(lambda: r1(d=torch.float64)),
+         "kernel complex erfinv": median_ms(lambda: r1(p=True)),
+         "kernel complex box_muller": median_ms(lambda: r1(m="box_muller",
+                                                           p=True)),
+         "kernel B=8 at 128^3": median_ms(lambda: row_draw.key_normal_cuda(
+             eight, 128 ** 3)),
+         "twin": median_ms(lambda: row_draw.key_normal_plain(
+             one, N_MAIN ** 3)),
+         "torch.randn (another function)": median_ms(lambda: torch.randn(
+             (N_MAIN,) * 3, device=dev))}
+    log("R1w at 256^3, one field, f32 (ms per call): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in t.items()))
+    r1w_row = dict(name=R1W, ms=t["kernel"], plain_ms=t["twin"],
+                   max_abs_err=err, library_ms=None,
+                   **roofline(nbytes(field), R1_OPS * field.numel()))
+    del field, twin
+
+    # R2w on the estimators' halo rate at 256^3 (phase R's)
+    g = torch.Generator(device=dev).manual_seed(31)
+    delta = 0.5 * torch.randn((N_MAIN,) * 3, generator=g, device=dev)
+    voxel = (BOX / N_MAIN) ** 3
+    lam = torch.clamp(voxel * 1e-3 * (1.0 + 1.5 * delta), min=0.0)
+    r2 = lambda: row_draw.key_poisson_cuda(one, lam[None])  # noqa: E731
+    counts = r2()[0]
+    twin = row_draw.key_poisson_plain(one, lam[None])[0]
+    err2 = (counts - twin).abs().max().item()
+    if err2 != 0:
+        failures.append(f"R2w on the halo rate: max |diff| {err2}")
+    t2 = {"kernel": median_ms(r2),
+          "twin": median_ms(lambda: row_draw.key_poisson_plain(
+              one, lam[None])),
+          "R2 on the same rate as rows (for scale)": median_ms(
+              lambda: row_draw.row_poisson_cuda(one, 301, 0, lam[None])),
+          "torch.poisson (another function)": median_ms(
+              lambda: torch.poisson(lam))}
+    knuth = float((lam < 10.0).float().mean())
+    log(f"R2w on a 256^3 halo rate (mean {lam.mean().item():.3f}, "
+        f"{100 * knuth:.3f}% below 10), f32, counts equal to the twin's: "
+        f"{err2 == 0} (ms per call): "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in t2.items()))
+    r2w_row = dict(name=R2W, ms=t2["kernel"], plain_ms=t2["twin"],
+                   max_abs_err=err2, library_ms=None,
+                   **roofline(nbytes(lam, counts), r2_ops(lam, counts)))
+    log(f"phase K (kernels): {time.perf_counter() - t_phase:.1f} s")
+    check(not failures, "phase K: " + "; ".join(failures))
+    return [r1w_row, r2w_row]
+
+
+def phase_keyed_paths(dev, cosmo_cpu, grid, fn256) -> dict:
+    """Phase K (paths), counters reset just before and read just after:
+    the 256^3 pipeline from two keys (R1w KEYED_R1W and K1 KEYED_K1 times a
+    realisation, K9 never; equal to its run on the key's draws supplied,
+    and against the port in f64 on the CPU on those draws, per populated
+    bin within TRUTH_BOUND) timed beside the generator path in turns; then
+    CosmoBox(seed=) at 256^3 on the card against the same box on the CPU
+    (delta_x, and the halo counts of the first KEYED_HALO_PLANES planes of
+    the CPU box's field: R2w counted, at
+    most KEYED_KNUTH_DIFF of the Knuth-rate counts differ: a count flips
+    where the two libraries' f32 log place -lambda on either side of the
+    sum of logs).  Returns the launch counts."""
+    from fastbox_tpu_torch.box import CosmoBox
+    from fastbox_tpu_torch.models import halos
+    from fastbox_tpu_torch.ops.cuda import _build
+    from fastbox_tpu_torch.pipeline import (PipelineConfig, draw_inputs,
+                                            make_pipeline)
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    runs = [run_pipeline(fn256, dev, f"keyed 256^3 realisation, seed {s}",
+                         grid, generator=s) for s in KEYED_SEEDS]
+    counts = _build.launch_counts()
+    n = len(KEYED_SEEDS)
+    log(f"keyed 256^3 pipeline: launch counts {json.dumps(counts)}")
+    check(counts.get(R1W, 0) == KEYED_R1W * n
+          and counts.get("add_scaled_normal", 0) == KEYED_K1 * n
+          and counts.get("colored_half_draw", 0) == 0,
+          f"keyed pipeline launches: {counts}")
+    check_route_off(counts, "the keyed pipeline")
+    draws = draw_inputs(grid, KEYED_SEEDS[0], torch.float32, device=dev)
+    sup = fn256(draws=draws)
+    same = all(torch.equal(runs[0]["out"][k].nan_to_num(-1.0),
+                           sup[k].nan_to_num(-1.0))
+               for k in ("pk_cleaned", "pk_density", "sigma_data"))
+    check(same, "keyed pipeline differs from its draws supplied")
+    t0 = time.perf_counter()
+    cpu = make_pipeline(grid, cosmo_cpu, PipelineConfig(
+        dtype="float64"), device="cpu")(
+        draws={k: v.cpu() for k, v in draws.items()})
+    full = populated_bins(grid, dev)
+    worst = {}
+    for name, bound in TRUTH_BOUND.items():
+        g_ = runs[0]["out"][name].double().cpu().numpy()[full]
+        c_ = cpu[name].numpy()[full]
+        worst[name] = float((np.abs(g_ - c_) / np.abs(c_)).max())
+        check(worst[name] <= bound, f"keyed truth {name}: {worst[name]}")
+    log(f"keyed 256^3 pipeline, seed {KEYED_SEEDS[0]}: equal to its draws "
+        f"supplied {same}; card f32 vs the port in f64 on the CPU on the "
+        f"same draws, worst per populated bin {json.dumps(worst)} "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    walls = {"generator": [], "key": []}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for kind in ("generator", "key", "key", "generator"):
+        for i in range(2):
+            src = gen if kind == "generator" else KEYED_SEEDS[i]
+            _, ms = wall_ms(lambda: fn256(src))
+            walls[kind].append(ms)
+    log("256^3 pipeline wall ms per realisation in turns (generator, key, "
+        "key, generator; 2 calls each): "
+        + "; ".join(f"{k} " + " ".join(f"{v:.2f}" for v in vs)
+                    for k, vs in walls.items()))
+
+    kw = dict(cosmo=COSMO, box_scale=BOX, nsamp=N_MAIN, redshift=Z,
+              seed=2 ** 32 + 5, dtype=torch.float32)
+    _build.reset_launch_counts()
+    gb, ms = wall_ms(lambda: CosmoBox(device=dev, **kw))
+    t0 = time.perf_counter()
+    cb = CosmoBox(device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    e = norm_err(gb.delta_x.cpu(), cb.delta_x)
+    log(f"CosmoBox(seed=2^32 + 5) 256^3 f32 (density, velocity, potential): "
+        f"card {ms:.1f} ms, CPU {cpu_s:.1f} s; delta_x card vs CPU {e:.3e} "
+        "of max")
+    check(e <= BOX_FIELD_BOUND, f"keyed CosmoBox delta_x: {e}")
+    field = cb.delta_x[:KEYED_HALO_PLANES].contiguous()
+    hd_g = halos.HaloDistribution(gb, (1e12, 1e15), 10)
+    hd_c = halos.HaloDistribution(cb, (1e12, 1e15), 10)
+    got = hd_g.halo_count_field(field.to(dev), 1e-3, 1.5).cpu()
+    want = hd_c.halo_count_field(field, 1e-3, 1.5)
+    rate = halos.halo_rate(field, cb.grid, 1e-3, 1.5)
+    knuth = rate < 10.0
+    differ_k = int((got != want)[knuth].sum())
+    differ_r = float((got != want)[~knuth].double().mean()) \
+        if bool((~knuth).any()) else 0.0
+    log(f"keyed halo counts, the CPU box's first {KEYED_HALO_PLANES} planes "
+        f"(mean rate {rate.mean().item():.3f}, "
+        f"{100 * float(knuth.double().mean()):.3f}% below 10): card vs CPU "
+        f"Knuth-rate counts differ in {differ_k}; rejection-rate counts "
+        f"differ in {100 * differ_r:.1f}% (the field's step count, decided "
+        "by rate-1e5 acceptances, follows each library's lgamma)")
+    check(differ_k <= KEYED_KNUTH_DIFF * int(knuth.sum()),
+          f"keyed halo counts: {differ_k} Knuth counts differ")
+    counts = _build.launch_counts()
+    log(f"keyed CosmoBox and halo counts: launch counts {json.dumps(counts)}")
+    check(counts.get(R1W, 0) > 0 and counts.get(R2W, 0) > 0,
+          f"keyed box launches: {counts}")
+    log(f"phase K (paths): {time.perf_counter() - t_phase:.1f} s")
+    return {R1W: KEYED_R1W * n + counts.get(R1W, 0),
+            R2W: counts.get(R2W, 0)}
+
+
 def step_draw_turns(step, dev, seeds) -> None:
     """The 256^3 B = 8 step's draw stage (StageClock, summed over its six
     fields) and wall ms per call, the per-row loop R1 replaced swapped in
@@ -4665,7 +4954,8 @@ def main() -> None:
     k7 = phase_k7(dev, cosmo)
     k10 = phase_k10(dev)
     rows = phase_rows(dev)
-    for r in kernels + [k4t] + k11 + others + [k7, k10] + rows:
+    keyed = phase_keys(dev)
+    for r in kernels + [k4t] + k11 + others + [k7, k10] + rows + keyed:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, max_abs_err {r['max_abs_err']:.3e}")
 
@@ -4722,6 +5012,9 @@ def main() -> None:
             + " ".join(f"{v:.2e}" for v in rel))
         check(bool(np.all(rel <= bound)), f"truth {name}: max {rel.max()}")
 
+    keyed_launches = phase_keyed_paths(dev, cosmo_cpu, grid, fn256)
+    for r in keyed:
+        r["launches"] = keyed_launches[r["name"]]
     launches = phase_paths(dev, cosmo, grid, fn256)
     for r in others:
         r["launches"] = launches[r["name"]]
@@ -4744,7 +5037,8 @@ def main() -> None:
     k10["launches"] = phase_route(dev, cosmo, grid, draws, cpu)
     phase_cola_route(dev, *cola)
     phase_gate(dev)
-    kernels += [k4t] + k11 + slab + others + [k7] + k8 + [k10] + rows
+    kernels += [k4t] + k11 + slab + others + [k7] + k8 + [k10] + rows \
+        + keyed
     for r in kernels:
         src, rep = KERNELS[r["name"]]
         r.update(route="cuda", source=src, replaces=rep)

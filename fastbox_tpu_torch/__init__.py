@@ -19,17 +19,20 @@ Main path::
                                  n_s=0.95, sigma8=0.8), redshift=0.8,
                             device="cuda")
     fn = make_pipeline(grid, cosmo, PipelineConfig(), device="cuda")
-    out = fn(torch.Generator(device="cuda").manual_seed(0))
+    out = fn(0)   # fastbox_tpu's realisation of jax.random.PRNGKey(0)
 
 The reference's object API is ``CosmoBox`` (``box.py``) with the models
 (``models``), the cleaners (``filters``) and checkpoints (``io``); the
 slab-sharded COLA engine is ``parallel.make_sharded_cola``; voids,
 in-painting, forecasts and datacube helpers are ``analysis``; ``timing.stage``
-times a stage as the reference's examples print it.  Importing the package
+times a stage as the reference's examples print it; ``keys`` holds the
+parts of ``jax.random`` the draws need, so that a seed or a key gives
+fastbox_tpu's fields (a ``torch.Generator`` gives torch's streams
+instead).  Importing the package
 creates no process group and touches no CUDA context.
 """
 from . import analysis, cosmology, fields, filters, grid, io, models, ops
-from . import parallel, pipeline, timing, utils
+from . import keys, parallel, pipeline, timing, utils
 from .box import CosmoBox, default_cosmo
 from .cosmology import CosmoParams, build_cosmology
 from .grid import GridSpec
@@ -38,6 +41,6 @@ from .grid import GridSpec
 from .models import foregrounds, noise, tracers
 
 __all__ = ["analysis", "cosmology", "fields", "filters", "grid", "io",
-           "models", "ops", "parallel", "pipeline", "timing", "utils",
+           "keys", "models", "ops", "parallel", "pipeline", "timing", "utils",
            "CosmoBox", "default_cosmo", "CosmoParams", "build_cosmology",
            "GridSpec", "foregrounds", "noise", "tracers"]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import device as devices
+from .. import keys
 
 __all__ = [
     "simple_signal_cov",
@@ -101,9 +102,11 @@ def gaussian_cr_1d(d, w, S, N, realisations=1, add_noise=True,
         w: (Npix, Nfreq) flag vector (1 unflagged, 0 flagged).
         S, N: (Nfreq, Nfreq) signal/noise covariances.
         realisations: number of constrained realisations.
-        generator: torch.Generator on the device for omega_N and omega_S
-            (one seeded 0 when None; replaces the reference's global numpy
-            RNG).
+        generator: draws omega_N and omega_S (replacing the reference's
+            global numpy RNG): a key (default ``PRNGKey(0)``), as
+            fastbox_tpu draws them (inpaint.py:88-93: ``split(key, R)``,
+            then ``kN, kS = split`` and a ``jax.random.normal`` each, one
+            launch a field for all R), or a torch.Generator on the device.
         omegas: optional (omega_N, omega_S), each (realisations, Npix,
             Nfreq) unit normals, used instead of drawing.
         verbose: unused (the reference's argument).
@@ -126,9 +129,13 @@ def gaussian_cr_1d(d, w, S, N, realisations=1, add_noise=True,
     A = sqrtS @ Ninvw @ sqrtS + eye
     b = _matvec(sqrtS, _matvec(Ninv, w * d))
 
-    if omegas is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+    if omegas is None and (generator is None or keys.is_key(generator)):
+        key = 0 if generator is None else generator
+        sub = torch.stack([keys.split(k)
+                           for k in keys.split(key, realisations)])
+        omegas = tuple(keys.normal(sub[:, j], (npix, nfreq), d.dtype, dev)
+                       for j in (0, 1))
+    elif omegas is None:
         shape = (realisations, npix, nfreq)
         omegas = tuple(torch.randn(shape, generator=generator, dtype=d.dtype,
                                    device=dev) for _ in range(2))

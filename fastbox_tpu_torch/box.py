@@ -3,8 +3,9 @@
 Counterpart of ``fastbox_tpu/box.py:37-397`` (the reference's ``CosmoBox``,
 box.py:23-948).  Geometry lives in an immutable :class:`GridSpec`, the
 cosmology in tables built once per redshift (cached), and randomness in a
-seeded ``torch.Generator`` on the box's device, advanced by every draw
-(``next_generator`` stands in for fastbox_tpu's ``next_key``).  Each
+``jax.random`` key chain, as in fastbox_tpu: ``PRNGKey(seed)``, split by
+``next_key`` for every draw (``keys``), so that a seeded box gives
+fastbox_tpu's box's sequence of fields, drawn on the box's device.  Each
 method calls the port's functions on the box's device: ``fields/gaussian``
 and ``fields/transforms``, ``ops.rsd.redshift_space_density`` (K2, K3 and
 K1 on the card), ``ops.spectra.binned_power_spectrum`` (K6) and
@@ -24,6 +25,7 @@ from scipy.integrate import simpson
 from .cosmology import (Cosmology, CosmoParams, as_cosmo_params,
                         build_cosmology)
 from .device import resolve
+from . import keys
 from .fields import gaussian, transforms
 from .fields.cola import realise_density_cola as _cola
 from .grid import GridSpec
@@ -50,8 +52,9 @@ class CosmoBox:
             redshift: redshift of the box centre.
             line_freq: emission-line rest frequency, MHz.
             realise_now: realise density/velocity/potential immediately.
-            seed: integer seed of the box's generator (the explicit
-                replacement for the reference's np.random.seed global state).
+            seed: integer seed of the box's key chain, jax.random.PRNGKey
+                (seed) (the explicit replacement for the reference's
+                np.random.seed global state).
             dtype: real dtype of fields (default: torch's default dtype).
             device: where fields live and compute (None: the CUDA card).
         """
@@ -62,7 +65,6 @@ class CosmoBox:
                                     redshift=redshift, line_freq=line_freq)
         self.dtype = dtype or torch.get_default_dtype()
         self.device = resolve(device)
-        self._generator = torch.Generator(device=self.device)
         self.set_seed(seed)
         self._cosmology_cache: dict[float, Cosmology] = {}
 
@@ -79,12 +81,14 @@ class CosmoBox:
     # ------------------------------------------------------------------
     # Plumbing
     # ------------------------------------------------------------------
-    def next_generator(self) -> torch.Generator:
-        """The box's generator, which each draw advances."""
-        return self._generator
+    def next_key(self) -> torch.Tensor:
+        """Advance and return the box's key: ``key, sub = split(key)``
+        (fastbox_tpu/box.py:79-82), held on the host."""
+        self._key, sub = keys.split(self._key)
+        return sub
 
     def set_seed(self, seed: int):
-        self._generator.manual_seed(int(seed))
+        self._key = keys.PRNGKey(seed)
 
     def cosmology_at(self, redshift=None) -> Cosmology:
         """Cosmology tables at a given redshift, on the box's device
@@ -195,15 +199,15 @@ class CosmoBox:
 
     def realise_density(self, linear=False, redshift=None, inplace=True,
                         white=None):
-        """Gaussian density realisation (box.py:130-194) from the box's
-        generator, or from the complex white noise ``white`` (N, N, N)."""
+        """Gaussian density realisation (box.py:130-194) from the box's next
+        key, or from the complex white noise ``white`` (N, N, N)."""
         if white is not None:
             return self.realise_density_from_whitenoise(white, linear,
                                                         redshift, inplace)
         z = self.redshift if redshift is None else redshift
         delta_x, delta_k = gaussian.realise_density(
-            self.next_generator(), self.grid, self.cosmology_at(z),
-            linear=linear, dtype=self.dtype)
+            self.next_key(), self.grid, self.cosmology_at(z),
+            linear=linear, dtype=self.dtype, device=self.device)
         self._store(delta_x, delta_k, z, inplace)
         return delta_x
 
@@ -262,20 +266,21 @@ class CosmoBox:
                              n_steps=None, white=None):
         """2LPT+COLA approximate N-body realisation (box.py:463-589):
         ``fields.cola.realise_density_cola`` on the box's device (K11 on
-        the card).  The noise comes from a generator seeded with ``seed``,
-        the box's generator, or ``white`` (complex (N, N, N)).  Returns
+        the card).  The noise is ``white`` (complex (N, N, N)) or drawn from
+        ``PRNGKey(seed)``, else from the box's next key
+        (fastbox_tpu/box.py:268).  Returns
         ``delta_x`` or ``(delta_x, vel_x, vel_y, vel_z)`` like the
         reference."""
         z = self.redshift if redshift is None else redshift
-        if seed is not None:
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        if white is not None:
+            key = None
         else:
-            gen = None if white is not None else self.next_generator()
-        delta_x, vel = _cola(gen, self.grid, self.cosmology_at(z), redshift=z,
+            key = keys.PRNGKey(seed) if seed is not None else self.next_key()
+        delta_x, vel = _cola(key, self.grid, self.cosmology_at(z), redshift=z,
                              redshift_init=redshift_init, n_steps=n_steps,
                              dtype=self.dtype, keep_velocities=keep_velocities,
                              white=None if white is None
-                             else self._tensor(white))
+                             else self._tensor(white), device=self.device)
         if inplace:
             self.delta_x = delta_x
             self.delta_k = fft_safe.fftn(delta_x)
@@ -310,14 +315,14 @@ class CosmoBox:
                                sigma_nl=0.0, method="linear", normals=None):
         """RSD remap of a density cube along every line of sight
         (box.py:384-438).  With ``sigma_nl > 0`` the incoherent velocities
-        are drawn from the box's generator, or taken from ``normals``
+        are drawn from the box's next key, or taken from ``normals``
         (grid-shaped unit normals)."""
         Hz = 100.0 * self.cosmo.h * self.cosmology.Ea
-        gen = (self.next_generator() if sigma_nl > 0.0 and normals is None
+        key = (self.next_key() if sigma_nl > 0.0 and normals is None
                else None)
         return rsd_ops.redshift_space_density(
             self._tensor(delta_x), self._tensor(velocity_z), self.grid, Hz,
-            sigma_nl=sigma_nl, generator=gen,
+            sigma_nl=sigma_nl, key=key,
             normals=None if normals is None else self._tensor(normals),
             method=method)
 

@@ -11,8 +11,8 @@
 //
 // R1 (row_normal): f32 takes the XOR of the two output words, f64 the
 // 64-bit word hi << 32 | lo; the mantissa trick gives f in [0, 1), then
-// u = max(lo, f (hi - lo) + lo) rounded step by step as jax.random.uniform
-// does (no FMA: nvcc would contract the product and the sum).  'erfinv':
+// u = max(lo, fma(f, hi - lo, lo)) as jax.random.uniform computes it on
+// the CPU (XLA fuses the product and the sum).  'erfinv':
 // sqrt(2) erfinv(u) with u on [nextafter(-1, 0), 1) (jax.random.normal);
 // 'box_muller': split(key) gives (k1, k2), u1 on [tiny, 1), u2 on [0, 1)
 // over the half row, the cos values then the sin values of each leading
@@ -49,6 +49,25 @@
 // elements that many steps.  Lambda 0 gives 0.  Counts are written in the
 // rate's dtype.  Bound: the data-dependent number of threefry calls and
 // transcendentals per element (counted by chip_smoke.py from the run).
+//
+// R1w/R2w: the whole-array draws of fastbox_tpu's single-device paths,
+// jax.random.normal / uniform / poisson(key, shape) with each key taken as
+// given (no fold_in): element i of a field hashes the counter (0, i) of its
+// flat index, so R1w is R1 on one row the size of the field, its blocks
+// spread over the counters (blockIdx.x) and the batch of keys (blockIdx.y).
+// Its 'pair' layout writes (re, im) interleaved, a complex tensor's memory:
+// re from k1 and im from k2 of split(key) (two jax.random.normal or
+// uniform draws), or Box-Muller's (r cos th, r sin th) on (k1, k2)
+// (fastbox_tpu.parallel.rng.bm_pair over the whole shape, the layout of
+// fields.gaussian._complex_normal).  'uniform' takes jax.random.uniform's
+// minval/maxval (the fused multiply-add above).  R2w is jax.random.poisson over a
+// whole field: the rejection loop runs until every element of the field
+// has been accepted once, so its step count is a maximum over the grid.
+// A first launch writes the Knuth counts and each element's first
+// acceptance, reduced per block and atomicMax'ed into the key's count; a
+// second launch walks the rejection elements that many steps.  Both take
+// a grid of a few blocks per SM (grid-stride), so that each block stages
+// its chains once.
 #include "common.cuh"
 
 namespace {
@@ -92,11 +111,17 @@ template <> struct Consts<double> {
   __device__ static double tiny() { return 0x1p-1022; }
 };
 
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return __fma_rn(a, b, c); }
+
 // jax.random.uniform(k, ..., lo, hi) at counter j: max(lo, f (hi - lo) + lo)
+// with the product and the sum in one fused multiply-add, as XLA's CPU
+// backend contracts them (on R1's spans, 2 and 1, the product is exact
+// and the fused and the separate forms agree).
 template <typename T>
 __device__ __forceinline__ T uniform(fbx::U2 k, uint32_t j, T lo, T hi) {
   const T f = unit_float(k, j, T(0));
-  return max_t(lo, fbx::add_rn(fbx::mul_rn(f, fbx::sub_rn(hi, lo)), lo));
+  return max_t(lo, fma_t(f, fbx::sub_rn(hi, lo), lo));
 }
 
 template <typename T, int kMethod>
@@ -362,7 +387,197 @@ cudaError_t launch_poisson(const int64_t* keys, int64_t B, int64_t tag, int64_t 
   return cudaGetLastError();
 }
 
+// R1w: a block per 4 * kThreads units of one key's field (blockIdx.y the
+// key); kPair: (re, im) pairs from split(key); kVec: E elements a unit
+// written as one 16-byte vector, else one element a unit.
+template <typename T, int kMethod, bool kPair, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    key_draw_kernel(const int64_t* __restrict__ keys, int64_t n, T lo, T hi,
+                    T* __restrict__ out) {
+  __shared__ fbx::U2 kk[2];
+  const int64_t b = blockIdx.y;
+  if (threadIdx.x == 0) {
+    const fbx::U2 k{static_cast<uint32_t>(keys[2 * b]), static_cast<uint32_t>(keys[2 * b + 1])};
+    kk[0] = kPair ? fbx::threefry_fold(k, 0u) : k;
+    kk[1] = kPair ? fbx::threefry_fold(k, 1u) : k;
+  }
+  __syncthreads();
+  const fbx::U2 k1 = kk[0], k2 = kk[1];
+  constexpr int S = kPair ? 2 : 1;   // values an element
+  constexpr int E = kVec ? 16 / static_cast<int>(sizeof(T)) / S : 1;   // elements a unit
+  constexpr int V = E * S;           // values a unit
+  T* o = out + b * n * S;
+  const int64_t units = n / E;
+  for (int64_t u = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; u < units;
+       u += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const uint32_t q = static_cast<uint32_t>(u * E);
+    T v[V];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if constexpr (kMethod == kBoxMuller) {
+        box_muller_at(k1, k2, q + i, v[2 * i], v[2 * i + 1]);
+      } else if constexpr (kMethod == kErfinv) {
+        v[S * i] = normal_at<T, kErfinv>(k1, q + i);
+        if constexpr (kPair) v[2 * i + 1] = normal_at<T, kErfinv>(k2, q + i);
+      } else {
+        v[S * i] = uniform(k1, q + i, lo, hi);
+        if constexpr (kPair) v[2 * i + 1] = uniform(k2, q + i, lo, hi);
+      }
+    }
+    T* p = o + static_cast<int64_t>(q) * S;
+    if constexpr (kVec) {
+      store<T, V>(p, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) p[i] = v[i];
+    }
+  }
+}
+
+template <typename T, int kMethod, bool kPair>
+cudaError_t launch_key_draw(const int64_t* keys, int64_t B, int64_t n, T lo, T hi, int vec, T* out,
+                            cudaStream_t stream) {
+  constexpr int S = kPair ? 2 : 1;
+  constexpr int EV = 16 / static_cast<int>(sizeof(T)) / S;   // elements a 16-byte unit
+  const int E = vec ? EV : 1;
+  const int64_t units = n / E;
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kUnitsPerThread;
+  int64_t bx = (units + per_block - 1) / per_block;
+  if (bx > 65535) bx = 65535;
+  const dim3 grid(static_cast<unsigned>(bx < 1 ? 1 : bx), static_cast<unsigned>(B));
+  if (vec)
+    key_draw_kernel<T, kMethod, kPair, true><<<grid, kThreads, 0, stream>>>(keys, n, lo, hi, out);
+  else
+    key_draw_kernel<T, kMethod, kPair, false><<<grid, kThreads, 0, stream>>>(keys, n, lo, hi, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_key_draw_method(const int64_t* keys, int64_t B, int64_t n, int method, int pair,
+                                   double lo, double hi, int vec, T* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || n == 0) return cudaSuccess;
+  if (B > 65535) return cudaErrorInvalidValue;
+  const T l = static_cast<T>(lo), h = static_cast<T>(hi);
+  if (pair) {
+    switch (method) {
+      case kErfinv: return launch_key_draw<T, kErfinv, true>(keys, B, n, l, h, vec, out, s);
+      case kBoxMuller: return launch_key_draw<T, kBoxMuller, true>(keys, B, n, l, h, vec, out, s);
+      case kUniform: return launch_key_draw<T, kUniform, true>(keys, B, n, l, h, vec, out, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (method) {
+    case kErfinv: return launch_key_draw<T, kErfinv, false>(keys, B, n, l, h, vec, out, s);
+    case kUniform: return launch_key_draw<T, kUniform, false>(keys, B, n, l, h, vec, out, s);
+    default: return cudaErrorInvalidValue;   // Box-Muller draws pairs
+  }
+}
+
+// R2w, first launch: the Knuth counts of the key's field (blockIdx.y), and
+// the latest first acceptance of the rejection loop over the field (every
+// element at its rate, a Knuth element's at 1e5, as jax runs it), a block
+// max atomicMax'ed into steps[b].
+template <typename T>
+__global__ void __launch_bounds__(kPoissonThreads)
+    key_poisson_first_kernel(const int64_t* __restrict__ keys, int64_t n,
+                             const T* __restrict__ lam, T* __restrict__ out, int* steps) {
+  __shared__ Chains chains;
+  __shared__ int scratch[32];
+  const int64_t b = blockIdx.y;
+  if (threadIdx.x == 0 || threadIdx.x == 32)
+    fill_chain(chains, fbx::U2{static_cast<uint32_t>(keys[2 * b]),
+                               static_cast<uint32_t>(keys[2 * b + 1])},
+               threadIdx.x == 32);
+  __syncthreads();
+  const T* lr = lam + b * n;
+  T* o = out + b * n;
+  int first = 0;
+  for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; j < n;
+       j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float x = to_f32(lr[j]);
+    const uint32_t c = static_cast<uint32_t>(j);
+    if (knuth_rate(x)) o[j] = x == 0.0f ? T(0) : static_cast<T>(knuth(chains, c, x));
+    const int f = static_cast<int>(rejection(chains, c, knuth_rate(x) ? 1e5f : x, -1));
+    first = f > first ? f : first;
+  }
+  first = fbx::block_reduce(first, scratch, IntMax());
+  if (threadIdx.x == 0) atomicMax(steps + b, first);
+}
+
+// R2w, second launch: the rejection elements walk steps[b] steps and keep
+// the k of their last acceptance.
+template <typename T>
+__global__ void __launch_bounds__(kPoissonThreads)
+    key_poisson_walk_kernel(const int64_t* __restrict__ keys, int64_t n,
+                            const T* __restrict__ lam, T* __restrict__ out,
+                            const int* __restrict__ steps) {
+  __shared__ Chains chains;
+  const int64_t b = blockIdx.y;
+  if (threadIdx.x == 0)
+    fill_chain(chains, fbx::U2{static_cast<uint32_t>(keys[2 * b]),
+                               static_cast<uint32_t>(keys[2 * b + 1])}, true);
+  __syncthreads();
+  const int walk = steps[b];
+  const T* lr = lam + b * n;
+  T* o = out + b * n;
+  for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; j < n;
+       j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float x = to_f32(lr[j]);
+    if (!knuth_rate(x)) o[j] = static_cast<T>(rejection(chains, static_cast<uint32_t>(j), x, walk));
+  }
+}
+
+template <typename T>
+cudaError_t launch_key_poisson(const int64_t* keys, int64_t B, int64_t n, const T* lam, T* out,
+                               int* steps, void* stream) {
+  if (B == 0 || n == 0) return cudaSuccess;
+  if (B > 65535) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // a few blocks a multiprocessor in all, each staging its chains once
+  int64_t bx = (n + kPoissonThreads - 1) / kPoissonThreads;
+  const int64_t cap = (4 * static_cast<int64_t>(sms) + B - 1) / B;
+  if (bx > cap) bx = cap;
+  const dim3 grid(static_cast<unsigned>(bx < 1 ? 1 : bx), static_cast<unsigned>(B));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  key_poisson_first_kernel<T><<<grid, kPoissonThreads, 0, s>>>(keys, n, lam, out, steps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  key_poisson_walk_kernel<T><<<grid, kPoissonThreads, 0, s>>>(keys, n, lam, out, steps);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// R1w.  keys: (B, 2) int64 words (device), taken as given; out: (B, n)
+// contiguous, or (B, n, 2) with pair = 1 ((re, im) from split(key));
+// method 0 erfinv, 1 box_muller (pair only), 2 uniform on [lo, hi); vec: 1
+// for 16-byte stores (ops/cuda/row_draw.py key_vector_path), 0 element by
+// element.
+extern "C" int fbx_key_normal_f32(const int64_t* keys, int64_t B, int64_t n, int method, int pair,
+                                  double lo, double hi, int vec, float* out, void* stream) {
+  return launch_key_draw_method(keys, B, n, method, pair, lo, hi, vec, out, stream);
+}
+
+extern "C" int fbx_key_normal_f64(const int64_t* keys, int64_t B, int64_t n, int method, int pair,
+                                  double lo, double hi, int vec, double* out, void* stream) {
+  return launch_key_draw_method(keys, B, n, method, pair, lo, hi, vec, out, stream);
+}
+
+// R2w.  keys as above; lam, out: (B, n) contiguous, counts in lam's dtype;
+// steps: (B,) int32, zero (the step counts of the rejection loops).
+extern "C" int fbx_key_poisson_f32(const int64_t* keys, int64_t B, int64_t n, const float* lam,
+                                   float* out, int* steps, void* stream) {
+  return launch_key_poisson(keys, B, n, lam, out, steps, stream);
+}
+
+extern "C" int fbx_key_poisson_f64(const int64_t* keys, int64_t B, int64_t n, const double* lam,
+                                   double* out, int* steps, void* stream) {
+  return launch_key_poisson(keys, B, n, lam, out, steps, stream);
+}
 
 // keys: (B, 2) int64 words (device); out: (B * nrows, L) contiguous, L the
 // product of the row shape and W its last axis (1 for a scalar row);

@@ -511,13 +511,17 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
                          lattice_B: int | None = 3, lattice_impl: str = "auto",
                          gradient: str = "spectral",
                          fuse_force_gather: bool | int = True,
-                         diagnostics: bool = False, white=None, clock=None):
+                         diagnostics: bool = False, white=None, clock=None,
+                         device=None):
     """Evolve a 2LPT+COLA realisation to the target redshift.
 
     Parameters mirror ``fastbox_tpu.fields.cola.realise_density_cola`` and
-    the reference's (box.py:463-534).  ``generator`` (a ``torch.Generator``
-    on the target device) draws the complex white noise; pass ``white``
-    (complex (N, N, N), its device is used) to supply it instead.
+    the reference's (box.py:463-534).  ``generator`` draws the complex
+    white noise: a key (an int seed or key words) draws fastbox_tpu's
+    ``white_noise(key, grid, dtype)`` (fastbox_tpu/fields/cola.py:297) on
+    ``device`` (None: the card), a ``torch.Generator`` torch's on its
+    device; pass ``white`` (complex (N, N, N), its device is used) to
+    supply it instead.
     ``redshift`` defaults to ``grid.redshift``; ``n_steps`` to
     ``int(1 + redshift_init)``, as pycola3 does.
     ``force_factor`` computes PM forces on a mesh of ``force_factor * N``
@@ -552,8 +556,8 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     """
     if white is None:
         if generator is None:
-            raise ValueError("pass a generator or white noise")
-        white = white_noise(generator, grid, dtype)
+            raise ValueError("pass a key, a generator or white noise")
+        white = white_noise(generator, grid, dtype, device)
     if white.real.dtype != dtype:
         raise TypeError(f"white noise is {white.dtype}, the engine {dtype}")
     engine = ColaEngine(grid, cosmology, redshift=redshift,

@@ -9,8 +9,13 @@ the full-cube realisation the COLA engine starts from (``white_noise``,
 ``realise_density``, ``:183-242``), and the linear velocity and potential
 fields of a density spectrum (``realise_velocity``, ``realise_potential``,
 ``:246-299``).
-Every draw takes an explicit ``torch.Generator``; the streams differ from
-``jax.random``, so tests hand both packages the same numbers instead.
+The threefry draws (all but the colored draws, which stand for the TPU's
+hardware stream) take a key or a ``torch.Generator`` in the argument where
+fastbox_tpu takes its key.  A key (an int seed, ``jax.random.PRNGKey(seed)``,
+or key words; ``keys``) draws fastbox_tpu's own fields: the same splits and
+whole-array ``jax.random`` draws (R1w on the card, its twin on the CPU), on
+``device`` (None: the card).  A generator draws torch's streams on its own
+device.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from .. import keys
 from ..grid import GridSpec
 from ..ops.cuda import half_draw
 
@@ -43,15 +49,20 @@ def bm_from_uniforms(u1, u2):
     return r * torch.cos(th), r * torch.sin(th)
 
 
-def _complex_normal(generator: torch.Generator, shape, dtype: torch.dtype,
-                    method: str = "erfinv"):
+def _complex_normal(generator, shape, dtype: torch.dtype,
+                    method: str = "erfinv", device=None):
     """``re + i im`` with independent unit-normal parts.
 
-    ``method='erfinv'`` names the fastbox_tpu stream family; here it is two
-    plain normal draws.  ``'box_muller'`` draws u1 (floored at the dtype's
-    tiny, as ``jax.random.uniform(minval=tiny)``) and then u2, and emits
-    both outputs of :func:`bm_from_uniforms` as (re, im).
+    With a key, fastbox_tpu's draw (fastbox_tpu/fields/gaussian.py:40-63):
+    ``k1, k2 = split(key)``, then two ``jax.random.normal`` draws
+    ('erfinv') or ``bm_pair(k1, k2)``'s (cos, sin) ('box_muller'), one
+    launch on ``device``.  With a generator, 'erfinv' is two plain normal
+    draws, and ``'box_muller'`` draws u1 (floored at the dtype's tiny, as
+    ``jax.random.uniform(minval=tiny)``) and then u2, and emits both
+    outputs of :func:`bm_from_uniforms` as (re, im).
     """
+    if keys.is_key(generator):
+        return keys.complex_normal(generator, shape, dtype, method, device)
     device = generator.device
     kw = dict(generator=generator, dtype=dtype, device=device)
     if method == "box_muller":
@@ -67,32 +78,52 @@ def _complex_normal(generator: torch.Generator, shape, dtype: torch.dtype,
     return torch.complex(re, im)
 
 
-def hermitian_half_noise(generator: torch.Generator, grid: GridSpec,
+def hermitian_half_noise(generator, grid: GridSpec,
                          dtype: torch.dtype = torch.float32,
-                         method: str = "erfinv"):
+                         method: str = "erfinv", device=None):
     """Complex white noise drawn directly on the rfft half-spectrum, with
     the statistics of a Hermitian-symmetrised full draw.
 
     Interior kz modes (0 < l < N/2) get independent CN parts of variance
     1/2; the kz=0 and (even N) kz=N/2 planes are realised as 2D Hermitian
-    projections of unit-variance plane noise.  Draws happen on
-    ``generator.device``.
+    projections of unit-variance plane noise.  A key is split into three
+    (interior, kz=0, Nyquist; fastbox_tpu/fields/gaussian.py:82) and draws
+    on ``device``; a generator draws on its device.
     """
+    if keys.is_key(generator):
+        parts = keys.split(generator, 3)
+    else:
+        parts = (generator,) * 3
+    return _half_noise(parts, grid, dtype, method, device)
+
+
+def _half_noise(parts, grid: GridSpec, dtype: torch.dtype, method: str,
+                device):
+    """:func:`hermitian_half_noise` from its three keys (interior, kz=0,
+    Nyquist) already split, a (3, 2) tensor, or one generator three
+    times.  A key's planes are drawn as one batch of their keys."""
     N = grid.N
     H = N // 2 + 1
-    half = _complex_normal(generator, (N, N, H), dtype, method) \
+    planes = [0, H - 1] if N % 2 == 0 else [0]
+    half = _complex_normal(parts[0], (N, N, H), dtype, method, device) \
         * float(np.sqrt(0.5))
-    half[:, :, 0] = _herm_plane(generator, N, dtype, method)
-    if N % 2 == 0:
-        half[:, :, H - 1] = _herm_plane(generator, N, dtype, method)
+    if torch.is_tensor(parts):
+        w = hermitian_symmetrize(_complex_normal(
+            parts[1:1 + len(planes)], (N, N), dtype, method, device), (1, 2))
+    else:
+        w = [_herm_plane(gen, N, dtype, method, device)
+             for gen in parts[1:1 + len(planes)]]
+    # plain slice copies: a list index would copy it to the device first
+    for kz, plane in zip(planes, w):
+        half[:, :, kz] = plane
     return half
 
 
-def _herm_plane(generator: torch.Generator, N: int, dtype: torch.dtype,
-                method: str = "erfinv"):
+def _herm_plane(generator, N: int, dtype: torch.dtype,
+                method: str = "erfinv", device=None):
     """(N, N) complex plane with internal 2D Hermitian pairing — the kz=0
     / kz=N/2 structure of a real cube's half-spectrum."""
-    w = _complex_normal(generator, (N, N), dtype, method)
+    w = _complex_normal(generator, (N, N), dtype, method, device)
     return hermitian_symmetrize(w)
 
 
@@ -142,21 +173,24 @@ def colored_half_noise_vz(generator: torch.Generator, grid: GridSpec,
     return half, vz.reshape(N, N, H)
 
 
-def white_noise(generator: torch.Generator, grid: GridSpec,
-                dtype: torch.dtype = torch.float32):
+def white_noise(generator, grid: GridSpec,
+                dtype: torch.dtype = torch.float32, device=None):
     """Complex unit white noise (re + i im) on the full (N, N, N) cube, each
-    part ~ N(0, 1) (box.py:174-176), drawn on ``generator.device``."""
-    return _complex_normal(generator, grid.shape, dtype)
+    part ~ N(0, 1) (box.py:174-176): a key's ``split`` and two
+    ``jax.random.normal`` draws on ``device``
+    (fastbox_tpu/fields/gaussian.py:198-210), or a generator's draws on its
+    device."""
+    return _complex_normal(generator, grid.shape, dtype, device=device)
 
 
-def hermitian_symmetrize(A):
-    """Project a Fourier array onto Hermitian symmetry: (A + conj(A_-k))/2.
+def hermitian_symmetrize(A, dims=None):
+    """Project a Fourier array onto Hermitian symmetry over ``dims`` (all
+    axes by default; the others index a batch): (A + conj(A_-k))/2.
 
     fftn(Re(ifftn(A))) == hermitian_symmetrize(A), so the realisation saves
     the reference's second FFT (box.py:187-193)."""
-    rev = A
-    for axis in range(A.dim()):
-        rev = torch.roll(torch.flip(rev, (axis,)), 1, axis)
+    dims = tuple(range(A.dim())) if dims is None else tuple(dims)
+    rev = torch.roll(torch.flip(A, dims), (1,) * len(dims), dims)
     return 0.5 * (A + torch.conj(rev))
 
 
@@ -183,13 +217,15 @@ def gaussian_field_from_whitenoise(white, grid: GridSpec, pk_fn):
     return delta_x, delta_k
 
 
-def realise_density(generator: torch.Generator, grid: GridSpec, cosmology,
-                    linear: bool = False, dtype: torch.dtype = torch.float32):
+def realise_density(generator, grid: GridSpec, cosmology,
+                    linear: bool = False, dtype: torch.dtype = torch.float32,
+                    device=None):
     """Draw a Gaussian density field with the cosmology's P(k)
-    (box.py:130-194); returns (delta_x, delta_k)."""
+    (box.py:130-194) from a key (on ``device``) or a generator; returns
+    (delta_x, delta_k)."""
     pk_fn = cosmology.pk_lin if linear else cosmology.pk_nl
-    return gaussian_field_from_whitenoise(white_noise(generator, grid, dtype),
-                                          grid, pk_fn)
+    return gaussian_field_from_whitenoise(
+        white_noise(generator, grid, dtype, device), grid, pk_fn)
 
 
 def _inv_k2(grid: GridSpec, rdtype, device):

@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from .. import keys
 from .pca import _work
 
 __all__ = ["KernelSpec", "gpr_filter"]
@@ -100,13 +101,17 @@ def _nu(nfreq: int, like):
 
 
 def _fit_gpr(x, bounds, kinds: tuple[str, ...], nsteps: int = 500,
-             lr: float = 0.05, nstarts: int = 1, generator=None, starts=None):
+             lr: float = 0.05, nstarts: int = 1, generator=None, starts=None,
+             draw_dtype=None):
     """x: (Nfreq, Npix); bounds: (2*nk+1, 2) [var_i, ls_i ..., noise].
 
     Fits ``nstarts`` starts: zeros, then ``starts`` (nstarts - 1, nparam)
-    or uniforms in [-3, 3) from ``generator`` (default: seeded with 0 on
-    x's device).  Returns the raw parameter vector with the lowest final
-    negative log marginal likelihood among the finite ones, and that loss.
+    or uniforms in [-3, 3): ``jax.random.uniform(key, ..., minval=-3,
+    maxval=3)`` in ``draw_dtype`` (default x's; the field's dtype, as
+    fastbox_tpu draws in it) for a key (default ``PRNGKey(0)``,
+    fastbox_tpu/filters/gpr.py:122-124), or draws of a ``torch.Generator``.
+    Returns the raw parameter vector with the lowest final negative log
+    marginal likelihood among the finite ones, and that loss.
     """
     nfreq, npix = x.shape
     nu = _nu(nfreq, x)
@@ -131,9 +136,13 @@ def _fit_gpr(x, bounds, kinds: tuple[str, ...], nsteps: int = 500,
 
     theta0 = torch.zeros((1, nparam), dtype=x.dtype, device=x.device)
     if nstarts > 1:
-        if starts is None:
-            if generator is None:
-                generator = torch.Generator(device=x.device).manual_seed(0)
+        if generator is None:
+            generator = 0
+        if starts is None and keys.is_key(generator):
+            starts = keys.uniform(generator, (nstarts - 1, nparam),
+                                  draw_dtype or x.dtype, -3.0, 3.0,
+                                  device=x.device)
+        elif starts is None:
             starts = 6.0 * torch.rand((nstarts - 1, nparam),
                                       generator=generator, dtype=x.dtype,
                                       device=x.device) - 3.0
@@ -173,7 +182,9 @@ def gpr_filter(field, kernels=None, return_filter: bool = False,
         opt_num_restarts: extra random optimizer starts beyond the default
             deterministic one (GPy ``optimize_restarts`` analog).
         nsteps: Adam steps per start.
-        generator: draws the restarts' starting points (seeded default).
+        generator: draws the restarts' starting points: a key (default
+            ``PRNGKey(0)``: fastbox_tpu's uniforms, in the field's dtype)
+            or a ``torch.Generator``.
         fixed_params: optional flat sequence ``[var_1, ls_1, ...,
             noise_var]`` of ABSOLUTE hyperparameters.  When given, no
             optimisation runs: the posterior mean is evaluated at exactly
@@ -221,7 +232,8 @@ def gpr_filter(field, kernels=None, return_filter: bool = False,
     else:
         theta, _ = _fit_gpr(x, bounds, kinds, nsteps=nsteps,
                             nstarts=1 + int(opt_num_restarts),
-                            generator=generator, starts=starts)
+                            generator=generator, starts=starts,
+                            draw_dtype=field.dtype)
         params = _bounded(theta, bounds[:, 0], bounds[:, 1]).tolist()
 
     nu = _nu(shape[-1], x)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import keys
 from .pca import _work
 
 __all__ = ["fastica", "ica_filter"]
@@ -36,8 +37,10 @@ def fastica(X, generator=None, n_components: int = 1, max_iter: int = 200,
     samples).
 
     The starting (n_components, n_components) matrix is ``w0`` or unit
-    normals from ``generator`` (on X's device).  Returns (W, the whitening
-    K (n_components, features), the mean (features, 1)).
+    normals on X's device: ``jax.random.normal(key, (nc, nc))`` in float64
+    (jax's default float in 64-bit mode; fastbox_tpu/filters/ica.py:48)
+    for a key, or draws of a ``torch.Generator``.  Returns (W, the
+    whitening K (n_components, features), the mean (features, 1)).
     """
     nfeat, nsamp = X.shape
     mean = torch.mean(X, dim=1, keepdim=True)
@@ -48,7 +51,10 @@ def fastica(X, generator=None, n_components: int = 1, max_iter: int = 200,
     K = (U[:, :n_components] / torch.sqrt(S[:n_components])[None, :]).T
     Xw = K @ Xc  # (nc, nsamp), unit covariance
 
-    if w0 is None:
+    if w0 is None and keys.is_key(generator):
+        w0 = keys.normal(generator, (n_components, n_components),
+                         torch.float64, device=X.device)
+    elif w0 is None:
         w0 = torch.randn((n_components, n_components), generator=generator,
                          dtype=X.dtype, device=X.device)
     W = _sym_decorrelation(torch.as_tensor(w0, dtype=X.dtype,
@@ -70,12 +76,12 @@ def ica_filter(field, nmodes: int, generator=None, return_filter: bool = False,
     """ICA foreground clean of a (Nx, Ny, Nfreq) datacube (filters.py:187-243).
 
     The pixel-mean spectrum is subtracted first, as the reference does via
-    ``mean_spectrum_filter``.  FastICA starts from ``w0`` or from normals of
-    ``generator`` (default: a generator seeded with 0 on the field's
-    device).
+    ``mean_spectrum_filter``.  FastICA starts from ``w0`` or from the
+    normals of ``generator``: a key (default ``PRNGKey(0)``, as
+    fastbox_tpu's, filters/ica.py:75-76) or a ``torch.Generator``.
     """
     if generator is None and w0 is None:
-        generator = torch.Generator(device=field.device).manual_seed(0)
+        generator = 0
     shape = field.shape
     d = _work(field).reshape(-1, shape[-1]).T  # (Nfreq, Npix)
     x = d - torch.mean(d, dim=1, keepdim=True)  # subtract mean spectrum

@@ -15,10 +15,10 @@
   pygdsm/healpy and external data files, gated on their imports as in the
   reference; ``planck_corr`` and ``assemble_cube`` need neither.
 
-Every random method draws from the box's ``torch.Generator`` (or one seeded
-from the given seed) on the box's device, or takes its numbers supplied
-(``white=``, ``normals=``, ``white_clustering=``, ``white_poisson=``,
-``spidx_normals=``).
+Every random method draws from the box's next key (or ``PRNGKey`` of the
+given seed), fastbox_tpu's ``jax.random`` fields on the box's device, or
+takes its numbers supplied (``white=``, ``normals=``, ``white_clustering=``,
+``white_poisson=``, ``spidx_normals=``).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from scipy.integrate import quad
 
+from .. import keys
 from ..constants import C_MS, CMB_TEMP, H_PLANCK, KBOLTZ
 from ..fields.gaussian import complex_dtype
 
@@ -47,8 +48,12 @@ def _scipy_gaussian_kernel1d(sigma: float, n: int) -> np.ndarray:
 
 
 def complex_white_noise(generator, shape, dtype=torch.float32, device=None):
-    """Complex unit white noise re + i im from two normal draws of
-    ``generator`` (foregrounds.py:62-72)."""
+    """Complex unit white noise re + i im (foregrounds.py:62-72): for a key,
+    ``split(key)`` and two ``jax.random.normal`` draws on ``device``
+    (fastbox_tpu/models/foregrounds.py:62-70); else two normal draws of the
+    ``torch.Generator``."""
+    if keys.is_key(generator):
+        return keys.complex_normal(generator, shape, dtype, device=device)
     re = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     return torch.complex(re, im)
@@ -135,12 +140,12 @@ class ForegroundModel:
     def realise_foreground_amp(self, amp, beta, monopole, smoothing_scale=None,
                                redshift=None, white=None):
         """2D foreground amplitude map in field units (foregrounds.py:48-113),
-        from the box's generator or the complex (N, N) white noise
+        from the box's next key or the complex (N, N) white noise
         ``white``."""
         box = self.box
         cosmology = box.cosmology_at(redshift)
         if white is None:
-            white = complex_white_noise(box.next_generator(),
+            white = complex_white_noise(box.next_key(),
                                         (box.grid.N, box.grid.N), box.dtype,
                                         box.device)
         sigma_pix = (None if smoothing_scale is None
@@ -152,13 +157,12 @@ class ForegroundModel:
     def realise_spectral_index(self, mean_spec_idx, std_spec_idx,
                                smoothing_scale, redshift=None, normals=None):
         """Smoothed Gaussian spectral-index map (foregrounds.py:116-144), from
-        the box's generator or the (N, N) unit normals ``normals``."""
+        the box's next key or the (N, N) unit normals ``normals``."""
         box = self.box
         cosmology = box.cosmology_at(redshift)
         if normals is None:
-            normals = torch.randn((box.grid.N, box.grid.N),
-                                  generator=box.next_generator(),
-                                  dtype=box.dtype, device=box.device)
+            normals = keys.normal(box.next_key(), (box.grid.N, box.grid.N),
+                                  box.dtype, box.device)
         alpha = mean_spec_idx + std_spec_idx * box._tensor(normals)
         return gaussian_smooth_wrap(alpha,
                                     self._sigma_pix(cosmology, smoothing_scale))
@@ -233,14 +237,14 @@ class PointSourceModel:
         return torch.fft.ifftn(fg).real.to(box.dtype)
 
     def _white(self, white, seed):
-        """Complex (N, N) white noise: ``white``, or drawn from a generator
-        seeded with ``seed``, or from the box's generator."""
+        """Complex (N, N) white noise: ``white``, or drawn from
+        ``PRNGKey(seed)``, or from the box's next key
+        (fastbox_tpu/models/foregrounds.py:277-287)."""
         box = self.box
         if white is not None:
             return box._tensor(white)
-        gen = (box.next_generator() if seed is None else
-               torch.Generator(device=box.device).manual_seed(int(seed)))
-        return complex_white_noise(gen, (box.grid.N, box.grid.N), box.dtype,
+        key = box.next_key() if seed is None else keys.PRNGKey(seed)
+        return complex_white_noise(key, (box.grid.N, box.grid.N), box.dtype,
                                    box.device)
 
     def shot_map(self, flux_cutoff, seed_poisson=None, redshift=None):
@@ -282,10 +286,10 @@ class PointSourceModel:
         Gaussian Poisson component from the faint-source P(k), the
         bright-source ``shot_map`` and per-pixel power-law frequency
         scaling.  The two GRFs take the complex (N, N) noise
-        ``white_clustering`` / ``white_poisson`` or draw it from generators
-        seeded with ``seed_clustering`` / ``seed_poisson`` (else the box's
-        generator); the spectral indices take the (N, N) unit normals
-        ``spidx_normals`` or the box's generator.  Returns the (N, N, N)
+        ``white_clustering`` / ``white_poisson`` or draw it from
+        ``PRNGKey(seed_clustering)`` / ``PRNGKey(seed_poisson)`` (else the
+        box's next key); the spectral indices take the (N, N) unit normals
+        ``spidx_normals`` or the box's next key.  Returns the (N, N, N)
         cube on the box's device and the (Nfreq, 1) host array of the mean
         temperature.
         """
@@ -322,8 +326,8 @@ class PointSourceModel:
         # Spectral index map: the intended RMS delta_beta (the reference has
         # scale=delta_beta**2 at foregrounds.py:416, a documented quirk).
         if spidx_normals is None:
-            spidx_normals = torch.randn((n, n), generator=box.next_generator(),
-                                        dtype=box.dtype, device=box.device)
+            spidx_normals = keys.normal(box.next_key(), (n, n), box.dtype,
+                                        box.device)
         spidxs = beta + delta_beta * box._tensor(spidx_normals)
 
         freqs_t = torch.as_tensor(freqs.copy(), dtype=box.dtype,

@@ -5,13 +5,16 @@ Counterpart of ``fastbox_tpu/models/halos.py:28-166`` (reference
 of the rate ``halo_rate`` on the field's device.  The catalogue
 (halos.py:120-176) is either the reference's ragged host form
 (``halo_catalogue_host``) or a fixed-size padded buffer on the device
-(``realise_halo_catalogue_padded``).
+(``realise_halo_catalogue_padded``).  A key draws fastbox_tpu's fields
+(``jax.random.poisson`` by R2w, ``uniform`` by R1w, ``randint`` on the
+host); a ``torch.Generator`` torch's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import keys
 from ..cosmology import massfunction as mf
 
 __all__ = ["halo_rate", "halo_count_field", "halo_catalogue_host",
@@ -45,10 +48,14 @@ def halo_rate(delta_x, grid, nbar, bias, lognormal: bool = False):
 
 def halo_count_field(generator, delta_x, grid, nbar, bias,
                      lognormal: bool = False):
-    """Poisson halo counts per voxel (int64) of :func:`halo_rate`, drawn
-    from ``generator`` on ``delta_x``'s device."""
-    return torch.poisson(halo_rate(delta_x, grid, nbar, bias, lognormal),
-                         generator=generator).to(torch.int64)
+    """Poisson halo counts per voxel (int64) of :func:`halo_rate`, on
+    ``delta_x``'s device: ``jax.random.poisson(key, rate)`` for a key
+    (fastbox_tpu/models/halos.py:28-52; R2w on the card, the rejection
+    loop over the whole field), ``torch.poisson`` for a generator."""
+    rate = halo_rate(delta_x, grid, nbar, bias, lognormal)
+    if keys.is_key(generator):
+        return keys.poisson(generator, rate).to(torch.int64)
+    return torch.poisson(rate, generator=generator).to(torch.int64)
 
 
 def halo_catalogue_host(Nhalo, grid, rng=None, scatter: bool = False):
@@ -83,8 +90,11 @@ def realise_halo_catalogue_padded(generator, Nhalo, grid, max_halos: int,
     of the running count; halos beyond ``max_halos`` are dropped, and
     ``n_valid`` still counts them (check it against ``max_halos``).  With
     ``scatter`` the positions move uniformly within their voxel, by
-    ``uniforms`` (max_halos, 3) when given, else by draws from
-    ``generator``.
+    ``uniforms`` (max_halos, 3) when given, else by
+    ``jax.random.uniform(key, (max_halos, 3), maxval=1 - 1e-8)`` in
+    float64 (jax's default float in 64-bit mode;
+    fastbox_tpu/models/halos.py:117) for a key, or by draws from a
+    ``torch.Generator``.
 
     Returns:
         (positions, mask, n_valid).
@@ -106,7 +116,10 @@ def realise_halo_catalogue_padded(generator, Nhalo, grid, max_halos: int,
         pos[slot] = coords[keep]
         mask[slot] = True
     if scatter:
-        if uniforms is None:
+        if uniforms is None and keys.is_key(generator):
+            uniforms = keys.uniform(generator, (max_halos, 3), torch.float64,
+                                    0.0, 1.0 - 1e-8, device=dev)
+        elif uniforms is None:
             uniforms = torch.rand((max_halos, 3), generator=generator,
                                   device=dev) * (1.0 - 1e-8)
         # the positions take the uniforms' dtype, as fastbox_tpu's take
@@ -147,16 +160,15 @@ class HaloDistribution:
 
     def halo_count_field(self, delta_x, nbar, bias, lognormal=False):
         delta_x = torch.as_tensor(delta_x, device=self.box.device)
-        return halo_count_field(self.box.next_generator(), delta_x,
+        return halo_count_field(self.box.next_key(), delta_x,
                                 self.box.grid, nbar, bias, lognormal)
 
     def realise_halo_catalogue(self, Nhalo, scatter=False,
                                scatter_type="uniform"):
         if scatter_type != "uniform":
             raise ValueError(f"scatter_type='{scatter_type}' not recognised")
-        seed = int(torch.randint(0, 2**31 - 1, (1,),
-                                 generator=self.box.next_generator(),
-                                 device=self.box.device))
+        # fastbox_tpu/models/halos.py:163
+        seed = int(keys.randint(self.box.next_key(), (), 0, 2**31 - 1))
         return halo_catalogue_host(Nhalo, self.box.grid,
                                    rng=np.random.default_rng(seed),
                                    scatter=scatter)

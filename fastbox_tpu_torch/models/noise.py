@@ -6,7 +6,9 @@ Matches the reference's ``NoiseModel.realise_radiometer_noise``
 (reference noise.py:25-75): frequency-dependent sky temperature
 T_sky = 60 K (nu/300 MHz)^-2.5, the per-channel RMS from the radiometer
 equation, and white noise scaled per frequency channel, drawn by
-``ops.rsd.add_scaled_normal`` (K1 on the card, its twin on the CPU).
+``ops.rsd.add_scaled_normal`` (K1 on the card, its twin on the CPU): from
+a key, fastbox_tpu's ``jax.random.normal`` field (R1w, then K1's supplied
+mode).
 """
 from __future__ import annotations
 
@@ -44,7 +46,9 @@ def realise_radiometer_noise(generator, grid, sigma_rms,
                              dtype=torch.float32, device=None, normals=None):
     """White noise cube scaled by the per-channel sigma(nu) along the last
     axis (noise.py:73-74): ``normals * sigma`` with ``normals`` supplied
-    (grid-shaped, on ``device``) or drawn from ``generator``."""
+    (grid-shaped, on ``device``), or ``jax.random.normal(key, grid.shape,
+    dtype)`` for a key (fastbox_tpu/models/noise.py:41-45), or drawn from a
+    ``torch.Generator``."""
     device = normals.device if normals is not None else resolve(device)
     sigma = torch.as_tensor(np.asarray(sigma_rms), dtype=dtype, device=device)
     zero = torch.zeros(grid.shape, dtype=dtype, device=device)
@@ -65,5 +69,5 @@ class NoiseModel:
         ang_x, _ = box.grid.pixel_array(cosmology)
         sigma = radiometer_sigma(freqs, ang_x, Tinst, tp, fov, Ndish)
         return realise_radiometer_noise(
-            None if normals is not None else box.next_generator(), box.grid,
+            None if normals is not None else box.next_key(), box.grid,
             sigma, box.dtype, box.device, normals)

@@ -44,6 +44,7 @@ _LIB_NAME = "libfastbox_tpu_torch_kernels.so"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F64 = ctypes.c_double
 _SIGNATURES = {
     "fbx_add_scaled_normal": (_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P),
     "fbx_rsd_remap_wrap": (_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
@@ -75,6 +76,8 @@ _SIGNATURES = {
     "fbx_row_normal": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _INT,
                        _P, _P),
     "fbx_row_poisson": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P),
+    "fbx_key_normal": (_P, _I64, _I64, _INT, _INT, _F64, _F64, _INT, _P, _P),
+    "fbx_key_poisson": (_P, _I64, _I64, _P, _P, _P, _P),
 }
 
 _launches: collections.Counter = collections.Counter()

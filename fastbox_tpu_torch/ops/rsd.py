@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import keys
 from ..grid import GridSpec
 from .cuda.banded_interp import banded_interp
 from .cuda.noise import add_scaled_normal_2d
@@ -38,20 +39,26 @@ __all__ = ["add_scaled_normal", "redshift_space_density", "remap_los_batched"]
 METHODS = ("linear", "nearest")
 
 
-def add_scaled_normal(x, scale_row, generator=None, normals=None,
+def add_scaled_normal(x, scale_row, key=None, normals=None,
                       return_max: bool = False):
     """x + scale_row[..broadcast..] * N(0,1) along the last axis.
 
-    K1 on a CUDA tensor, its plain twin on a CPU tensor.  The normals come
-    from ``generator`` or, when given, from ``normals`` (x's shape).  With
-    ``return_max`` also returns ``max|result|`` as a 0-dim tensor — the
-    RSD remap's displacement bound.
+    K1 on a CUDA tensor, its plain twin on a CPU tensor.  The normals are
+    ``normals`` (x's shape) when given; else, for a key (an int seed or
+    key words, ``keys``), ``jax.random.normal(key, x.shape, x.dtype)``,
+    fastbox_tpu's draw off the TPU (fastbox_tpu/ops/rsd.py:87), by R1w and
+    then K1's supplied mode (two launches); else K1 draws them from the
+    ``torch.Generator`` ``key``.  With ``return_max`` also returns
+    ``max|result|`` as a 0-dim tensor — the RSD remap's displacement bound.
     """
     shape = x.shape
     C = shape[-1]
+    if normals is None and keys.is_key(key):
+        normals = keys.normal(key, shape, x.dtype, device=x.device)
+        key = None
     nrm = None if normals is None else normals.reshape(-1, C).contiguous()
     res = add_scaled_normal_2d(x.reshape(-1, C).contiguous(),
-                               scale_row.to(x.dtype), generator, nrm,
+                               scale_row.to(x.dtype), key, nrm,
                                return_max)
     if return_max:
         return res[0].reshape(shape), res[1]
@@ -59,7 +66,7 @@ def add_scaled_normal(x, scale_row, generator=None, normals=None,
 
 
 def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
-                           sigma_nl: float = 0.0, generator=None,
+                           sigma_nl: float = 0.0, key=None,
                            normals=None, method: str = "linear",
                            vmax=None):
     """Remap a real-space density cube to redshift space (box.py:384-438).
@@ -70,7 +77,9 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
         grid: static geometry.
         Hz: H(a) in km/s/Mpc.
         sigma_nl: RMS of incoherent small-scale velocities (km/s); when > 0
-            they are drawn from ``generator`` or taken from ``normals``.
+            they are drawn with ``key`` (a key: fastbox_tpu's
+            ``jax.random.normal`` stream; or a ``torch.Generator``) or taken
+            from ``normals``.
         method: 'linear' or 'nearest'.
         vmax: optional max|velocity_z| already at hand (a 0-dim tensor),
             which saves a reduction; ignored when sigma_nl > 0.
@@ -91,7 +100,7 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
     if sigma_nl > 0.0:
         vel, vmax = add_scaled_normal(
             vel, torch.full((N,), sigma_nl, dtype=rdtype, device=dev),
-            generator, normals, return_max=True)
+            key, normals, return_max=True)
     elif vmax is None:
         vmax = torch.max(torch.abs(vel))
 

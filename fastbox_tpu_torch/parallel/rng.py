@@ -8,8 +8,7 @@ of the full field whatever the mesh shape, and the single pipeline draws
 the same field as any mesh.
 
 The streams are ``fastbox_tpu``'s: a seed ``s`` stands for
-``jax.random.PRNGKey(s)`` with 64-bit integers on, the key words
-``((s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF)`` in two's complement; a
+``jax.random.PRNGKey(s)`` with 64-bit integers on (``keys.seed_words``); a
 (B, 2) integer tensor passes raw ``jax.random`` keys as they are.  The
 draws reproduce jax's threefry bits and uniforms exactly on every device
 (R1/R2, ``ops/cuda/row_draw.py``: the CUDA kernels on the card, their
@@ -29,6 +28,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..keys import M32 as _M32
+from ..keys import seed_words as _seed_words
 from ..ops.cuda import row_draw
 
 __all__ = ["TAGS", "ROW_NDIM", "row_keys", "row_normal",
@@ -48,16 +49,6 @@ TAGS = {
 # Row shape of each pipeline field: (N,) ** ndim after the row axis
 ROW_NDIM = {"density": 2, "sigma_nl": 2, "noise": 2, "fg_re": 1, "fg_im": 1,
             "alpha": 1}
-
-_M32 = row_draw.M32
-
-
-def _seed_words(seed) -> list:
-    s = int(seed)
-    if not -2 ** 63 <= s < 2 ** 63:
-        raise ValueError(f"seed {s} is outside the int64 range")
-    return [(s >> 32) & _M32, s & _M32]
-
 
 def row_keys(seed, device=None) -> tuple[torch.Tensor, bool]:
     """``(keys, batched)``: the (B, 2) int64 key words of ``seed`` on

@@ -22,29 +22,36 @@ the bin plan) runs once in ``make_pipeline``; the returned function runs
 stages 1-9 on ``device``, split as fastbox_tpu's ``fn_pre`` (1-7b, its
 ``pre`` attribute) and ``fn_post`` (8-9, ``post``).
 
-Random draws.  ``jax.random`` streams cannot be reproduced in torch, so
-the pipeline function takes an optional ``draws`` dict with the five
-arrays fastbox_tpu's ``fn_pre`` draws from its five keys
-(fastbox_tpu/pipeline.py:492), under the names of those keys:
+Random draws.  The pipeline function takes a key, a ``torch.Generator``
+or the ``draws`` dict.  A key (an int seed, ``jax.random.PRNGKey(seed)``,
+or (2,) key words; ``keys``) gives fastbox_tpu's realisation of that key
+off the TPU: ``split(key, 5)`` (fastbox_tpu/pipeline.py:492) and the
+whole-array ``jax.random`` draws of each of the five arrays, under the
+names of those keys:
 
   ``dens``  (N, N, N/2+1) complex half-spectrum white noise (:517-521)
-  ``rsd``   (N, N, N) sigma_NL velocity normals              (:570-571)
+  ``rsd``   (N, N, N) sigma_NL velocity normals              (:570-579)
   ``fg``    (N, N) complex foreground white noise            (:594-598)
   ``alpha`` (N, N) spectral-index white noise                (:599-600)
-  ``noise`` (N, N, N) radiometer normals                     (:630-631)
+  ``noise`` (N, N, N) radiometer normals                     (:629-633)
 
-This is the port's counterpart of fastbox_tpu's ``threefry_noise`` and
-``draw_dtype`` truth-gate knobs.  With ``noise_scheme='rows'`` every field
-is drawn per leading-axis row instead (``parallel.rng``: jax.random's
-streams), keyed by a seed and the row index alone, as the sharded ensemble
-step draws it; ``draws``
+each drawn when the stage needs it (R1w on a GPU, its twin on the CPU) and
+then used as ``draws`` would be: K1 adds the two normal fields in its
+supplied mode, and with ``pallas_draw`` on K9 colours ``dens`` in its
+supplied mode (fastbox_tpu ignores ``pallas_draw`` off the TPU, where its
+draws are the same threefry ones).  fastbox_tpu's truth-gate knobs are
+read as it reads them: ``draw_dtype='float32'`` draws ``dens``, ``fg``
+and ``alpha`` in float32 and casts them to a float64 pipeline, and the two
+normal fields too only with ``threefry_noise`` (else they are
+``add_scaled_normal``'s draws, in the pipeline's dtype); for a key the
+default path supplies them whole already.  A ``torch.Generator`` draws
+torch's streams instead: the density draw (with ``pallas_draw``) and the
+two normal draws happen inside K9 and K1 on a GPU.  The gate knobs need a
+key, and raise with a generator.  ``draws`` supplies the five arrays.  With ``noise_scheme='rows'`` every field is drawn per
+leading-axis row instead (``parallel.rng``), keyed by a seed (or key) and
+the row index alone, as the sharded ensemble step draws it; ``draws``
 then holds the full-field rows under the ``parallel.rng.TAGS`` names
-(``ROWS_DRAW_NAMES``).  Without ``draws`` the function draws
-them itself from the ``torch.Generator`` it is given; the density draw
-(with ``pallas_draw``) and the two normal draws then happen inside K9 and
-K1 on a GPU.  With ``draws`` and ``pallas_draw`` on, the supplied ``dens``
-is coloured by K9 in its supplied mode, and 'vz' weights the velocity
-spectrum with K9's formula.
+(``ROWS_DRAW_NAMES``).
 
 Precision.  The TPU-only knobs ``mm3d_precision``, ``vel_precision``,
 ``dx_precision``, ``fwd_precision`` and ``pca_precision`` select MXU pass
@@ -58,11 +65,13 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from . import keys
 from .constants import C_MS
 from .cosmology import Cosmology
 from .device import resolve
@@ -92,8 +101,6 @@ ROWS_DRAW_NAMES = tuple(rng.ROW_NDIM)
 # that are not ported: field -> (default, ROADMAP.md item).
 _UNPORTED = {
     "fft_pair": (False, "A (do-not-port list): matmul DFT pair"),
-    "threefry_noise": (False, "pass the pipeline function `draws` instead"),
-    "draw_dtype": (None, "pass the pipeline function `draws` instead"),
 }
 
 
@@ -145,7 +152,8 @@ class PipelineConfig:
     dx_precision: str | None = None
     fwd_precision: str | None = None
     pca_precision: str | None = "HIGH"
-    # Truth-gate knobs: the port takes `draws` instead
+    # Truth-gate knobs (module docstring): the dtype of the draws, cast to
+    # `dtype`, and the two normal fields drawn whole and supplied to K1
     draw_dtype: str | None = None
     threefry_noise: bool = False
     # P(k) reduction: 'auto' takes K4 on cubic grids and K5 elsewhere, 'v2'
@@ -178,6 +186,8 @@ class PipelineConfig:
             raise ValueError(f"Unknown fg_spectral '{self.fg_spectral}'")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"Unknown dtype '{self.dtype}'")
+        if self.draw_dtype not in (None, "float32", "float64"):
+            raise ValueError(f"Unknown draw_dtype '{self.draw_dtype}'")
         if self.noise_scheme not in ("half", "rows"):
             raise ValueError(f"Unknown noise_scheme '{self.noise_scheme}'")
         if self.rsd_method not in rsd_ops.METHODS:
@@ -204,11 +214,58 @@ class _NoClock:
         pass
 
 
-def draw_inputs(grid: GridSpec, generator: torch.Generator,
-                dtype=torch.float32, method: str = "erfinv") -> dict:
-    """The five ``draws`` arrays, drawn on ``generator.device`` in the
-    order the pipeline function consumes them; ``method`` is the density
-    draw's (``PipelineConfig.draw_method``)."""
+class _KeyDraws(Mapping):
+    """The five ``draws`` arrays of a key, each drawn on first access:
+    ``split(key, 5)`` in ``DRAW_NAMES`` order, then fastbox_tpu's
+    whole-array draws (fastbox_tpu/pipeline.py:492-633) on ``device``.
+    The sub-keys (the five, the density's three in place of its own) are
+    hashed on the host in one pass and reach the device in one copy.
+    ``dens``, ``fg`` and ``alpha`` are drawn in ``dtype``; ``rsd`` and
+    ``noise`` in ``noise_dtype``: fastbox_tpu draws them in the draw dtype
+    only under ``threefry_noise``, and else in the pipeline's, through
+    ``add_scaled_normal``."""
+
+    def __init__(self, grid: GridSpec, key, dtype, noise_dtype, method: str,
+                 device):
+        five = keys.split_words(key, len(DRAW_NAMES))
+        words = keys.to_device(torch.tensor(
+            keys.split_words(five[0], 3) + five[1:], dtype=torch.int64),
+            device)
+        self._keys = dict(zip(DRAW_NAMES, (words[:3], *words[3:])))
+        self._grid, self._method, self._device = grid, method, device
+        self._dtypes = dict(dens=dtype, fg=dtype, alpha=dtype,
+                            rsd=noise_dtype, noise=noise_dtype)
+
+    def __getitem__(self, name):
+        k, g, dt, dev = self._keys[name], self._grid, self._dtypes[name], \
+            self._device
+        if name == "dens":
+            return gaussian._half_noise(k, g, dt, self._method, dev)
+        if name == "fg":
+            return keys.complex_normal(k, (g.N, g.N), dt, device=dev)
+        shape = (g.N, g.N) if name == "alpha" else g.shape
+        return keys.normal(k, shape, dt, dev)
+
+    def __contains__(self, name) -> bool:
+        return name in self._keys
+
+    def __iter__(self):
+        return iter(DRAW_NAMES)
+
+    def __len__(self) -> int:
+        return len(DRAW_NAMES)
+
+
+def draw_inputs(grid: GridSpec, generator, dtype=torch.float32,
+                method: str = "erfinv", device=None) -> dict:
+    """The five ``draws`` arrays in ``dtype``; ``method`` is the density
+    draw's (``PipelineConfig.draw_method``).  A key gives fastbox_tpu's
+    arrays for that key, on ``device`` (None: the card); a
+    ``torch.Generator`` draws on its device in the order the pipeline
+    function consumes them."""
+    if keys.is_key(generator):
+        return dict(_KeyDraws(grid, generator, dtype, dtype, method,
+                              resolve(device)))
     N = grid.N
     dev = generator.device
     out = {"dens": gaussian.hermitian_half_noise(generator, grid, dtype,
@@ -291,7 +348,9 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                   amp_half: torch.Tensor | None = None):
     """Build the pipeline: host set-up now, stages 1-9 in the returned
     ``fn(generator=None, draws=None, clock=None, seed=None) -> dict`` on
-    ``device`` (None: the CUDA card; pass ``"cpu"`` for the CPU).
+    ``device`` (None: the CUDA card; pass ``"cpu"`` for the CPU), where
+    ``generator`` is a key (fastbox_tpu's ``fn(key)``) or a
+    ``torch.Generator`` (module docstring).
 
     ``amp_half`` (N, N, N/2+1) replaces the sqrt(P boxfactor) table built
     from ``cosmology`` (e.g. fastbox_tpu's own, via
@@ -302,9 +361,9 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     sigma_NL dispersion, as on fastbox_tpu's ``threefry_noise`` path.
 
     With ``noise_scheme='rows'`` the fields are the row-keyed draws of
-    ``seed`` (default: ``generator.initial_seed()``), fastbox_tpu's fields
-    for ``jax.random.PRNGKey(seed)`` (one R1 launch a field on the card),
-    or ``draws`` holds them (``ROWS_DRAW_NAMES``).
+    ``seed`` (default: the key given, else ``generator.initial_seed()``),
+    fastbox_tpu's fields for ``jax.random.PRNGKey(seed)`` (one R1 launch a
+    field on the card), or ``draws`` holds them (``ROWS_DRAW_NAMES``).
 
     ``fn.pre(generator=None, draws=None, clock=None, want_cov=False,
     seed=None)`` runs
@@ -315,6 +374,7 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     """
     device = resolve(device)
     dtype = getattr(torch, config.dtype)
+    ddt = getattr(torch, config.draw_dtype) if config.draw_dtype else dtype
     N = grid.N
     H = N // 2 + 1
     z = grid.redshift
@@ -457,7 +517,13 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                     raise ValueError("noise_scheme='rows' needs a seed, a "
                                      "torch.Generator or the `draws` dict")
                 seed = generator.initial_seed()
-            out = rng.row_draws(seed, names, N, dtype=dtype, device=device)
+            if torch.is_tensor(seed) and seed.dim() == 1:   # one key's words
+                out = {n: v[0] for n, v in rng.row_draws(
+                    keys.key_data(seed)[None], names, N, dtype=dtype,
+                    device=device).items()}
+            else:
+                out = rng.row_draws(seed, names, N, dtype=dtype,
+                                    device=device)
         if config.include_foregrounds:
             out["fg"] = torch.complex(out.pop("fg_re"), out.pop("fg_im"))
         return out
@@ -500,6 +566,23 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
             draws: dict | None = None, clock=None,
             want_cov: bool = False, seed: int | None = None) -> dict:
         clock = clock or _NoClock()
+        if keys.is_key(generator):
+            if rows_mode:
+                if seed is not None:
+                    raise ValueError("pass a key or seed=, not both")
+                seed = generator if isinstance(generator, int) \
+                    else keys.key_data(generator)
+                generator = None
+            elif draws is None:
+                # fastbox_tpu's five arrays of the key, drawn on access
+                draws, generator = _KeyDraws(
+                    grid, generator, ddt,
+                    ddt if config.threefry_noise else dtype,
+                    config.draw_method, device), None
+        elif (generator is not None and draws is None and not rows_mode
+              and (config.threefry_noise or config.draw_dtype)):
+            raise ValueError("threefry_noise and draw_dtype select "
+                             "fastbox_tpu's threefry draws: pass a key")
         if rows_mode:
             # (1) real white rows, one half-spectrum FFT, x sqrt(P)
             rows = row_fields(generator, draws, seed)
@@ -512,7 +595,8 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                 raise ValueError("seed= selects the row-keyed draws of "
                                  "noise_scheme='rows'")
             if draws is None and generator is None:
-                raise ValueError("pass a torch.Generator or the `draws` dict")
+                raise ValueError("pass a key, a torch.Generator or the "
+                                 "`draws` dict")
             if draws is not None:
                 missing = [k for k in DRAW_NAMES if k not in draws]
                 if missing:
@@ -671,8 +755,8 @@ def _realisations(generators, draws) -> list:
             raise ValueError("generators and draws differ in length")
         return list(zip(gens, draws))
     if generators is None:
-        raise ValueError("pass a sequence of torch.Generators or of `draws` "
-                         "dicts")
+        raise ValueError("pass a sequence of keys (seeds, or a (K, 2) key "
+                         "tensor), of torch.Generators or of `draws` dicts")
     return [(g, None) for g in generators]
 
 
@@ -686,7 +770,8 @@ def make_chained_pipeline(grid: GridSpec, cosmology: Cosmology,
     """``fn(generators=None, draws=None) -> dict``: K realisations, one
     after another, with the outputs stacked on a leading axis (K is the
     length of ``generators`` or ``draws``, sequences of what
-    ``make_pipeline``'s function takes).
+    ``make_pipeline``'s function takes: a (K, 2) key tensor or a list of
+    seeds gives fastbox_tpu's scan over those keys).
 
     fastbox_tpu scans its single pipeline in one program to amortise the
     TPU's dispatch cost; here the chain is a Python loop over the same
@@ -718,7 +803,8 @@ def make_ensemble_pipeline(grid: GridSpec, cosmology: Cosmology,
                            amp_half: torch.Tensor | None = None):
     """Monte-Carlo ensemble: ``fn(generators=None, draws=None) -> dict`` of
     B realisations with stacked outputs, each equal to its single call
-    (fastbox_tpu vmaps its pipeline; here it is a loop on one device).
+    (fastbox_tpu vmaps its pipeline over a (B, 2) key batch, which
+    ``generators`` takes as it is; here it is a loop on one device).
 
     With ``mesh`` (a ``parallel.make_mesh`` DeviceMesh), pure data
     parallelism over its 'ens' group (fastbox_tpu/pipeline.py:888-911):
@@ -757,8 +843,8 @@ def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
                         device=None, amp_half: torch.Tensor | None = None):
     """The additive per-bin bias of ``config_fast``'s cleaned P(k) against
     ``config_ref``'s: ``mean(pk_fast - pk_ref)`` over realisations drawn
-    from ``torch.Generator``s seeded with ``seeds`` (keep them disjoint from
-    science seeds), as a tuple for ``dataclasses.replace(config_fast,
+    from ``jax.random.PRNGKey`` of each of ``seeds`` (keep them disjoint
+    from science seeds), as a tuple for ``dataclasses.replace(config_fast,
     pk_debias=...)`` (fastbox_tpu/pipeline.py:852-885).
 
     fastbox_tpu's default reference restores its DFT precision tiers; the
@@ -773,8 +859,7 @@ def calibrate_pk_debias(grid: GridSpec, cosmology: Cosmology,
     fn_ref = make_pipeline(grid, cosmology, config_ref, device, amp_half)
     diffs = []
     for seed in seeds:
-        pf, pr = (f(torch.Generator(device=device).manual_seed(seed))
-                  ["pk_cleaned"].double().cpu().numpy()
+        pf, pr = (f(int(seed))["pk_cleaned"].double().cpu().numpy()
                   for f in (fn_fast, fn_ref))
         diffs.append(pf - pr)
     return tuple(float(v) for v in np.mean(diffs, axis=0))

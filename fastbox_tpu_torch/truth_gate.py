@@ -19,9 +19,14 @@ reports its per-bin relative error against the oracle beside the floor.  A
 variant whose error is comparable to the floor is conditioning-limited
 (admissible); one far above it is less accurate.
 
-``jax.random`` threefry draws cannot be reproduced here, so ``check``
-refuses a truth file of scripts/truth_gate.py: a per-bin comparison across
-two streams would measure realisation scatter, not accuracy.  The port's
+The gate keeps these draws rather than scripts/truth_gate.py's
+``jax.random`` keys, which the port reproduces (``keys``): on keys 1000
+and 1001 at 16^3 the keyed realisation leaves ~1e-3 of the density power
+in bin 16, where K4t's float64 prefix differences differ from K4 by
+4.3e-6 of the bin, above the 1e-6 per bin that
+tests/test_torch_truth_gate.py holds 'pk_v2t' to.  So ``check`` refuses a
+truth file of scripts/truth_gate.py: a per-bin comparison across two
+streams would measure realisation scatter, not accuracy.  The port's
 float64 pipeline is itself held to fastbox_tpu's float64 gate
 configuration on identical draws (tests/test_torch_truth_gate.py), which
 chains this oracle to the reference.  Files go under ``build/`` by

@@ -181,10 +181,11 @@ def cosmo_port():
 ])
 def test_unported_knobs_raise(knob, value):
     """Knobs of unported paths raise; the row-keyed draws, the 'nearest'
-    remap and K4's telescoped mode are ported, and those values are
-    accepted."""
+    remap, K4's telescoped mode and the truth-gate draw knobs are ported,
+    and those values are accepted."""
     if (knob, value) in (("noise_scheme", "rows"), ("rsd_method", "nearest"),
-                         ("pallas_pk", "v2t")):
+                         ("pallas_pk", "v2t"), ("threefry_noise", True),
+                         ("draw_dtype", "float32")):
         assert getattr(PipelineConfig(**{knob: value}), knob) == value
         return
     with pytest.raises(NotImplementedError):
