@@ -65,21 +65,25 @@ failure:
      normals within R1_TWIN_ULP, on a 256^3 field's (N, N) and (N,) rows,
      a 512^3 slab from row 100, 63-cell rows; the direct path (unaligned)
      equal to the vector path; the first 8 rows of a 256^3 field against
-     the CPU twin (uniforms bitwise, normals within R1_CPU_SPACINGS); R2's
-     counts equal to its twin's on rates spanning 0, 1e-3..1e4 and NaN (f32,
-     f64; one key and eight) and on a 256^3 halo rate; times of both, their
-     twins, the per-row loops they replaced and torch.randn / torch.poisson
-     (other functions) at 256^3;
+     the CPU twin (uniforms bitwise, normals within R1_CPU_SPACINGS); R2 by
+     poisson_phase: counts equal to its twin's on rate fields spanning 0,
+     1e-3..1e4 and NaN, the 256^3 halo rate, the halo rate clamped below
+     10 (all Knuth), its 64-row slab (rows 64-127: one rank of a 4-way
+     mesh), eight keys, all-rejection rates (the f32 list overflowing) and
+     tests/test_torch_poisson_passes.py's cases, f32 and f64; repeatable;
+     timed at f32 on the halo rate, the slab and the all-Knuth field, each
+     launch's device time from torch.profiler (four launches a call); R1
+     timed beside its twin, the per-row loop it replaced and torch.randn
+     (another function) at 256^3;
   K. the whole-array keyed draws (csrc/row_draw.cu, jax.random.normal /
      uniform / poisson on keys as given): R1w against its twin on the card,
      uniforms ([0, 1), [-3, 3), [0, 1 - 1e-8), pairs) bitwise and normals
      (erfinv, complex pairs, Box-Muller pairs) 0 ulp, f32 and f64, one key
      at 256^3 and eight at 64^3 and on 4095 elements (the direct path); the
      direct path equal to the vector path; a 256^3 f32 field and a 64^3
-     f64 uniform against the CPU twin; R2w's counts equal to its twin's on
-     rates spanning 0, 1e-3..1e4 and NaN (f32, f64; one key at 256^3,
-     eight at 32 x 64 x 64) and on a 256^3 halo rate; times of both, their
-     twins and torch.randn / torch.poisson (other functions).  After the
+     f64 uniform against the CPU twin; R2w by poisson_phase on phase R's
+     cases, each key's field one row; times of R1w, its twin and
+     torch.randn (another function).  After the
      truth check (5), its paths, counted: the 256^3 pipeline from two keys
      (R1w 6 and K1 2 launches a realisation, K9 none), equal to its run on
      the key's draws supplied and, per populated bin, within TRUTH_BOUND of
@@ -371,6 +375,15 @@ ROW_SEEDS = [0, 1, 2 ** 32 + 5, -7, 1234, 99, 2 ** 40 + 3, -2 ** 33]
 # ~250.
 R1_OPS = 105
 R2_KNUTH_OPS, R2_REJECTION_OPS = 100, 250
+# Of R1_OPS, the 32-bit integer ones (threefry's 72, the uniform's xor,
+# shift and or), which the H100 issues at half its f32 rate: R1/R1w's
+# bound at that rate is logged beside the row's (not the row's bound_ms).
+R1_INT_OPS = 75
+# R2/R2w: (row0, rows) of the halo rate's slab on one rank of a 4-way mesh
+# at 256^3, and the launches of a call (chains, Knuth, first acceptances,
+# the walk)
+POISSON_SLAB = (64, 64)
+POISSON_LAUNCHES = 4
 
 
 def log(msg: str) -> None:
@@ -1798,18 +1811,23 @@ def capture_slab_inputs(fn) -> tuple:
 SLAB_LIB_BOUND = 1e-4
 
 
-def slab_edge_cases():
-    """tests/test_torch_slab_paint_order.py's edge cases of the slab paint,
-    its KINDS and slab_disp(rng, kind, S, n, B), so that the card and the
-    CPU test hold the kernel on the same cases."""
+def tests_module(name: str):
+    """A module of tests/ whose edge cases the card shares with the CPU
+    tests, so that both hold a kernel on the same cases."""
+    import importlib
     from pathlib import Path
 
     tests = str(Path(__file__).resolve().parent / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    from test_torch_slab_paint_order import KINDS, slab_disp
+    return importlib.import_module(name)
 
-    return KINDS, slab_disp
+
+def slab_edge_cases():
+    """tests/test_torch_slab_paint_order.py's edge cases of the slab paint,
+    its KINDS and slab_disp(rng, kind, S, n, B)."""
+    m = tests_module("test_torch_slab_paint_order")
+    return m.KINDS, m.slab_disp
 
 
 def slab_paint_held(d, B: int, weights, what: str) -> None:
@@ -3896,18 +3914,6 @@ def per_row_normal(seed, tag: int, row0: int, nrows: int, row_shape,
     return out
 
 
-def per_row_poisson(seed: int, tag: int, row0: int, lam):
-    """The per-row halo counts that R2 replaced (timing only): one
-    torch.poisson per row on a generator reseeded as in
-    ``per_row_normal``."""
-    out = torch.empty_like(lam)
-    gen = torch.Generator(device=lam.device)
-    for i in range(lam.shape[0]):
-        gen.manual_seed(per_row_seed(seed, tag, row0 + i))
-        out[i] = torch.poisson(lam[i], generator=gen)
-    return out
-
-
 def spacing_err(got, want) -> float:
     """max |got - want| over the spacing of |want| in its dtype."""
     g, w = got.double().cpu().numpy(), want.cpu().numpy()
@@ -4003,48 +4009,195 @@ def rate_field(shape, dev, dtype, seed: int) -> torch.Tensor:
 
 
 def r2_ops(lam, counts) -> float:
-    """The operations these rates need: Knuth's steps, count + 1 for a
-    positive rate (exact), and at least two rejection steps per rejection
-    element (its first acceptance and the row's last step)."""
+    """The operations rates ``lam`` (R, L) need, R rows of one draw (R2's
+    rows, R2w's fields): Knuth's steps, count + 1 for a positive rate below
+    10 (exact); one rejection step for EVERY element of a row that holds a
+    rejection rate, Knuth and zero rates included, since jax runs the
+    rejection loop over the whole row until each element has been accepted
+    once (its first acceptance, at least a step), and none in a row
+    without one; one more for each rejection element (the walk's last
+    step, at least)."""
     lf = lam.float()
     knuth = torch.isnan(lf) | (lf < 10.0)
     steps = (counts.double() + 1.0)[knuth & (lf > 0)].sum().item()
+    flagged = (~knuth).any(dim=1)
+    first = flagged.sum().item() * lf.shape[1]
     return (steps * R2_KNUTH_OPS
-            + 2.0 * (~knuth).sum().item() * R2_REJECTION_OPS)
+            + (first + (~knuth).sum().item()) * R2_REJECTION_OPS)
+
+
+def int_rate_ms(n: int) -> float:
+    """R1/R1w's bound for ``n`` f32 values with their integer operations
+    at half the f32 rate: (R1_INT_OPS at 33.5e12/s + the rest at 67e12/s)
+    per value, in ms."""
+    rate = PEAK_OPS_S[torch.float32]
+    return n * (2 * R1_INT_OPS + (R1_OPS - R1_INT_OPS)) / rate * 1e3
+
+
+def halo_rate(dev) -> torch.Tensor:
+    """The estimators' halo rate at 256^3: nbar 1e-3 in 15.6 Mpc cells (3.8
+    a voxel), bias 1.5, on a field of sigma 0.5; 1.5% of voxels at 10 or
+    more, scattered."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    delta = 0.5 * torch.randn((N_MAIN,) * 3, generator=g, device=dev)
+    voxel = (BOX / N_MAIN) ** 3
+    return torch.clamp(voxel * 1e-3 * (1.0 + 1.5 * delta), min=0.0)
+
+
+def poisson_cases(dev, dtype) -> list:
+    """(label, row0, rates (B, ...)) of R2/R2w's checks: rates spanning 0,
+    1e-3..1e4 and NaN (one key at 256^3, eight keys), the 256^3 halo rate,
+    the halo rate clamped to 9.99 (all Knuth), its POISSON_SLAB rows (one
+    rank's slab of a 4-way mesh), eight keys over 32 of its planes each,
+    all-rejection rates (in f32 the list outgrows its room: the walk over
+    every element), and tests/test_torch_poisson_passes.py's cases on three
+    keys."""
+    halo = halo_rate(dev).to(dtype)
+    r0, n = POISSON_SLAB
+    g = torch.Generator(device=dev).manual_seed(5)
+    rej = 10.0 + (1e4 - 10.0) * torch.rand(
+        (1, N_MAIN // 4, N_MAIN, N_MAIN), generator=g, device=dev,
+        dtype=torch.float64)
+    cases = [("rates 1e-3..1e4 with 0 and NaN, 256^3", 7,
+              rate_field((1,) + (N_MAIN,) * 3, dev, dtype, seed=1)),
+             ("rates 1e-3..1e4 with 0 and NaN, 8 keys", 7,
+              rate_field((8, 16, N_MAIN, N_MAIN), dev, dtype, seed=8)),
+             ("the 256^3 halo rate", 0, halo[None]),
+             ("the halo rate clamped to 9.99 (all Knuth)", 0,
+              halo.clamp(max=9.99)[None]),
+             (f"the halo rate's rows {r0}-{r0 + n - 1}", r0,
+              halo[None, r0:r0 + n].contiguous()),
+             (f"8 keys, {N_MAIN // 8} planes of the halo rate each", 0,
+              halo.reshape(8, N_MAIN // 8, N_MAIN, N_MAIN)),
+             (f"all rejection, {N_MAIN // 4} x {N_MAIN}^2", 0,
+              rej.to(dtype))]
+    emulation = tests_module("test_torch_poisson_passes")
+    for i, kind in enumerate(emulation.CASES):
+        cases.append((f"the CPU test's '{kind}' rates, 3 keys", 3,
+                      emulation.poisson_case(kind, (3, 16, 64, 64), dtype,
+                                             seed=i).to(dev)))
+    return cases
+
+
+def poisson_split(fn, calls: int = 10) -> dict:
+    """Device ms of each kernel ``fn`` launches (torch.profiler over
+    ``calls`` calls; per launch, the trace may miss its first launches)
+    and its launches per call: {name: (ms, launches)}; empty where the
+    trace holds no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)", e.key)
+        dt = getattr(e, "device_time_total", 0) or 0
+        if m and dt:
+            split[m.group(1)] = (dt / 1e3 / e.count, e.count / calls)
+    return split
+
+
+def poisson_phase(dev, kind: str) -> tuple[dict, list]:
+    """R2 (``kind`` 'rows') or R2w ('fields') against its twin on the card
+    over poisson_cases, f32 and f64, counts equal; repeatable; then timed
+    at f32 on one key (the halo rate, its 64-row slab, all Knuth) beside
+    the twin, with each launch's device time (poisson_split: four launches
+    a call).  Returns the kernel's row and the failures."""
+    from fastbox_tpu_torch.keys import PRNGKey
+    from fastbox_tpu_torch.ops.cuda import row_draw
+    from fastbox_tpu_torch.parallel.rng import TAGS, row_keys
+
+    name = R2 if kind == "rows" else R2W
+
+    made = {}
+
+    def keys(B: int):
+        if B not in made:
+            made[B] = (row_keys(list(ROW_SEEDS[:B]), dev)[0] if kind == "rows"
+                       else torch.stack([PRNGKey(s) for s in ROW_SEEDS[:B]])
+                       .to(dev))
+        return made[B]
+
+    def draw(lam, row0: int = 0, plain: bool = False):
+        k = keys(lam.shape[0])
+        if kind == "rows":
+            f = row_draw.row_poisson_plain if plain else \
+                row_draw.row_poisson_cuda
+            return f(k, TAGS["halos"], row0, lam)
+        f = row_draw.key_poisson_plain if plain else row_draw.key_poisson_cuda
+        return f(k, lam)
+
+    failures, total, cases = [], 0, 0
+    for dtype in (torch.float32, torch.float64):
+        for label, row0, lam in poisson_cases(dev, dtype):
+            got, want = draw(lam, row0), draw(lam, row0, plain=True)
+            n = int((got.nan_to_num(-9.0) != want.nan_to_num(-9.0)).sum())
+            total, cases = total + got.numel(), cases + 1
+            if n:
+                failures.append(f"{name} {label} {dtype}: {n} of "
+                                f"{got.numel()} counts differ")
+            del got, want
+    log(f"{name} vs twin on the card, {cases} cases (f32 and f64), {total} "
+        "counts: " + ("all equal" if not failures else "; ".join(failures)))
+
+    halo = halo_rate(dev)
+    r0, n = POISSON_SLAB
+    fields = {"the halo rate": halo[None],
+              f"its rows {r0}-{r0 + n - 1}":
+                  halo[None, r0:r0 + n].contiguous(),
+              "all Knuth": halo.clamp(max=9.99)[None]}
+    counts = draw(fields["the halo rate"])
+    if not torch.equal(counts, draw(fields["the halo rate"])):
+        failures.append(f"{name} on the halo rate: not repeatable")
+    twin = draw(fields["the halo rate"], plain=True)
+    err = (counts - twin).abs().max().item()
+    t = {label: median_ms(lambda lam=lam: draw(lam))
+         for label, lam in fields.items()}
+    plain = median_ms(lambda: draw(fields["the halo rate"], plain=True))
+    knuth = float((halo < 10.0).float().mean())
+    log(f"{name} at f32, one key (ms per call; the halo rate's mean "
+        f"{halo.mean().item():.3f}, {100 * (1 - knuth):.3f}% at 10 or more): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f"; twin {plain:.4f}; torch.poisson (another function) "
+        f"{median_ms(lambda: torch.poisson(halo)):.4f}")
+    for label, lam in fields.items():
+        split = poisson_split(lambda lam=lam: draw(lam))
+        log(f"{name} launches on {label} (torch.profiler, device ms a "
+            "launch and launches a call): "
+            + (", ".join(f"{k} {ms:.4f} x{c:g}" for k, (ms, c) in
+                         split.items()) or "no device time in the trace"))
+        ours = [c for k, (_, c) in split.items() if "poisson" in k]
+        if split and (len(ours) != POISSON_LAUNCHES
+                      or any(round(c) != 1 for c in ours)):
+            failures.append(f"{name} on {label}: launches {split}")
+    L = halo[0].numel() if kind == "rows" else halo.numel()   # a row
+    bound = roofline(nbytes(halo, counts),
+                     r2_ops(halo.reshape(-1, L), counts.reshape(-1, L)))
+    log(f"{name} bound on the halo rate: {bound['bound_ms']:.4f} ms (by "
+        f"{bound['bound_by']})")
+    row = dict(name=name, ms=t["the halo rate"], plain_ms=plain,
+               max_abs_err=err, library_ms=None, **bound)
+    return row, failures
 
 
 def phase_rows(dev) -> list[dict]:
     """Phase R: R1 and R2 (csrc/row_draw.cu) against their twins on the
-    card and R1 against the CPU twin (r1_checks); R2 on rate fields of
-    every regime (0, 1e-3..9.99, 10..1e4, NaN), f32 and f64, one key and
-    eight, counts equal to the twin's; times of both kernels, their twins,
-    the per-row loops they replaced and torch.randn / torch.poisson (other
-    functions, for scale) at 256^3.  Returns the kernels' rows."""
+    card and R1 against the CPU twin (r1_checks); R1 timed at 256^3 beside
+    its twin, the per-row loop it replaced and torch.randn (another
+    function, for scale); R2 by poisson_phase (its counts equal to the
+    twin's on every case, its times and launches).  Returns the kernels'
+    rows."""
     from fastbox_tpu_torch.ops.cuda import row_draw
     from fastbox_tpu_torch.parallel.rng import TAGS, row_keys
 
     t_phase = time.perf_counter()
     failures = r1_checks(dev)
-
-    # R2 against its twin
-    for dtype in (torch.float32, torch.float64):
-        for seeds, shape in (([2 ** 32 + 5], (1, 256, 256, 256)),
-                             (ROW_SEEDS, (8, 16, 256, 256))):
-            keys, _ = row_keys(seeds, dev)
-            lam = rate_field(shape, dev, dtype, seed=len(seeds))
-            got = row_draw.row_poisson_cuda(keys, TAGS["halos"], 7, lam)
-            want = row_draw.row_poisson_plain(keys, TAGS["halos"], 7, lam)
-            differ = (got.nan_to_num(-9.0) != want.nan_to_num(-9.0))
-            n = int(differ.sum())
-            log(f"R2 vs twin, {len(seeds)} key(s), {tuple(shape)} rates "
-                f"1e-3..1e4 with 0 and NaN, {dtype}: {n} of {got.numel()} "
-                "counts differ"
-                + ("" if n == 0 else
-                   f" (worst {(got - want)[differ].abs().max().item()} at "
-                   f"rate {lam[differ][0].item()})"))
-            if n:
-                failures.append(f"R2 {dtype} {len(seeds)} keys: {n} differ")
-            del got, want, lam
 
     # times at 256^3, one field, f32
     keys1, _ = row_keys([2 ** 32 + 5], dev)
@@ -4067,40 +4220,16 @@ def phase_rows(dev) -> list[dict]:
          "torch.randn (another function)": median_ms(lambda: torch.randn(
              (N_MAIN,) + shape, device=dev))}
     log("R1 at 256^3, one field, f32 (ms per call): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f"; bound with the integer operations at half the f32 rate "
+        f"{int_rate_ms(field.numel()):.4f}")
     r1_row = dict(name=R1, ms=t["kernel"], plain_ms=t["twin"],
                   max_abs_err=err, library_ms=None,
                   **roofline(nbytes(field), R1_OPS * field.numel()))
     del field, twin
 
-    # R2 on the estimators' halo rate at 256^3: nbar 1e-3 in 15.6 Mpc cells
-    # (3.8 a voxel), bias 1.5, on a field of sigma 0.5
-    g = torch.Generator(device=dev).manual_seed(31)
-    delta = 0.5 * torch.randn((N_MAIN,) * 3, generator=g, device=dev)
-    voxel = (BOX / N_MAIN) ** 3
-    lam = torch.clamp(voxel * 1e-3 * (1.0 + 1.5 * delta), min=0.0)
-    r2 = lambda: row_draw.row_poisson_cuda(keys1, TAGS["halos"], 0,  # noqa
-                                           lam[None])
-    counts = r2()[0]
-    twin = row_draw.row_poisson_plain(keys1, TAGS["halos"], 0, lam[None])[0]
-    err2 = (counts - twin).abs().max().item()
-    if err2 != 0:
-        failures.append(f"R2 on the halo rate: max |diff| {err2}")
-    t2 = {"kernel": median_ms(r2),
-          "twin": median_ms(lambda: row_draw.row_poisson_plain(
-              keys1, TAGS["halos"], 0, lam[None])),
-          "per-row loop": median_ms(lambda: per_row_poisson(
-              2 ** 32 + 5, TAGS["halos"], 0, lam)),
-          "torch.poisson (another function)": median_ms(
-              lambda: torch.poisson(lam))}
-    knuth = float((lam < 10.0).float().mean())
-    log(f"R2 on a 256^3 halo rate (mean {lam.mean().item():.3f}, "
-        f"{100 * knuth:.3f}% below 10), f32, counts equal to the twin's: "
-        f"{err2 == 0} (ms per call): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in t2.items()))
-    r2_row = dict(name=R2, ms=t2["kernel"], plain_ms=t2["twin"],
-                  max_abs_err=err2, library_ms=None,
-                  **roofline(nbytes(lam, counts), r2_ops(lam, counts)))
+    r2_row, r2_failures = poisson_phase(dev, "rows")
+    failures += r2_failures
     log(f"phase R: {time.perf_counter() - t_phase:.1f} s")
     check(not failures, "phase R: " + "; ".join(failures))
     return [r1_row, r2_row]
@@ -4190,11 +4319,9 @@ def r1w_checks(dev) -> list:
 
 def phase_keys(dev) -> list[dict]:
     """Phase K (kernels): R1w and R2w (csrc/row_draw.cu) against their
-    twins on the card and R1w against the CPU twin (r1w_checks); R2w on
-    rate fields of every regime (0, 1e-3..1e4, NaN), f32 and f64, one key
-    at 256^3 and eight at 32 x 64 x 64, and on the 256^3 halo rate, counts
-    equal to the twin's; times of both, their twins and torch.randn /
-    torch.poisson (other functions) at 256^3.  Returns the kernels' rows."""
+    twins on the card and R1w against the CPU twin (r1w_checks); R1w timed
+    at 256^3 beside its twin and torch.randn (another function); R2w by
+    poisson_phase, each key's field one row.  Returns the kernels' rows."""
     from fastbox_tpu_torch.keys import PRNGKey
     from fastbox_tpu_torch.ops.cuda import row_draw
 
@@ -4202,20 +4329,6 @@ def phase_keys(dev) -> list[dict]:
     failures = r1w_checks(dev)
     one = PRNGKey(2 ** 32 + 5)[None].to(dev)
     eight = torch.stack([PRNGKey(s) for s in ROW_SEEDS]).to(dev)
-    for dtype in (torch.float32, torch.float64):
-        for k, shape in ((one, (1, N_MAIN, N_MAIN, N_MAIN)),
-                         (eight, (8, 32, 64, 64))):
-            lam = rate_field(shape, dev, dtype, seed=k.shape[0])
-            got = row_draw.key_poisson_cuda(k, lam)
-            want = row_draw.key_poisson_plain(k, lam)
-            n = int((got.nan_to_num(-9.0) != want.nan_to_num(-9.0)).sum())
-            log(f"R2w vs twin, {k.shape[0]} key(s), {tuple(shape)} rates "
-                f"1e-3..1e4 with 0 and NaN, {dtype}: {n} of {got.numel()} "
-                "counts differ")
-            if n:
-                failures.append(f"R2w {dtype} {k.shape[0]} keys: {n} differ")
-            del got, want, lam
-
     # times at 256^3, one field, f32
     r1 = lambda d=torch.float32, m="erfinv", p=False: \
         row_draw.key_normal_cuda(one, N_MAIN ** 3, d, m, p)  # noqa: E731
@@ -4234,38 +4347,16 @@ def phase_keys(dev) -> list[dict]:
          "torch.randn (another function)": median_ms(lambda: torch.randn(
              (N_MAIN,) * 3, device=dev))}
     log("R1w at 256^3, one field, f32 (ms per call): "
-        + ", ".join(f"{k_} {v:.4f}" for k_, v in t.items()))
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in t.items())
+        + f"; bound with the integer operations at half the f32 rate "
+        f"{int_rate_ms(field.numel()):.4f}")
     r1w_row = dict(name=R1W, ms=t["kernel"], plain_ms=t["twin"],
                    max_abs_err=err, library_ms=None,
                    **roofline(nbytes(field), R1_OPS * field.numel()))
     del field, twin
 
-    # R2w on the estimators' halo rate at 256^3 (phase R's)
-    g = torch.Generator(device=dev).manual_seed(31)
-    delta = 0.5 * torch.randn((N_MAIN,) * 3, generator=g, device=dev)
-    voxel = (BOX / N_MAIN) ** 3
-    lam = torch.clamp(voxel * 1e-3 * (1.0 + 1.5 * delta), min=0.0)
-    r2 = lambda: row_draw.key_poisson_cuda(one, lam[None])  # noqa: E731
-    counts = r2()[0]
-    twin = row_draw.key_poisson_plain(one, lam[None])[0]
-    err2 = (counts - twin).abs().max().item()
-    if err2 != 0:
-        failures.append(f"R2w on the halo rate: max |diff| {err2}")
-    t2 = {"kernel": median_ms(r2),
-          "twin": median_ms(lambda: row_draw.key_poisson_plain(
-              one, lam[None])),
-          "R2 on the same rate as rows (for scale)": median_ms(
-              lambda: row_draw.row_poisson_cuda(one, 301, 0, lam[None])),
-          "torch.poisson (another function)": median_ms(
-              lambda: torch.poisson(lam))}
-    knuth = float((lam < 10.0).float().mean())
-    log(f"R2w on a 256^3 halo rate (mean {lam.mean().item():.3f}, "
-        f"{100 * knuth:.3f}% below 10), f32, counts equal to the twin's: "
-        f"{err2 == 0} (ms per call): "
-        + ", ".join(f"{k_} {v:.4f}" for k_, v in t2.items()))
-    r2w_row = dict(name=R2W, ms=t2["kernel"], plain_ms=t2["twin"],
-                   max_abs_err=err2, library_ms=None,
-                   **roofline(nbytes(lam, counts), r2_ops(lam, counts)))
+    r2w_row, r2w_failures = poisson_phase(dev, "fields")
+    failures += r2w_failures
     log(f"phase K (kernels): {time.perf_counter() - t_phase:.1f} s")
     check(not failures, "phase K: " + "; ".join(failures))
     return [r1w_row, r2w_row]

@@ -1,4 +1,4 @@
-// R1/R2: jax.random's row-keyed draws, one launch per field for a batch of keys.
+// R1/R2: jax.random's row-keyed draws for a batch of keys, one launch a field (R2: four).
 //
 // Counterparts of fastbox_tpu/parallel/rng.py::row_normal (R1) and
 // fastbox_tpu/parallel/halos.py::row_poisson (R2).  They replace no Pallas
@@ -36,19 +36,42 @@
 // R2 (row_poisson): jax.random.poisson on the rate rounded to f32.  Below
 // 10 (or NaN) Knuth: each step splits the chain key, draws an f32 uniform
 // of the element's counter and adds its log, counting while the sum stays
-// above -lambda.  Every element of a row walks the same chain of subkeys:
-// two warps stage its first 32 steps (Knuth's and the rejection's) in
-// shared memory, and a thread walks on from there for its own element
-// (three threefry calls a Knuth step become one).  From 10 Hörmann's transformed
-// rejection, split(key, 3) per step.  jax runs that loop over a whole row
-// until each element has been accepted once (the rate of a Knuth element
-// replaced by 1e5) and keeps, per element, the k of its LAST accepted
-// step, so a row's elements are coupled through its step count.  A block
-// owns a row: it writes the Knuth counts, reduces the row's step count
-// (the latest first acceptance, a block max) and walks the rejection
-// elements that many steps.  Lambda 0 gives 0.  Counts are written in the
-// rate's dtype.  Bound: the data-dependent number of threefry calls and
-// transcendentals per element (counted by chip_smoke.py from the run).
+// above -lambda.  From 10 Hörmann's transformed rejection, split(key, 3)
+// per step.  Both loops split the same chain r_{t+1} = fold(r_t, 0) from
+// the row key, and every element of a row walks it.  jax runs the
+// rejection loop over a whole row until each element has been accepted
+// once (the rate of a Knuth element replaced by 1e5) and keeps, per
+// element, the k of its LAST accepted step, so a row's elements are coupled
+// through its step count S, the latest first acceptance.  Lambda 0 gives
+// 0.  Counts are written in the rate's dtype.
+//
+// R2 and R2w are one design over R rows of L elements (R2w: a field per
+// key, one row), in four launches:
+//  0. chains: a block per row derives its chain and the subkeys of the
+//     first kChain steps into device scratch (the chain on one thread, the
+//     subkeys in parallel), once per row;
+//  1. Knuth, over (row, tile) tiles sized so that the grid fills the card
+//     whatever R is: a block copies its row's chains to shared memory, each
+//     warp stages its segment's rates, queues the Knuth-loop elements and
+//     walks them a lane each, a finished lane taking the queue's next
+//     element; the counts leave in one coalesced pass.  The segment's
+//     rejection elements go to a compact list (one atomicAdd a block) and
+//     flag their row;
+//  2. first acceptances over the flagged rows' tiles, the lanes refilled
+//     as in pass 1: each element's first acceptance, the tile's latest
+//     atomicMax'ed into its row's S.  A row without a rejection rate does
+//     none of this rejection work;
+//  3. the walk: a thread per listed element, S[row] steps in full warps.
+//     No count depends on the list's order.  Where the list outgrew its
+//     room (nearly every element a rejection element), the walk visits
+//     every element instead, its warps as full.
+// Bound: the threefry calls that the data need (Knuth's count + 1 a
+// Knuth element, a first acceptance of two a step for every element of a
+// row that holds a rejection rate, S steps of two a rejection element)
+// and the transcendentals beside them, issued as 32-bit integer work
+// (counted by chip_smoke.py from the run); the lane refill keeps a warp's
+// steps near its elements' mean, where a lane per element ran its
+// warp's largest count (times: PERF.md, section 6).
 //
 // R1w/R2w: the whole-array draws of fastbox_tpu's single-device paths,
 // jax.random.normal / uniform / poisson(key, shape) with each key taken as
@@ -62,12 +85,8 @@
 // fields.gaussian._complex_normal).  'uniform' takes jax.random.uniform's
 // minval/maxval (the fused multiply-add above).  R2w is jax.random.poisson over a
 // whole field: the rejection loop runs until every element of the field
-// has been accepted once, so its step count is a maximum over the grid.
-// A first launch writes the Knuth counts and each element's first
-// acceptance, reduced per block and atomicMax'ed into the key's count; a
-// second launch walks the rejection elements that many steps.  Both take
-// a grid of a few blocks per SM (grid-stride), so that each block stages
-// its chains once.
+// has been accepted once, so its S is a maximum over the field: R2's
+// launches with a row per key, the key as given.
 #include "common.cuh"
 
 namespace {
@@ -75,7 +94,7 @@ namespace {
 constexpr int kErfinv = 0, kBoxMuller = 1, kUniform = 2;
 constexpr int kThreads = 256;        // R1
 constexpr int kUnitsPerThread = 4;   // R1: units a thread takes in a row
-constexpr int kPoissonThreads = 512;
+constexpr int kPoissonThreads = 256;   // R2/R2w: 8 warps
 // jax's Poisson loops stop at the integer dtype's max; Knuth below rate 10
 // and the rejection (acceptance >= ~0.8 a step) end long before this cap.
 constexpr int kMaxIters = 1 << 16;
@@ -240,93 +259,65 @@ cudaError_t launch_normal_method(const int64_t* keys, int64_t B, int64_t tag, in
   }
 }
 
-// The first kChain steps of a row's two chains of subkeys, which every
-// element of the row walks: Knuth's split(r) and the rejection's
-// split(r, 3); a longer walk goes on from the chain key after them.
+// ---------------------------------------------------------------------------
+// R2/R2w: one Poisson design for R rows of L elements, each row under its
+// own key (R2: the B * nrows folded row keys; R2w: the B keys as given).
+// ---------------------------------------------------------------------------
+
+// A row's chain of subkeys, which every element of the row walks: step
+// t + 1 of Knuth's loop (split(r_t)) draws under sub[0][t], step t + 1 of
+// the rejection (split(r_t, 3)) under sub[0][t] and sub[1][t], with r_0
+// the row key and r_{t+1} = fold(r_t, 0); `next` is r_kChain, from which a
+// longer walk derives its keys.  Derived once per row (poisson_chain_kernel)
+// into device scratch; a block copies its row's to shared memory.
 constexpr int kChain = 32;
 struct Chains {
-  fbx::U2 knuth[kChain];    // the uniform's key of Knuth step t + 1
-  fbx::U2 rej[kChain][2];   // the two uniforms' keys of rejection step t + 1
-  fbx::U2 knuth_next, rej_next;
+  fbx::U2 sub[2][kChain];
+  fbx::U2 next;
+};
+constexpr int kChainWords = static_cast<int>(sizeof(Chains) / 4);
+constexpr int kWarps = kPoissonThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// Tiles of a row: kMaxTile elements, halved (to kMinTile) until the grid
+// holds kTilesPerSm tiles a multiprocessor.
+constexpr int64_t kMaxTile = 4096, kMinTile = 256, kTilesPerSm = 8;
+
+// The scratch (int32 words), in order: the chains (R * kChainWords), the
+// list's length (two words), each row's step count and flag (R each), then
+// the list of the rejection elements' flat indices, as long as the rest.
+// The rest is sized to the rate field (the scratch is at most its size, or
+// the fixed part where that is larger); where more rejection elements are
+// listed than it holds, the walk visits every element instead.
+int64_t poisson_fixed_words(int64_t R) { return R * (kChainWords + 2) + 2; }
+
+int64_t poisson_scratch_words(int64_t R, int64_t L, int elem_bytes) {
+  const int64_t fixed = poisson_fixed_words(R), n = R * L;
+  if (n > static_cast<int64_t>(UINT32_MAX)) return fixed;   // 32-bit list entries
+  const int64_t total = n * elem_bytes / 4;
+  return fixed > total ? fixed : (total < n + fixed ? total : n + fixed);
+}
+
+struct PoissonArgs {
+  int64_t R, L, tile, tiles_per_row;
+  Chains* chains;
+  unsigned long long* listed;   // elements appended to the list
+  int* steps;                   // a row's step count S (0: no rejection rate)
+  int* flags;                   // a row holds a rejection rate
+  uint32_t* list;
+  unsigned long long capacity;
 };
 
-__device__ void fill_chain(Chains& c, fbx::U2 r, bool rejection) {
-  for (int t = 0; t < kChain; ++t) {
-    if (rejection) {
-      c.rej[t][0] = fbx::threefry_fold(r, 1u);
-      c.rej[t][1] = fbx::threefry_fold(r, 2u);
-    } else {
-      c.knuth[t] = fbx::threefry_fold(r, 1u);
-    }
-    r = fbx::threefry_fold(r, 0u);
+// fold_in(fold_in(key_b, tag), row0 + r) for R2 (fold), key_b for R2w
+struct RowKeys {
+  const int64_t* keys;
+  uint32_t tag;
+  int64_t row0, nrows;
+  bool fold;
+  __device__ fbx::U2 operator()(int64_t row) const {
+    if (fold) return row_key(keys, tag, row0, nrows, row);
+    return fbx::U2{static_cast<uint32_t>(keys[2 * row]), static_cast<uint32_t>(keys[2 * row + 1])};
   }
-  (rejection ? c.rej_next : c.knuth_next) = r;
-}
-
-// jax's Knuth loop for one element: uniforms drawn while the log sum stays
-// above -lam, less one.
-__device__ int64_t knuth(const Chains& c, uint32_t j, float lam) {
-  const float neg = -lam;
-  float lp = 0.0f;
-  int64_t k = 0;
-  fbx::U2 r = c.knuth_next;
-  while (lp > neg && k < kMaxIters) {
-    ++k;
-    fbx::U2 sub;
-    if (k <= kChain) {
-      sub = c.knuth[k - 1];
-    } else {
-      sub = fbx::threefry_fold(r, 1u);
-      r = fbx::threefry_fold(r, 0u);
-    }
-    lp = fbx::add_rn(lp, logf(unit_float(sub, j, 0.0f)));
-  }
-  return k - 1;
-}
-
-// jax's transformed rejection for one element at rate lam (f32, every
-// operation rounded as jax writes it).  steps < 0: returns the step of the
-// first acceptance.  Else walks `steps` steps and returns the k of the
-// last acceptance (-1 if none).
-__device__ float rejection(const Chains& c, uint32_t j, float lam, int steps) {
-  using fbx::add_rn;
-  using fbx::div_rn;
-  using fbx::mul_rn;
-  using fbx::sub_rn;
-  const float log_lam = logf(lam);
-  const float b = add_rn(0.931f, mul_rn(2.53f, sqrtf(lam)));
-  const float a = add_rn(-0.059f, mul_rn(0.02483f, b));
-  const float inv_alpha = add_rn(1.1239f, div_rn(1.1328f, sub_rn(b, 3.4f)));
-  const float v_r = sub_rn(0.9277f, div_rn(3.6224f, sub_rn(b, 2.0f)));
-  const int n = steps < 0 ? kMaxIters : steps;
-  float last = -1.0f;
-  fbx::U2 r = c.rej_next;
-  for (int it = 1; it <= n; ++it) {
-    fbx::U2 s0, s1;
-    if (it <= kChain) {
-      s0 = c.rej[it - 1][0];
-      s1 = c.rej[it - 1][1];
-    } else {
-      s0 = fbx::threefry_fold(r, 1u);
-      s1 = fbx::threefry_fold(r, 2u);
-      r = fbx::threefry_fold(r, 0u);
-    }
-    const float u = unit_float(s0, j, 0.0f) - 0.5f;   // exact
-    const float v = unit_float(s1, j, 0.0f);
-    const float us = sub_rn(0.5f, fabsf(u));
-    const float k =
-        floorf(add_rn(add_rn(mul_rn(add_rn(div_rn(mul_rn(2.0f, a), us), b), u), lam), 0.43f));
-    const float s = logf(div_rn(mul_rn(v, inv_alpha), add_rn(div_rn(a, mul_rn(us, us)), b)));
-    const float t = sub_rn(add_rn(-lam, mul_rn(k, log_lam)), lgammaf(add_rn(k, 1.0f)));
-    const bool accept1 = us >= 0.07f && v <= v_r;
-    const bool reject = k < 0.0f || (us < 0.013f && v > us);
-    if (accept1 || (!reject && s <= t)) {
-      if (steps < 0) return static_cast<float>(it);
-      last = k;
-    }
-  }
-  return steps < 0 ? static_cast<float>(n) : last;
-}
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
@@ -336,54 +327,320 @@ struct IntMax {
   __device__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
 
-// A block per row (grid-stride): the Knuth counts, then, where the row has
-// rejection rates, its step count and the rejection counts.
+// Hörmann's per-rate constants, rounded as jax writes them.
+struct Rejection {
+  float lam, log_lam, b, a, inv_alpha, v_r;
+  __device__ explicit Rejection(float x) : lam(x) {
+    using fbx::add_rn;
+    using fbx::div_rn;
+    using fbx::mul_rn;
+    using fbx::sub_rn;
+    log_lam = logf(x);
+    b = add_rn(0.931f, mul_rn(2.53f, sqrtf(x)));
+    a = add_rn(-0.059f, mul_rn(0.02483f, b));
+    inv_alpha = add_rn(1.1239f, div_rn(1.1328f, sub_rn(b, 3.4f)));
+    v_r = sub_rn(0.9277f, div_rn(3.6224f, sub_rn(b, 2.0f)));
+  }
+  // One step under the keys (s0, s1) at counter j: whether it accepts; k
+  // its candidate.
+  __device__ bool step(fbx::U2 s0, fbx::U2 s1, uint32_t j, float& k) const {
+    using fbx::add_rn;
+    using fbx::div_rn;
+    using fbx::mul_rn;
+    using fbx::sub_rn;
+    const float u = unit_float(s0, j, 0.0f) - 0.5f;   // exact
+    const float v = unit_float(s1, j, 0.0f);
+    const float us = sub_rn(0.5f, fabsf(u));
+    k = floorf(add_rn(add_rn(mul_rn(add_rn(div_rn(mul_rn(2.0f, a), us), b), u), lam), 0.43f));
+    const float s = logf(div_rn(mul_rn(v, inv_alpha), add_rn(div_rn(a, mul_rn(us, us)), b)));
+    const float t = sub_rn(add_rn(-lam, mul_rn(k, log_lam)), lgammaf(add_rn(k, 1.0f)));
+    const bool accept1 = us >= 0.07f && v <= v_r;
+    const bool reject = k < 0.0f || (us < 0.013f && v > us);
+    return accept1 || (!reject && s <= t);
+  }
+};
+
+// The keys of rejection step `it` (from 1); r carries the chain beyond
+// kChain (start it at c.next).
+__device__ __forceinline__ void rejection_keys(const Chains& c, int it, fbx::U2& r, fbx::U2& s0,
+                                               fbx::U2& s1) {
+  if (it <= kChain) {
+    s0 = c.sub[0][it - 1];
+    s1 = c.sub[1][it - 1];
+  } else {
+    s0 = fbx::threefry_fold(r, 1u);
+    s1 = fbx::threefry_fold(r, 2u);
+    r = fbx::threefry_fold(r, 0u);
+  }
+}
+
+// Pass 0, a block of 2 * kChain threads per row: the row key and its
+// chain r_0..r_kChain on one thread, the 2 * kChain subkeys one a thread;
+// the row's step count, flag and (row 0) the list's length zeroed.
+__global__ void __launch_bounds__(2 * kChain)
+    poisson_chain_kernel(RowKeys keys, PoissonArgs p) {
+  __shared__ fbx::U2 r[kChain + 1];
+  const int64_t row = blockIdx.x;
+  if (threadIdx.x == 0) {
+    fbx::U2 k = keys(row);
+    r[0] = k;
+    for (int t = 1; t <= kChain; ++t) r[t] = k = fbx::threefry_fold(k, 0u);
+    p.chains[row].next = k;
+    p.steps[row] = 0;
+    p.flags[row] = 0;
+    if (row == 0) *p.listed = 0;
+  }
+  __syncthreads();
+  const int d = threadIdx.x / kChain, t = threadIdx.x % kChain;
+  p.chains[row].sub[d][t] = fbx::threefry_fold(r[t], d + 1u);
+}
+
+// A block's tile: its row, the tile's first element in the row, and warp
+// w's segment [a, b) of tile offsets (empty past the row's end).
+struct Segment {
+  int64_t row;
+  uint32_t first, a, b;
+  __device__ explicit Segment(const PoissonArgs& p) {
+    row = blockIdx.x / p.tiles_per_row;
+    const int64_t t0 = (blockIdx.x - row * p.tiles_per_row) * p.tile;
+    const int64_t len = p.L - t0 < p.tile ? p.L - t0 : p.tile;
+    const int64_t seg = p.tile / kWarps, a0 = (threadIdx.x >> 5) * seg;
+    first = static_cast<uint32_t>(t0);
+    a = static_cast<uint32_t>(a0 < len ? a0 : len);
+    b = static_cast<uint32_t>(a0 + seg < len ? a0 + seg : len);
+  }
+};
+
+// The block's chains from device scratch into shared memory.
+__device__ void stage_chains(Chains& c, const Chains* g) {
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(g);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(&c);
+  for (int i = threadIdx.x; i < kChainWords; i += blockDim.x) dst[i] = src[i];
+}
+
+// Pass 1 over (row, tile) tiles: the Knuth counts, the rejection elements
+// appended to the list (one atomicAdd a block) and their rows flagged.
+// Each warp stages its segment's rates (rounded to f32) in shared memory
+// and queues its Knuth-loop elements (rates in (0, 10)) at the segment's
+// front and its rejection elements at its back; 0 and NaN are answered at
+// once.  A lane per queued element walks Knuth's loop, and a lane whose
+// element is done takes the queue's next one, so that a warp runs about
+// its queue's mean Knuth count and not its lanes' largest.  The counts
+// collect in shared memory and leave in one coalesced pass.
 template <typename T>
 __global__ void __launch_bounds__(kPoissonThreads)
-    row_poisson_kernel(const int64_t* __restrict__ keys, uint32_t tag, int64_t row0, int64_t nrows,
-                       uint32_t L, int64_t total_rows, const T* __restrict__ lam,
-                       T* __restrict__ out) {
-  __shared__ Chains chains;
+    poisson_knuth_kernel(PoissonArgs p, const T* __restrict__ lam, T* __restrict__ out) {
+  __shared__ Chains c;
+  __shared__ float xs[kMaxTile];       // rates, then counts (NaN: a rejection element)
+  __shared__ uint16_t q[kMaxTile];     // the queues, tile offsets
+  __shared__ unsigned long long base[kWarps];
+  const Segment sg(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  stage_chains(c, p.chains + sg.row);
+  const T* lr = lam + sg.row * p.L + sg.first;
+  uint32_t nk = 0, nr = 0;   // warp-uniform: queued Knuth and rejection elements
+  for (uint32_t i0 = sg.a; i0 < sg.b; i0 += 32) {
+    const uint32_t i = i0 + lane;
+    const bool in = i < sg.b;
+    const float x = in ? to_f32(lr[i]) : 0.0f;
+    const bool loop = in && x > 0.0f && x < 10.0f;
+    const bool rej = in && !knuth_rate(x);
+    // 0 (or -0) gives 0; NaN and negative rates never enter the loop
+    if (in) xs[i] = loop ? x : rej ? __int_as_float(0x7fffffff) : x == 0.0f ? 0.0f : -1.0f;
+    const unsigned ml = __ballot_sync(kFull, loop), mr = __ballot_sync(kFull, rej);
+    if (loop) q[sg.a + nk + __popc(ml & lt)] = static_cast<uint16_t>(i);
+    if (rej) q[sg.b - 1 - nr - __popc(mr & lt)] = static_cast<uint16_t>(i);
+    nk += __popc(ml);
+    nr += __popc(mr);
+  }
+  if (lane == 0) base[warp] = nr;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kWarps; ++w) total += base[w];
+    unsigned long long at = total ? atomicAdd(p.listed, total) : 0;
+    if (total) p.flags[sg.row] = 1;
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned long long m = base[w];
+      base[w] = at;
+      at += m;
+    }
+  }
+  __syncthreads();
+  const int64_t flat = sg.row * p.L + sg.first;   // the tile's first flat index
+  for (uint32_t n = lane; n < nr; n += 32) {
+    const unsigned long long at = base[warp] + n;
+    if (at < p.capacity) p.list[at] = static_cast<uint32_t>(flat + q[sg.b - 1 - n]);
+  }
+  uint32_t next = 0, i = 0;   // next: warp-uniform
+  bool live = false;
+  float neg = 0.0f, lp = 0.0f;
+  int k = 0;
+  const fbx::U2 r0 = c.next;
+  fbx::U2 r = r0;
+  for (;;) {
+    const unsigned need = __ballot_sync(kFull, !live);
+    if (need && next < nk) {
+      const uint32_t mine = next + __popc(need & lt);
+      next += __popc(need);
+      if (!live && mine < nk) {
+        i = q[sg.a + mine];
+        live = true;
+        neg = -xs[i];
+        lp = 0.0f;
+        k = 0;
+        r = r0;
+      }
+    }
+    if (!__any_sync(kFull, live)) break;
+    if (live) {   // one step of jax's Knuth loop
+      ++k;
+      fbx::U2 sub;
+      if (k <= kChain) {
+        sub = c.sub[0][k - 1];
+      } else {
+        sub = fbx::threefry_fold(r, 1u);
+        r = fbx::threefry_fold(r, 0u);
+      }
+      lp = fbx::add_rn(lp, logf(unit_float(sub, sg.first + i, 0.0f)));
+      if (!(lp > neg && k < kMaxIters)) {
+        xs[i] = static_cast<float>(k - 1);   // exact
+        live = false;
+      }
+    }
+  }
+  __syncwarp();
+  T* o = out + flat;
+  for (uint32_t j = sg.a + lane; j < sg.b; j += 32) {
+    const float v = xs[j];
+    if (v == v) o[j] = static_cast<T>(v);   // the walk writes the rejection elements
+  }
+}
+
+// Pass 2 over the flagged rows' tiles: each element's first acceptance
+// of the rejection loop (at its rate, a Knuth element's at 1e5, as jax
+// runs it), the rates staged and the lanes refilled as in pass 1; the
+// tile's latest atomicMax'ed into its row's step count.
+template <typename T>
+__global__ void __launch_bounds__(kPoissonThreads)
+    poisson_first_kernel(PoissonArgs p, const T* __restrict__ lam) {
+  __shared__ Chains c;
+  __shared__ float xs[kMaxTile];
   __shared__ int scratch[32];
-  const IntMax imax;
-  for (int64_t row = blockIdx.x; row < total_rows; row += gridDim.x) {
-    __syncthreads();   // the previous row's chains are read
-    if (threadIdx.x == 0 || threadIdx.x == 32)   // two warps, side by side
-      fill_chain(chains, row_key(keys, tag, row0, nrows, row), threadIdx.x == 32);
-    __syncthreads();
-    const T* lr = lam + row * static_cast<int64_t>(L);
-    T* o = out + row * static_cast<int64_t>(L);
-    int rej = 0;
-    for (uint32_t j = threadIdx.x; j < L; j += blockDim.x) {
-      const float x = to_f32(lr[j]);
-      if (knuth_rate(x))
-        o[j] = x == 0.0f ? T(0) : static_cast<T>(knuth(chains, j, x));
-      else
-        rej = 1;
+  const Segment sg(p);
+  if (!p.flags[sg.row]) return;   // the whole block
+  stage_chains(c, p.chains + sg.row);
+  const unsigned lt = (1u << (threadIdx.x & 31)) - 1u;
+  const T* lr = lam + sg.row * p.L + sg.first;
+  for (uint32_t j = sg.a + (threadIdx.x & 31); j < sg.b; j += 32) xs[j] = to_f32(lr[j]);
+  __syncthreads();
+  const Rejection high(1e5f);   // every Knuth element's
+  Rejection q = high;
+  uint32_t next = sg.a, i = 0;
+  bool live = false;
+  int it = 0, first = 0;
+  const fbx::U2 r0 = c.next;
+  fbx::U2 r = r0;
+  for (;;) {
+    const unsigned need = __ballot_sync(kFull, !live);
+    if (need && next < sg.b) {
+      const uint32_t mine = next + __popc(need & lt);
+      next += __popc(need);
+      if (!live && mine < sg.b) {
+        const float x = xs[mine];
+        if (knuth_rate(x))
+          q = high;
+        else
+          q = Rejection(x);
+        live = true;
+        i = mine;
+        it = 0;
+        r = r0;
+      }
     }
-    if (!fbx::block_reduce(rej, scratch, imax)) continue;
-    int steps = 0;
-    for (uint32_t j = threadIdx.x; j < L; j += blockDim.x) {
-      const float x = to_f32(lr[j]);
-      const int first = static_cast<int>(rejection(chains, j, knuth_rate(x) ? 1e5f : x, -1));
-      steps = first > steps ? first : steps;
+    if (!__any_sync(kFull, live)) break;
+    if (live) {
+      ++it;
+      fbx::U2 s0, s1;
+      rejection_keys(c, it, r, s0, s1);
+      float k;
+      if (q.step(s0, s1, sg.first + i, k) || it >= kMaxIters) {
+        first = it > first ? it : first;
+        live = false;
+      }
     }
-    steps = fbx::block_reduce(steps, scratch, imax);
-    for (uint32_t j = threadIdx.x; j < L; j += blockDim.x) {
-      const float x = to_f32(lr[j]);
-      if (!knuth_rate(x)) o[j] = static_cast<T>(rejection(chains, j, x, steps));
+  }
+  first = fbx::block_reduce(first, scratch, IntMax());
+  if (threadIdx.x == 0) atomicMax(p.steps + sg.row, first);
+}
+
+// Pass 3, the walk: a thread per listed element (every element where the
+// list overflowed), S[row] steps, the k of the last acceptance (-1 if
+// none).  The list's order is the atomics', and no count depends on it.
+template <typename T>
+__global__ void __launch_bounds__(kPoissonThreads)
+    poisson_walk_kernel(PoissonArgs p, const T* __restrict__ lam, T* __restrict__ out) {
+  using u64 = unsigned long long;
+  const u64 listed = *p.listed;
+  const bool all = listed > p.capacity;
+  const u64 n = all ? static_cast<u64>(p.R * p.L) : listed;
+  for (u64 g = blockIdx.x * static_cast<u64>(blockDim.x) + threadIdx.x; g < n;
+       g += static_cast<u64>(gridDim.x) * blockDim.x) {
+    const int64_t e = all ? static_cast<int64_t>(g) : static_cast<int64_t>(p.list[g]);
+    const float x = to_f32(lam[e]);
+    if (all && knuth_rate(x)) continue;
+    const int64_t row = e / p.L;
+    const uint32_t j = static_cast<uint32_t>(e - row * p.L);
+    const Chains& c = p.chains[row];
+    const Rejection q(x);
+    const int steps = p.steps[row];
+    float last = -1.0f;
+    fbx::U2 r = c.next;
+    for (int it = 1; it <= steps; ++it) {
+      fbx::U2 s0, s1;
+      rejection_keys(c, it, r, s0, s1);
+      float k;
+      if (q.step(s0, s1, j, k)) last = k;
     }
+    out[e] = static_cast<T>(last);
   }
 }
 
 template <typename T>
-cudaError_t launch_poisson(const int64_t* keys, int64_t B, int64_t tag, int64_t row0, int64_t nrows,
-                           int64_t L, const T* lam, T* out, void* stream) {
-  const int64_t total = B * nrows;
-  if (total == 0 || L == 0) return cudaSuccess;
-  row_poisson_kernel<T><<<static_cast<unsigned>(total < 65535 ? total : 65535), kPoissonThreads,
-                          0, static_cast<cudaStream_t>(stream)>>>(
-      keys, static_cast<uint32_t>(tag), row0, nrows, static_cast<uint32_t>(L), total, lam, out);
+cudaError_t launch_poisson(const RowKeys& keys, int64_t R, int64_t L, const T* lam, T* out,
+                           int32_t* scratch, int64_t words, void* stream) {
+  if (R == 0 || L == 0) return cudaSuccess;
+  const int64_t fixed = poisson_fixed_words(R);
+  if (words < fixed) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  PoissonArgs p;
+  p.R = R;
+  p.L = L;
+  p.tile = kMaxTile;
+  while (p.tile > kMinTile && R * ((L + p.tile - 1) / p.tile) < kTilesPerSm * sms) p.tile /= 2;
+  p.tiles_per_row = (L + p.tile - 1) / p.tile;
+  p.chains = reinterpret_cast<Chains*>(scratch);
+  p.listed = reinterpret_cast<unsigned long long*>(scratch + R * kChainWords);
+  p.steps = scratch + R * kChainWords + 2;
+  p.flags = p.steps + R;
+  p.list = reinterpret_cast<uint32_t*>(p.flags + R);
+  p.capacity = static_cast<unsigned long long>(words - fixed);
+  const int64_t tiles = R * p.tiles_per_row;
+  if (R > INT32_MAX || tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  poisson_chain_kernel<<<static_cast<unsigned>(R), 2 * kChain, 0, s>>>(keys, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  poisson_knuth_kernel<T><<<static_cast<unsigned>(tiles), kPoissonThreads, 0, s>>>(p, lam, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  poisson_first_kernel<T><<<static_cast<unsigned>(tiles), kPoissonThreads, 0, s>>>(p, lam);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t want = (R * L + kPoissonThreads - 1) / kPoissonThreads;   // walk: 4 a SM
+  const int64_t walkers = want < 4 * static_cast<int64_t>(sms) ? want : 4 * sms;
+  poisson_walk_kernel<T><<<static_cast<unsigned>(walkers), kPoissonThreads, 0, s>>>(p, lam, out);
   return cudaGetLastError();
 }
 
@@ -474,82 +731,6 @@ cudaError_t launch_key_draw_method(const int64_t* keys, int64_t B, int64_t n, in
   }
 }
 
-// R2w, first launch: the Knuth counts of the key's field (blockIdx.y), and
-// the latest first acceptance of the rejection loop over the field (every
-// element at its rate, a Knuth element's at 1e5, as jax runs it), a block
-// max atomicMax'ed into steps[b].
-template <typename T>
-__global__ void __launch_bounds__(kPoissonThreads)
-    key_poisson_first_kernel(const int64_t* __restrict__ keys, int64_t n,
-                             const T* __restrict__ lam, T* __restrict__ out, int* steps) {
-  __shared__ Chains chains;
-  __shared__ int scratch[32];
-  const int64_t b = blockIdx.y;
-  if (threadIdx.x == 0 || threadIdx.x == 32)
-    fill_chain(chains, fbx::U2{static_cast<uint32_t>(keys[2 * b]),
-                               static_cast<uint32_t>(keys[2 * b + 1])},
-               threadIdx.x == 32);
-  __syncthreads();
-  const T* lr = lam + b * n;
-  T* o = out + b * n;
-  int first = 0;
-  for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; j < n;
-       j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float x = to_f32(lr[j]);
-    const uint32_t c = static_cast<uint32_t>(j);
-    if (knuth_rate(x)) o[j] = x == 0.0f ? T(0) : static_cast<T>(knuth(chains, c, x));
-    const int f = static_cast<int>(rejection(chains, c, knuth_rate(x) ? 1e5f : x, -1));
-    first = f > first ? f : first;
-  }
-  first = fbx::block_reduce(first, scratch, IntMax());
-  if (threadIdx.x == 0) atomicMax(steps + b, first);
-}
-
-// R2w, second launch: the rejection elements walk steps[b] steps and keep
-// the k of their last acceptance.
-template <typename T>
-__global__ void __launch_bounds__(kPoissonThreads)
-    key_poisson_walk_kernel(const int64_t* __restrict__ keys, int64_t n,
-                            const T* __restrict__ lam, T* __restrict__ out,
-                            const int* __restrict__ steps) {
-  __shared__ Chains chains;
-  const int64_t b = blockIdx.y;
-  if (threadIdx.x == 0)
-    fill_chain(chains, fbx::U2{static_cast<uint32_t>(keys[2 * b]),
-                               static_cast<uint32_t>(keys[2 * b + 1])}, true);
-  __syncthreads();
-  const int walk = steps[b];
-  const T* lr = lam + b * n;
-  T* o = out + b * n;
-  for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; j < n;
-       j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float x = to_f32(lr[j]);
-    if (!knuth_rate(x)) o[j] = static_cast<T>(rejection(chains, static_cast<uint32_t>(j), x, walk));
-  }
-}
-
-template <typename T>
-cudaError_t launch_key_poisson(const int64_t* keys, int64_t B, int64_t n, const T* lam, T* out,
-                               int* steps, void* stream) {
-  if (B == 0 || n == 0) return cudaSuccess;
-  if (B > 65535) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  // a few blocks a multiprocessor in all, each staging its chains once
-  int64_t bx = (n + kPoissonThreads - 1) / kPoissonThreads;
-  const int64_t cap = (4 * static_cast<int64_t>(sms) + B - 1) / B;
-  if (bx > cap) bx = cap;
-  const dim3 grid(static_cast<unsigned>(bx < 1 ? 1 : bx), static_cast<unsigned>(B));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  key_poisson_first_kernel<T><<<grid, kPoissonThreads, 0, s>>>(keys, n, lam, out, steps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  key_poisson_walk_kernel<T><<<grid, kPoissonThreads, 0, s>>>(keys, n, lam, out, steps);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // R1w.  keys: (B, 2) int64 words (device), taken as given; out: (B, n)
@@ -568,15 +749,21 @@ extern "C" int fbx_key_normal_f64(const int64_t* keys, int64_t B, int64_t n, int
 }
 
 // R2w.  keys as above; lam, out: (B, n) contiguous, counts in lam's dtype;
-// steps: (B,) int32, zero (the step counts of the rejection loops).
+// scratch: fbx_poisson_scratch(B, n, dtype size) int32 words.
 extern "C" int fbx_key_poisson_f32(const int64_t* keys, int64_t B, int64_t n, const float* lam,
-                                   float* out, int* steps, void* stream) {
-  return launch_key_poisson(keys, B, n, lam, out, steps, stream);
+                                   float* out, int32_t* scratch, int64_t words, void* stream) {
+  return launch_poisson(RowKeys{keys, 0u, 0, 1, false}, B, n, lam, out, scratch, words, stream);
 }
 
 extern "C" int fbx_key_poisson_f64(const int64_t* keys, int64_t B, int64_t n, const double* lam,
-                                   double* out, int* steps, void* stream) {
-  return launch_key_poisson(keys, B, n, lam, out, steps, stream);
+                                   double* out, int32_t* scratch, int64_t words, void* stream) {
+  return launch_poisson(RowKeys{keys, 0u, 0, 1, false}, B, n, lam, out, scratch, words, stream);
+}
+
+// The int32 words of R2/R2w's scratch for R rows of L rates of elem_bytes
+// each (R2: R = B * nrows; R2w: R = B, L = n).
+extern "C" int64_t fbx_poisson_scratch(int64_t R, int64_t L, int elem_bytes) {
+  return poisson_scratch_words(R, L, elem_bytes);
 }
 
 // keys: (B, 2) int64 words (device); out: (B * nrows, L) contiguous, L the
@@ -595,15 +782,18 @@ extern "C" int fbx_row_normal_f64(const int64_t* keys, int64_t B, int64_t tag, i
   return launch_normal_method(keys, B, tag, row0, nrows, L, W, method, vec, out, stream);
 }
 
-// keys as above; lam, out: (B * nrows, L) contiguous, counts in lam's dtype.
+// keys as above; lam, out: (B * nrows, L) contiguous, counts in lam's dtype;
+// scratch: fbx_poisson_scratch(B * nrows, L, dtype size) int32 words.
 extern "C" int fbx_row_poisson_f32(const int64_t* keys, int64_t B, int64_t tag, int64_t row0,
                                    int64_t nrows, int64_t L, const float* lam, float* out,
-                                   void* stream) {
-  return launch_poisson(keys, B, tag, row0, nrows, L, lam, out, stream);
+                                   int32_t* scratch, int64_t words, void* stream) {
+  return launch_poisson(RowKeys{keys, static_cast<uint32_t>(tag), row0, nrows, true}, B * nrows, L,
+                        lam, out, scratch, words, stream);
 }
 
 extern "C" int fbx_row_poisson_f64(const int64_t* keys, int64_t B, int64_t tag, int64_t row0,
                                    int64_t nrows, int64_t L, const double* lam, double* out,
-                                   void* stream) {
-  return launch_poisson(keys, B, tag, row0, nrows, L, lam, out, stream);
+                                   int32_t* scratch, int64_t words, void* stream) {
+  return launch_poisson(RowKeys{keys, static_cast<uint32_t>(tag), row0, nrows, true}, B * nrows, L,
+                        lam, out, scratch, words, stream);
 }

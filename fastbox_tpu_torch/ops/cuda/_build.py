@@ -75,9 +75,10 @@ _SIGNATURES = {
                          _INT, _INT, _INT, _P),
     "fbx_row_normal": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _INT, _INT,
                        _P, _P),
-    "fbx_row_poisson": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P),
+    "fbx_row_poisson": (_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _I64,
+                        _P),
     "fbx_key_normal": (_P, _I64, _I64, _INT, _INT, _F64, _F64, _INT, _P, _P),
-    "fbx_key_poisson": (_P, _I64, _I64, _P, _P, _P, _P),
+    "fbx_key_poisson": (_P, _I64, _I64, _P, _P, _P, _I64, _P),
 }
 
 _launches: collections.Counter = collections.Counter()
@@ -175,6 +176,8 @@ def load_library() -> ctypes.CDLL:
     lib.fbx_cic_paint_lattice_slab_scratch.argtypes = [_I64, _I64, _INT,
                                                        _INT]
     lib.fbx_cic_paint_lattice_slab_scratch.restype = _I64
+    lib.fbx_poisson_scratch.argtypes = [_I64, _I64, _INT]
+    lib.fbx_poisson_scratch.restype = _I64
     return lib
 
 

@@ -4,7 +4,7 @@ Counterparts of ``fastbox_tpu/parallel/rng.py::row_normal`` and
 ``fastbox_tpu/parallel/halos.py::row_poisson``, which draw every field of
 the sharded step row by row with ``jax.random`` under ``jax.vmap``.  They
 replace no Pallas kernel: on the TPU the draws are one XLA program, and
-here they are one launch per field for a batch of keys.
+here they draw a field for a batch of keys in one launch (R2: four).
 
 Both reproduce jax's threefry streams (jax 0.9, ``jax_threefry_partitionable``
 on): row ``r`` of key ``k`` draws with ``fold_in(fold_in(k, tag), row0 + r)``,
@@ -428,18 +428,33 @@ def row_poisson_plain(keys, tag: int, row0: int, lam) -> torch.Tensor:
     return out
 
 
+def _poisson_scratch(R: int, L: int, lam) -> torch.Tensor:
+    """R2/R2w's scratch for R rows of L rates: each row's chain of keys,
+    step count and flag, and the list of the rejection elements (sized by
+    ``fbx_poisson_scratch``: at most the rate field's bytes for rows of
+    134 rates or more)."""
+    words = _build.load_library().fbx_poisson_scratch(R, L,
+                                                      lam.element_size())
+    return torch.empty(words, dtype=torch.int32, device=lam.device)
+
+
 def row_poisson_cuda(keys, tag: int, row0: int, lam) -> torch.Tensor:
-    """Launch R2: counts of ``lam`` (B, nrows, ...) in its dtype."""
+    """Launch R2: counts of ``lam`` (B, nrows, ...) in its dtype, in four
+    launches (the rows' chains of keys; Knuth and the list of rejection
+    elements; the first acceptances; the walk)."""
     B, nrows, L = _lam_shape(keys, lam)
     _build.require_cuda(NAME_POISSON, keys, lam)
     out = torch.empty_like(lam)
     if out.numel() == 0:
         return out
+    scratch = _poisson_scratch(B * nrows, L, lam)
     fn = _build.kernel_fn("fbx_row_poisson", lam.dtype)
     with torch.cuda.device(lam.device):
         err = fn(keys.data_ptr(), B, int(tag) & M32, int(row0), nrows, L,
-                 lam.data_ptr(), out.data_ptr(), _build.stream_ptr(lam.device))
+                 lam.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 scratch.numel(), _build.stream_ptr(lam.device))
     _build.check(err, NAME_POISSON)
+    # one count a call, for R2's launches
     _build.count_launch(NAME_POISSON)
     return out
 
@@ -580,19 +595,20 @@ def key_poisson_plain(keys, lam) -> torch.Tensor:
 
 def key_poisson_cuda(keys, lam) -> torch.Tensor:
     """Launch R2w: counts of ``lam`` (B, ...) in its dtype, one field per
-    key, in two launches (first acceptances and Knuth, then the walk)."""
+    key, in R2's four launches (each field one row)."""
     B, n = _key_lam_shape(keys, lam)
     _build.require_cuda(NAME_KEY_POISSON, keys, lam)
     out = torch.empty_like(lam)
     if out.numel() == 0:
         return out
-    steps = torch.zeros(B, dtype=torch.int32, device=lam.device)
+    scratch = _poisson_scratch(B, n, lam)
     fn = _build.kernel_fn("fbx_key_poisson", lam.dtype)
     with torch.cuda.device(lam.device):
         err = fn(keys.data_ptr(), B, n, lam.data_ptr(), out.data_ptr(),
-                 steps.data_ptr(), _build.stream_ptr(lam.device))
+                 scratch.data_ptr(), scratch.numel(),
+                 _build.stream_ptr(lam.device))
     _build.check(err, NAME_KEY_POISSON)
-    # one count a call, for R2w's pair of launches
+    # one count a call, for R2w's launches
     _build.count_launch(NAME_KEY_POISSON)
     return out
 

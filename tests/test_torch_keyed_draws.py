@@ -38,6 +38,8 @@ import torch
 from fastbox_tpu.fields.gaussian import _complex_normal as jax_complex_normal
 from fastbox_tpu_torch import keys
 from fastbox_tpu_torch.ops.cuda import row_draw
+from test_torch_poisson_passes import CASES as POISSON_CASES
+from test_torch_poisson_passes import poisson_case
 from test_torch_row_draws import (REJECTION_DIFF_BOUND, ULP_BOUND, rates,
                                   spacings, ulps)
 
@@ -279,12 +281,19 @@ def test_key_kernel_equals_twin(cuda, method, pair, dtype, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ("mixed field",) + POISSON_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_key_poisson_kernel_equals_twin(cuda, dtype):
-    lam = np.concatenate([rates("knuth", (4, 512)),
-                          rates("rejection", (4, 512))])
-    lam = torch.as_tensor(lam, dtype=dtype, device=cuda)
-    k = keys.PRNGKey(9)[None].to(cuda)
-    got = row_draw.key_poisson_cuda(k, lam[None])
-    want = row_draw.key_poisson_plain(k, lam[None])
+def test_key_poisson_kernel_equals_twin(cuda, dtype, case):
+    """A field of Knuth and rejection rates, and the pass emulation's
+    cases (tests/test_torch_poisson_passes.py) on three keys."""
+    if case == "mixed field":
+        lam = np.concatenate([rates("knuth", (4, 512)),
+                              rates("rejection", (4, 512))])
+        lam = torch.as_tensor(lam, dtype=dtype, device=cuda)[None]
+    else:
+        lam = poisson_case(case, (3, 4, 100), dtype).to(cuda)
+    k = torch.stack([keys.PRNGKey(s) for s in (9, 2 ** 32 + 5, -7)
+                     ][:lam.shape[0]]).to(cuda)
+    got = row_draw.key_poisson_cuda(k, lam)
+    want = row_draw.key_poisson_plain(k, lam)
     assert torch.equal(got.nan_to_num(), want.nan_to_num())

@@ -47,6 +47,8 @@ from fastbox_tpu_torch.ops.cuda import row_draw
 from fastbox_tpu_torch.parallel.rng import (TAGS, row_complex_normal,
                                             row_draws, row_keys, row_normal,
                                             row_poisson)
+from test_torch_poisson_passes import CASES as POISSON_CASES
+from test_torch_poisson_passes import poisson_case
 
 SEEDS = (0, 1234, 2 ** 32 + 5, -7)
 SHAPES = ((16, 16), (15, 15), (16,), (15,))
@@ -335,12 +337,18 @@ def test_kernel_equals_twin(cuda, method, dtype, row_shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ("mixed rows",) + POISSON_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_poisson_kernel_equals_twin(cuda, dtype):
-    lam = np.concatenate([rates("knuth", (4, 512)),
-                          rates("rejection", (4, 512))])
-    lam = torch.as_tensor(lam, dtype=dtype, device=cuda)
-    keys, _ = row_keys([9], cuda)
-    got = row_draw.row_poisson_cuda(keys, TAGS["halos"], 0, lam[None])
-    want = row_draw.row_poisson_plain(keys, TAGS["halos"], 0, lam[None])
+def test_poisson_kernel_equals_twin(cuda, dtype, case):
+    """Rows of Knuth and of rejection rates, and the pass emulation's cases
+    (tests/test_torch_poisson_passes.py) on one key and three."""
+    if case == "mixed rows":
+        lam = np.concatenate([rates("knuth", (4, 512)),
+                              rates("rejection", (4, 512))])
+        lam = torch.as_tensor(lam, dtype=dtype, device=cuda)[None]
+    else:
+        lam = poisson_case(case, (3, 4, 100), dtype).to(cuda)
+    keys, _ = row_keys([9, 2 ** 32 + 5, -7][:lam.shape[0]], cuda)
+    got = row_draw.row_poisson_cuda(keys, TAGS["halos"], 0, lam)
+    want = row_draw.row_poisson_plain(keys, TAGS["halos"], 0, lam)
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
