@@ -1,0 +1,7 @@
+"""The 95th percentile (nearest rank) of the wall time of all the
+window's calls, in ms: from the call to its outputs on the host."""
+from portbench.lib.readers import call_ms
+
+
+def read(run):
+    return call_ms(run, 95.0)

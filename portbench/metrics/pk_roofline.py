@@ -1,0 +1,6 @@
+"""The P(k) stage's share of its roofline, in %: the least time the card
+could take for the stage's work (``lib/readers.pk_work``: bytes over
+3.35 TB/s or operations over 67 TFLOP/s, the larger) over the 'pk'
+stage's ms.  At 256^3 the bytes bound it: 0.030 ms a realisation
+in the single pipeline, 0.060 ms in the sharded step."""
+from portbench.lib.readers import pk_roofline as read  # noqa: F401
