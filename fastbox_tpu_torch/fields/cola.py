@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from scipy.integrate import quad
 
+from .. import timing
 from ..cosmology import background as bg
 from ..device import resolve
 from ..grid import GridSpec
@@ -153,6 +154,7 @@ def _fuse_max_band(fuse_force_gather) -> int:
 
 def _maxabs(d) -> float:
     """max |d| over the three components, on the host (one sync)."""
+    timing.count("sync.cola_band")
     return torch.stack([c.abs().max() for c in d]).max().item()
 
 
@@ -256,6 +258,7 @@ class ColaEngine:
             nyq_half[-1] = True
 
         def vec(a):
+            timing.count_copy("h2d_cola_k", device)
             return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
         self._kf = vec(kf).to(dtype)
@@ -324,7 +327,7 @@ class ColaEngine:
                                                   torch.ones_like(k2)),
                            torch.zeros_like(k2))
 
-    def force(self, x, a: float, clock=None):
+    def force(self, x, a: float, clock=timing.NULL_CLOCK):
         """PM acceleration at positions ``x`` (3, N, N, N) (Mpc) and scale
         factor ``a``: returns (F, diag) with F (3, N, N, N), and diag
         (maxd, frac_out, band index) when diagnostics are on, else None."""
@@ -346,14 +349,13 @@ class ColaEngine:
                            else 2)
             diag = (_maxabs(d_p), self._frac_out(d_p, bref), -1)
             del d_p
-        if clock:
-            clock.mark("prep")
+        clock.mark("prep")
+        timing.count(f"cola.band{b}" if b is not None else "cola.exact")
         if b is not None:
             rho = self._paint(d, b, None, True)
         else:
             rho = cic_paint_particles(self._flat(u), Nf)
-        if clock:
-            clock.mark("paint")
+        clock.mark("paint")
 
         dk = fft_safe.rfftn(rho / self.mean_per_cell - 1.0)
         del rho
@@ -394,31 +396,27 @@ class ColaEngine:
         F = torch.empty((3, N, N, N), dtype=self.dtype, device=self.device)
         if b is not None and b <= self.fuse_band:
             comps = tuple(comp(ax) for ax in range(3))
-            if clock:
-                clock.mark("solve")
+            clock.mark("solve")
             if self.lattice_impl == "cuda":
                 # K11c gathers straight into the force rows
                 self._gather3(comps, d, b, True, out=F.unbind(0))
             else:
                 for i, g in enumerate(self._gather3(comps, d, b, True)):
                     F[i] = g
-            if clock:
-                clock.mark("gather")
+            clock.mark("gather")
             return F, diag
         # One force mesh at a time, each consumed by its own gather.
         for ax in range(3):
             mesh = comp(ax)
-            if clock:
-                clock.mark("solve")
+            clock.mark("solve")
             if b is not None:
                 F[ax] = self._gather(mesh, d, b, True)
             else:
                 F[ax] = cic_gather(mesh, self._flat(u)).reshape(N, N, N)
-            if clock:
-                clock.mark("gather")
+            clock.mark("gather")
         return F, diag
 
-    def step(self, x, v, p1, p2, i: int, clock=None):
+    def step(self, x, v, p1, p2, i: int, clock=timing.NULL_CLOCK):
         """Kick-drift step ``i``, updating ``x`` and ``v`` in place; returns
         the force evaluation's diag (None without diagnostics)."""
         dt = self.np_dtype
@@ -437,8 +435,7 @@ class ColaEngine:
         x += p1 * float(dD1)
         x += p2 * float(dD2)
         torch.remainder(x, self._s(self.grid.Lx), out=x)
-        if clock:
-            clock.mark("update")
+        clock.mark("update")
         return diag
 
     def finish(self, x, v, p1, p2):
@@ -453,6 +450,7 @@ class ColaEngine:
             final_maxdisp = _maxabs(d_fin)
             if self.use_lattice:
                 b = self.pick_band(final_maxdisp)
+        timing.count(f"cola.band{b}" if b is not None else "cola.exact")
 
         def paint(w):
             if b is not None:
@@ -483,19 +481,18 @@ class ColaEngine:
                                  zero) * self.inv_a_final
         return delta_x, vel, final_maxdisp
 
-    def run(self, white, clock=None):
+    def run(self, white, clock=timing.NULL_CLOCK):
         """The whole evolution from complex white noise; returns what
         :func:`realise_density_cola` returns."""
         x, v, p1, p2 = self.initial_conditions(white)
-        if clock:
-            clock.mark("ic")
+        clock.mark("ic")
         diags = [self.step(x, v, p1, p2, i, clock)
                  for i in range(self.n_steps)]
         delta_x, vel, final_maxdisp = self.finish(x, v, p1, p2)
-        if clock:
-            clock.mark("finish")
+        clock.mark("finish")
         if not self.diagnostics:
             return delta_x, vel
+        timing.count("sync.cola_diagnostics")
         return delta_x, vel, {
             "maxdisp": torch.tensor([g[0] for g in diags], dtype=self.dtype),
             "frac_out": torch.stack([g[1] for g in diags]).cpu(),
@@ -539,8 +536,12 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     ``gradient``: ``"spectral"`` (default; three C2R transforms per step)
     or ``"fd4"``/``"fd6"`` (one C2R of the potential and 4th/6th-order
     centred differences, which under-pull the force near the mesh
-    Nyquist).  ``clock`` (a ``timing.StageClock``) marks the stages ic,
-    prep, paint, solve, gather, update and finish.
+    Nyquist).  ``clock`` (a ``timing.StageClock``) marks the stages white
+    (the white-noise draw), schedule (the engine's set-up, its host step
+    schedule), ic (2LPT), prep, paint, solve, gather, update and finish,
+    and counts each paint's band (``cola.band<b>``, or ``cola.exact`` for
+    the exact scatter; one a force evaluation and one for the final
+    paints) and each band pick's host sync (``sync.cola_band``).
 
     With ``diagnostics=True`` a third return value holds ``maxdisp`` (max
     wrapped displacement in cells at each force evaluation), ``frac_out``
@@ -554,18 +555,22 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
         and, if ``keep_velocities``, the (3, N, N, N) CIC-averaged peculiar
         velocities in km/s (zero where empty), else None.
     """
-    if white is None:
-        if generator is None:
-            raise ValueError("pass a key, a generator or white noise")
-        white = white_noise(generator, grid, dtype, device)
-    if white.real.dtype != dtype:
-        raise TypeError(f"white noise is {white.dtype}, the engine {dtype}")
-    engine = ColaEngine(grid, cosmology, redshift=redshift,
-                        redshift_init=redshift_init, n_steps=n_steps,
-                        dtype=dtype, device=white.device,
-                        keep_velocities=keep_velocities,
-                        force_factor=force_factor, lattice_B=lattice_B,
-                        lattice_impl=lattice_impl, gradient=gradient,
-                        fuse_force_gather=fuse_force_gather,
-                        diagnostics=diagnostics)
-    return engine.run(white, clock)
+    if white is None and generator is None:
+        raise ValueError("pass a key, a generator or white noise")
+    with timing.active(clock) as clock:
+        if white is None:
+            white = white_noise(generator, grid, dtype, device)
+        if white.real.dtype != dtype:
+            raise TypeError(f"white noise is {white.dtype}, the engine "
+                            f"{dtype}")
+        clock.mark("white")
+        engine = ColaEngine(grid, cosmology, redshift=redshift,
+                            redshift_init=redshift_init, n_steps=n_steps,
+                            dtype=dtype, device=white.device,
+                            keep_velocities=keep_velocities,
+                            force_factor=force_factor, lattice_B=lattice_B,
+                            lattice_impl=lattice_impl, gradient=gradient,
+                            fuse_force_gather=fuse_force_gather,
+                            diagnostics=diagnostics)
+        clock.mark("schedule")
+        return engine.run(white, clock)

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import timing
+
 __all__ = ["pca_filter", "pca_filter_subspace", "pca_project",
            "mean_spectrum_filter", "topk_eigvecs_subspace", "top_eigvecs",
            "covariance"]
@@ -76,8 +78,10 @@ def top_eigvecs(cov: torch.Tensor, nmodes: int) -> torch.Tensor:
     Jacobi solver.  On an H100 that solver was both slower than the float64
     one (5.1 vs 2.3 ms at 256 x 256) and less accurate.  The clean
     amplifies eigenvector rounding wherever the last kept eigenvalue lies
-    close to the next.
+    close to the next.  On the card ``eigh`` reads its status to the host:
+    one sync a call (``sync.eigh``).
     """
+    timing.count("sync.eigh")
     _, eigvecs = torch.linalg.eigh(cov.to(torch.float64))   # ascending
     return torch.flip(eigvecs, (-1,))[..., :nmodes].to(cov.dtype)
 

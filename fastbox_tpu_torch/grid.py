@@ -18,6 +18,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from . import timing
 from .constants import C_KMS, LINE_FREQ_21CM
 
 __all__ = ["GridSpec", "sqrt_rn"]
@@ -126,6 +127,7 @@ class GridSpec:
         """Physical 1-D wavenumber vectors (2 pi n / L) for each axis,
         computed in float64 on the host and cast to ``dtype``."""
         n = self.fft_index.astype(np.float64)
+        timing.count_copy("h2d_kvec", device, 3)
         return tuple(torch.as_tensor(2.0 * np.pi * n / L, dtype=dtype,
                                      device=device)
                      for L in (self.Lx, self.Ly, self.Lz))
@@ -160,6 +162,7 @@ class GridSpec:
         """
         idx = self.fft_index
         if self.N % 2 == 0:
+            timing.count_copy("h2d_nyquist", device)
             return torch.as_tensor(idx == idx.min(), device=device)
         return torch.zeros(self.N, dtype=torch.bool, device=device)
 

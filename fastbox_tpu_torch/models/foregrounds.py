@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from scipy.integrate import quad
 
-from .. import keys
+from .. import keys, timing
 from ..constants import C_MS, CMB_TEMP, H_PLANCK, KBOLTZ
 from ..fields.gaussian import complex_dtype
 
@@ -69,6 +69,7 @@ def gaussian_smooth_wrap(field2d: torch.Tensor, sigma_pix: float):
     n0, n1 = field2d.shape
     cdt = complex_dtype(field2d.dtype)
     dev = field2d.device
+    timing.count_copy("h2d_smooth", dev, 2)
     k0 = torch.as_tensor(np.fft.fft(_scipy_gaussian_kernel1d(sigma_pix, n0)),
                          dtype=cdt, device=dev)
     k1 = torch.as_tensor(np.fft.fft(_scipy_gaussian_kernel1d(sigma_pix, n1)),

@@ -18,16 +18,18 @@ Semantics matched to the reference:
     fill_value='extrapolate') — nearest endpoint out of range, midpoint
     bisection inside.
 
-The tier is chosen on the host from ``maxdisp`` (one ``.item()`` per
-call, the only host sync of the RSD stage).  Every tier is exact when its
-band covers ``maxdisp``.
+The tier is chosen on the host from ``maxdisp``: one ``.item()`` per call
+(``sync.rsd_band`` or ``sync.rsd_cover`` in the active clock's counts,
+``timing.count``).  Every tier is exact when its band covers ``maxdisp``.
+Each remap also counts the tier it took: ``rsd.band<b>``, or
+``rsd.exact`` for the sort + K3.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import keys
+from .. import keys, timing
 from ..grid import GridSpec
 from .cuda.banded_interp import banded_interp
 from .cuda.noise import add_scaled_normal_2d
@@ -92,6 +94,7 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
     rdtype = delta_x.dtype
     dev = delta_x.device
     N = grid.N
+    timing.count_copy("h2d_rsd", dev, 2)    # z, and Hz below
     z = torch.as_tensor(grid.z, dtype=rdtype, device=dev)
     z0 = z[0]
     length_z = z[-1] - z[0]
@@ -129,6 +132,8 @@ def redshift_space_density(delta_x, velocity_z, grid: GridSpec, Hz: float,
 def _uniform_targets(ztarget, ztarget_np, C: int):
     """The targets on the host when they are a uniform grid of C points
     (the rank grid the nodes were displaced from), else None."""
+    if ztarget_np is None:
+        timing.count("sync.rsd_targets")
     zt = np.asarray(ztarget_np if ztarget_np is not None
                     else ztarget.detach().cpu().numpy())
     d = np.diff(zt.astype(np.float64))
@@ -142,6 +147,7 @@ def _uniform_targets(ztarget, ztarget_np, C: int):
 
 def _covers(maxdisp, bound: float) -> bool:
     """maxdisp <= bound, compared in maxdisp's dtype (one host sync)."""
+    timing.count("sync.rsd_cover")
     return maxdisp.item() <= torch.tensor(bound, dtype=maxdisp.dtype).item()
 
 
@@ -186,8 +192,10 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
         dz = float(zt_np[1] - zt_np[0])
         maxdisp = torch.max(torch.abs(s_unwrapped - ztarget[None, :]))
         if _covers(maxdisp, band * dz):
+            timing.count(f"rsd.band{band}")
             return rsd_bracket_interp(s.contiguous(), vals.contiguous(),
                                       ztarget, fill, band)
+        timing.count("rsd.exact")
         ss, order = torch.sort(s, dim=1, stable=True)
         return interp_sorted(ss, torch.gather(vals, 1, order), ztarget, fill)
 
@@ -199,7 +207,9 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
             dz = float(zt_np[1] - zt_np[0])
             maxdisp = torch.max(torch.abs(ss - ztarget[None, :]))
             if _covers(maxdisp, band * dz):
+                timing.count(f"rsd.band{band}")
                 return banded_interp(ss, vv, ztarget, fill, band)
+        timing.count("rsd.exact")
         return interp_sorted(ss, vv, ztarget, fill)
 
     # 'nearest' (interp1d, fill_value='extrapolate'): the value switches at
@@ -216,6 +226,7 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
 def pick_band(maxdisp, dz: float, band: int = 4) -> int:
     """2, ``band``, or 0 for the exact tier: the narrowest band covering
     ``maxdisp`` (compared in its dtype, as fastbox_tpu's lax.cond does)."""
+    timing.count("sync.rsd_band")
     md = maxdisp.item()
     dt = maxdisp.dtype
     for b in ((2, band) if band > 2 else (band,)):
@@ -230,6 +241,7 @@ def _remap_wrap_tiered(vals, vel, ztarget, fill, z0, length_z, inv_hz,
     fallback, picked on the host from the displacement bound."""
     wrap = wrap_params(z0, length_z, inv_hz, vals.dtype, vals.device)
     b = pick_band(maxdisp, dz, band)
+    timing.count(f"rsd.band{b}" if b else "rsd.exact")
     if b:
         return rsd_remap_wrap(vals, vel, ztarget, fill, wrap, band=b)
     u = ztarget[None, :] - vel * inv_hz

@@ -36,7 +36,7 @@ from ..ops.reduce import binned_weighted_sum_sumsq_count
 from ..ops.spectra import _index_sq, default_kbins, kbin_thresholds
 from .fft import pirfft3_local, prfft3_local
 from .lattice import halo_gather_many, halo_paint, halo_paint_many
-from .mesh import axis_group, ens_share, gather_ens
+from .mesh import axis_group, collective, ens_share, gather_ens
 from .rng import TAGS, row_normal
 
 __all__ = ["make_sharded_cola"]
@@ -253,6 +253,7 @@ def make_sharded_cola(mesh, grid: GridSpec, cosmology, redshift=None,
             del F, comp
             disp = wrap(disp + (v * Dr + dD1 * p1 + dD2 * p2) / cell_t)
         maxd = torch.maximum(maxd, disp.abs().max())
+        collective(maxd)
         dist.all_reduce(maxd, op=dist.ReduceOp.MAX, group=group)
 
         # --- the final paint, window deconvolution, spectra, velocities
@@ -266,6 +267,7 @@ def make_sharded_cola(mesh, grid: GridSpec, cosmology, redshift=None,
             p = (rk * torch.conj(rk)).real / boxfactor
             sums = torch.stack(binned_weighted_sum_sumsq_count(
                 p, wgt, bin_idx, pk_nbins))
+            collective(sums)
             dist.all_reduce(sums, group=group)
             total, sumsq, counts = sums
             pk_mean = total / counts

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .mesh import collective
+
 __all__ = ["all_to_all", "pfft3_local", "pifft3_local", "pfft2_local",
            "pifft2_local", "prfft3_local", "pirfft3_local"]
 
@@ -38,6 +40,7 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
         raise ValueError(f"all_to_all: axes ({split_axis}, {concat_axis})")
     send = send.contiguous()
     recv = torch.empty_like(send)
+    collective(send)
     dist.all_to_all_single(recv, send, group=group)
     if (split_axis, concat_axis) == (2, 1):
         out = recv.movedim(0, 1).reshape(B, P * A1, A2 // P, *rest)

@@ -24,6 +24,7 @@ import torch.distributed as dist
 from ..fields import lattice_cic as twin
 from ..fields.lattice_cic import _disp_axes
 from ..ops.cuda import lattice_cic as k11
+from .mesh import collective
 
 __all__ = ["halo_extend", "halo_paint", "halo_paint_many", "halo_gather",
            "halo_gather_many"]
@@ -47,6 +48,7 @@ def _exchange(to_prev, to_next, group):
            dist.P2POp(dist.isend, to_prev, prev, group, 2),
            dist.P2POp(dist.irecv, from_prev, prev, group, 1),
            dist.P2POp(dist.irecv, from_next, nxt, group, 2)]
+    collective(to_next, to_prev)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return from_prev, from_next

@@ -14,10 +14,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from .. import timing
 from ..device import resolve
 
 __all__ = ["make_mesh", "largest_pow2_divisor", "init_single_rank",
-           "axis_group", "ens_share", "gather_ens"]
+           "axis_group", "ens_share", "gather_ens", "collective"]
 
 
 def largest_pow2_divisor(n: int, cap: int) -> int:
@@ -95,11 +96,22 @@ def ens_share(mesh: DeviceMesh, B: int) -> tuple[int, int]:
     return e * b, (e + 1) * b
 
 
+def collective(*sent: torch.Tensor) -> None:
+    """Count one collective of the active clock's call
+    (``collective.calls``) and the bytes this rank sends in it
+    (``collective.bytes``): ``sent``'s."""
+    timing.count("collective.calls")
+    timing.count("collective.bytes",
+                 sum(t.numel() * t.element_size() for t in sent))
+
+
 def gather_ens(mesh: DeviceMesh, t: torch.Tensor) -> torch.Tensor:
     """All-gather ``t`` over 'ens' along its leading axis, in rank order
     (fastbox_tpu's ``P('ens')`` out-specs give every rank the global
     array)."""
     group, E, _ = axis_group(mesh, "ens")
     parts = [torch.empty_like(t) for _ in range(E)]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    t = t.contiguous()
+    collective(t)
+    dist.all_gather(parts, t, group=group)
     return torch.cat(parts)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import timing
 from ..constants import C_MS
 from ..device import resolve
 from ..fields.gaussian import complex_dtype
@@ -42,10 +43,10 @@ from ..ops.cuda.binned_pk import binned_pk_half_dual
 from ..ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
 from ..ops.reduce import binned_weighted_dual
 from ..ops.rsd import add_scaled_normal, remap_los_batched
-from ..pipeline import (PipelineConfig, _hi_bias, _hi_tb, _NoClock, _pk_debias,
+from ..pipeline import (PipelineConfig, _hi_bias, _hi_tb, _pk_debias,
                         _pk_route, amp_half_table)
 from .fft import pfft2_local, pifft2_local, pirfft3_local, prfft3_local
-from .mesh import axis_group, ens_share, gather_ens
+from .mesh import axis_group, collective, ens_share, gather_ens
 from .rng import TAGS, row_normal
 
 __all__ = ["make_sharded_ensemble_step"]
@@ -68,8 +69,9 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
     of which each rank takes its slab.  Every rank returns the whole
     batch: ``k`` (nbins-1,), and ``pk_cleaned``, ``pk_cleaned_err``,
     ``pk_density`` (B, nbins-1) and ``sigma_data`` (B,).  ``clock`` (a
-    ``timing.StageClock``) marks draw, density, lognormal, velocity, rsd,
-    foregrounds, noise, instrument, pca and pk.
+    ``timing.StageClock``, the call's active clock) marks draw, density,
+    lognormal, velocity, rsd, foregrounds, noise, instrument, pca and pk,
+    and takes the call's counts (its collectives among them).
 
     ``device``: this rank's device (None: the CUDA card).  ``amp_half``
     (N, N, N/2+1) replaces the sqrt(P boxfactor) table built from
@@ -215,16 +217,20 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         return s1, q1, s2, cnt
 
     def all_reduce(t):
+        collective(t)
         dist.all_reduce(t, group=space_group)
         return t
 
     def fn(seeds=None, draws=None, clock=None) -> dict:
+        with timing.active(clock) as clock:
+            return step(seeds, draws, clock)
+
+    def step(seeds, draws, clock) -> dict:
         runs = draws if draws is not None else seeds
         if runs is None:
             raise ValueError("pass the realisations' seeds or their draws")
         lo, hi = ens_share(mesh, len(runs))
         B_loc = hi - lo
-        clock = clock or _NoClock()
 
         def draw(name, row_shape):
             """This slab's rows of field ``name`` for the local batch: one

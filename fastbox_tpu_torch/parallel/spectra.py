@@ -33,7 +33,7 @@ from ..ops.spectra import (_bin_of, _cosine, _dot_los, _legendre,
                            _linear_kbins, _poles_out, _power_out, _rbins,
                            _sums)
 from .fft import pirfft3_local, prfft3_local
-from .mesh import axis_group
+from .mesh import axis_group, collective
 
 __all__ = ["make_sharded_power_spectrum", "make_sharded_power_multipoles",
            "make_sharded_correlation"]
@@ -93,6 +93,7 @@ def _mu(vx, vy, vz, los, mag, dtype, device):
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    collective(t)
     dist.all_reduce(t, group=group)
     return t
 

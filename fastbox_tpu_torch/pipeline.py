@@ -71,7 +71,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from . import keys
+from . import keys, timing
 from .constants import C_MS
 from .cosmology import Cosmology
 from .device import resolve
@@ -207,11 +207,6 @@ def _hi_bias(z):
 def _hi_tb(z):
     """Tb(z) power-law fit in mK (reference tracers.py:115-117)."""
     return 5.5919e-02 + 2.3242e-01 * z - 2.4136e-02 * z**2
-
-
-class _NoClock:
-    def mark(self, stage: str) -> None:
-        pass
 
 
 class _KeyDraws(Mapping):
@@ -354,8 +349,9 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
 
     ``amp_half`` (N, N, N/2+1) replaces the sqrt(P boxfactor) table built
     from ``cosmology`` (e.g. fastbox_tpu's own, via
-    ``convert.from_jax_state``).  ``clock`` is a ``timing.StageClock``.
-    The output dict has fastbox_tpu's keys: ``k``, ``pk_cleaned``,
+    ``convert.from_jax_state``).  ``clock`` is a ``timing.StageClock``,
+    the active clock of ``pre`` and ``post`` (``timing.active``): it marks
+    the stages and takes the call's counts.  The output dict has fastbox_tpu's keys: ``k``, ``pk_cleaned``,
     ``pk_cleaned_err``, ``pk_density``, ``sigma_data``, and with
     ``debug_stages`` the intermediate cubes.  ``vel_z`` there includes the
     sigma_NL dispersion, as on fastbox_tpu's ``threefry_noise`` path.
@@ -565,177 +561,179 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     def pre(generator: torch.Generator | None = None,
             draws: dict | None = None, clock=None,
             want_cov: bool = False, seed: int | None = None) -> dict:
-        clock = clock or _NoClock()
-        if keys.is_key(generator):
+        with timing.active(clock) as clock:
+            if keys.is_key(generator):
+                if rows_mode:
+                    if seed is not None:
+                        raise ValueError("pass a key or seed=, not both")
+                    seed = generator if isinstance(generator, int) \
+                        else keys.key_data(generator)
+                    generator = None
+                elif draws is None:
+                    # fastbox_tpu's five arrays of the key, drawn on access
+                    draws, generator = _KeyDraws(
+                        grid, generator, ddt,
+                        ddt if config.threefry_noise else dtype,
+                        config.draw_method, device), None
+            elif (generator is not None and draws is None and not rows_mode
+                  and (config.threefry_noise or config.draw_dtype)):
+                raise ValueError("threefry_noise and draw_dtype select "
+                                 "fastbox_tpu's threefry draws: pass a key")
             if rows_mode:
-                if seed is not None:
-                    raise ValueError("pass a key or seed=, not both")
-                seed = generator if isinstance(generator, int) \
-                    else keys.key_data(generator)
-                generator = None
-            elif draws is None:
-                # fastbox_tpu's five arrays of the key, drawn on access
-                draws, generator = _KeyDraws(
-                    grid, generator, ddt,
-                    ddt if config.threefry_noise else dtype,
-                    config.draw_method, device), None
-        elif (generator is not None and draws is None and not rows_mode
-              and (config.threefry_noise or config.draw_dtype)):
-            raise ValueError("threefry_noise and draw_dtype select "
-                             "fastbox_tpu's threefry draws: pass a key")
-        if rows_mode:
-            # (1) real white rows, one half-spectrum FFT, x sqrt(P)
-            rows = row_fields(generator, draws, seed)
-            delta_k = fft_safe.rfftn(rows.pop("density")) \
-                * (N ** -1.5) * amp_half
-            vz_k = None
-            draws = rows
-        else:
-            if seed is not None:
-                raise ValueError("seed= selects the row-keyed draws of "
-                                 "noise_scheme='rows'")
-            if draws is None and generator is None:
-                raise ValueError("pass a key, a torch.Generator or the "
-                                 "`draws` dict")
-            if draws is not None:
-                missing = [k for k in DRAW_NAMES if k not in draws]
-                if missing:
-                    raise ValueError(f"draws is missing {missing}")
-            # (1) density half-spectrum x sqrt(P)
-            delta_k, vz_k = density(generator, draws)
-        clock.mark("draw")
-
-        # (3, hoisted) LOS velocity spectrum i vel_fac kz / k^2 delta_k,
-        # and the two inverse transforms
-        if vz_k is None:
-            vz_k = torch.complex(-delta_k.imag * vz_w, delta_k.real * vz_w)
-        delta_x = fft_safe.irfftn(delta_k, grid.shape)
-        vel_z = fft_safe.irfftn(vz_k, grid.shape)
-        del vz_k
-        clock.mark("velocity_irfft")
-
-        # (2) bias + log-normal
-        delta_ln = transforms.lognormal(delta_x * bias)
-        clock.mark("lognormal")
-
-        # (4) sigma_NL dispersion (K1, with max|v|), then the remap (K2/K3;
-        # 'nearest' sorts); rows mode adds its sigma_NL rows to vel_z first
-        # (fastbox_tpu/pipeline.py:559-566)
-        vmax = None
-        if rows_mode and config.sigma_nl > 0.0:
-            vel_z = vel_z + config.sigma_nl * draws["sigma_nl"]
-        elif config.sigma_nl > 0.0:
-            vel_z, vmax = rsd_ops.add_scaled_normal(
-                vel_z, sigma_nl_row, generator, draw(draws, "rsd"),
-                return_max=True)
-        delta_s = rsd_ops.redshift_space_density(
-            delta_ln, vel_z, grid, Hz, vmax=vmax, method=config.rsd_method)
-        del delta_ln
-        clock.mark("rsd")
-
-        # (5) signal cube in mK, (6) foregrounds
-        data = Tb * (1.0 + delta_s)
-        fg_cube = fg_map = alpha_map = None
-        if config.include_foregrounds:
-            white2d = draw(draws, "fg", lambda: gaussian._complex_normal(
-                generator, (N, N), dtype))
-            alpha_w = draw(draws, "alpha", lambda: torch.randn(
-                (N, N), generator=generator, dtype=dtype, device=device))
-            fg_map = ForegroundModel.foreground_amp_from_whitenoise(
-                white2d, grid, cosmology.chi, config.fg_amp, config.fg_beta,
-                config.fg_monopole, fg_sigma_pix)
-            if use_fg_poly:
-                dalpha = config.spec_idx_std * gaussian_smooth_wrap(
-                    alpha_w, alpha_sigma_pix)
-                alpha_map = config.spec_idx_mean + dalpha
-                fg_cube = ForegroundModel.construct_cube_smallalpha_fn(
-                    fg_map, dalpha, ffac_mean_j, logf_j)
+                # (1) real white rows, one half-spectrum FFT, x sqrt(P)
+                rows = row_fields(generator, draws, seed)
+                delta_k = fft_safe.rfftn(rows.pop("density")) \
+                    * (N ** -1.5) * amp_half
+                vz_k = None
+                draws = rows
             else:
-                alpha_map = gaussian_smooth_wrap(
-                    config.spec_idx_mean + config.spec_idx_std * alpha_w,
-                    alpha_sigma_pix)
-                fg_cube = ForegroundModel.construct_cube_fn(
-                    fg_map, alpha_map, freqs_j, config.freq_ref)
-            data = data + fg_cube
-        clock.mark("foregrounds")
+                if seed is not None:
+                    raise ValueError("seed= selects the row-keyed draws of "
+                                     "noise_scheme='rows'")
+                if draws is None and generator is None:
+                    raise ValueError("pass a key, a torch.Generator or the "
+                                     "`draws` dict")
+                if draws is not None:
+                    missing = [k for k in DRAW_NAMES if k not in draws]
+                    if missing:
+                        raise ValueError(f"draws is missing {missing}")
+                # (1) density half-spectrum x sqrt(P)
+                delta_k, vz_k = density(generator, draws)
+            clock.mark("draw")
 
-        # (7) radiometer noise (K1), (7b) instrument response
-        if config.include_noise:
-            data = rsd_ops.add_scaled_normal(
-                data, sigma_j, generator, draw(draws, "noise"))
-        if beam is not None or kpar_filter is not None:
-            clock.mark("noise")
-            data = instrument(data)
-        out = {
-            "data": data,
-            "p_dens": (delta_k.real.square() + delta_k.imag.square()) / boxf,
-            "sigma_data": torch.std(data, correction=0),
-        }
-        if want_cov:
-            out["cov"] = pca.covariance(data)
-        if config.debug_stages:
-            out.update(delta_x=delta_x, vel_z=vel_z, delta_s=delta_s)
+            # (3, hoisted) LOS velocity spectrum i vel_fac kz / k^2 delta_k,
+            # and the two inverse transforms
+            if vz_k is None:
+                vz_k = torch.complex(-delta_k.imag * vz_w, delta_k.real * vz_w)
+            delta_x = fft_safe.irfftn(delta_k, grid.shape)
+            vel_z = fft_safe.irfftn(vz_k, grid.shape)
+            del vz_k
+            clock.mark("velocity_irfft")
+
+            # (2) bias + log-normal
+            delta_ln = transforms.lognormal(delta_x * bias)
+            clock.mark("lognormal")
+
+            # (4) sigma_NL dispersion (K1, with max|v|), then the remap (K2/K3;
+            # 'nearest' sorts); rows mode adds its sigma_NL rows to vel_z first
+            # (fastbox_tpu/pipeline.py:559-566)
+            vmax = None
+            if rows_mode and config.sigma_nl > 0.0:
+                vel_z = vel_z + config.sigma_nl * draws["sigma_nl"]
+            elif config.sigma_nl > 0.0:
+                vel_z, vmax = rsd_ops.add_scaled_normal(
+                    vel_z, sigma_nl_row, generator, draw(draws, "rsd"),
+                    return_max=True)
+            delta_s = rsd_ops.redshift_space_density(
+                delta_ln, vel_z, grid, Hz, vmax=vmax, method=config.rsd_method)
+            del delta_ln
+            clock.mark("rsd")
+
+            # (5) signal cube in mK, (6) foregrounds
+            data = Tb * (1.0 + delta_s)
+            fg_cube = fg_map = alpha_map = None
             if config.include_foregrounds:
-                out.update(fg_cube=fg_cube, fg_map=fg_map,
-                           alpha_map=alpha_map)
-        clock.mark("noise" if beam is None and kpar_filter is None
-                   else "instrument")
-        return out
+                white2d = draw(draws, "fg", lambda: gaussian._complex_normal(
+                    generator, (N, N), dtype))
+                alpha_w = draw(draws, "alpha", lambda: torch.randn(
+                    (N, N), generator=generator, dtype=dtype, device=device))
+                fg_map = ForegroundModel.foreground_amp_from_whitenoise(
+                    white2d, grid, cosmology.chi, config.fg_amp,
+                    config.fg_beta, config.fg_monopole, fg_sigma_pix)
+                if use_fg_poly:
+                    dalpha = config.spec_idx_std * gaussian_smooth_wrap(
+                        alpha_w, alpha_sigma_pix)
+                    alpha_map = config.spec_idx_mean + dalpha
+                    fg_cube = ForegroundModel.construct_cube_smallalpha_fn(
+                        fg_map, dalpha, ffac_mean_j, logf_j)
+                else:
+                    alpha_map = gaussian_smooth_wrap(
+                        config.spec_idx_mean + config.spec_idx_std * alpha_w,
+                        alpha_sigma_pix)
+                    fg_cube = ForegroundModel.construct_cube_fn(
+                        fg_map, alpha_map, freqs_j, config.freq_ref)
+                data = data + fg_cube
+            clock.mark("foregrounds")
+
+            # (7) radiometer noise (K1), (7b) instrument response
+            if config.include_noise:
+                data = rsd_ops.add_scaled_normal(
+                    data, sigma_j, generator, draw(draws, "noise"))
+            if beam is not None or kpar_filter is not None:
+                clock.mark("noise")
+                data = instrument(data)
+            out = {
+                "data": data,
+                "p_dens": (delta_k.real.square()
+                           + delta_k.imag.square()) / boxf,
+                "sigma_data": torch.std(data, correction=0),
+            }
+            if want_cov:
+                out["cov"] = pca.covariance(data)
+            if config.debug_stages:
+                out.update(delta_x=delta_x, vel_z=vel_z, delta_s=delta_s)
+                if config.include_foregrounds:
+                    out.update(fg_cube=fg_cube, fg_map=fg_map,
+                               alpha_map=alpha_map)
+            clock.mark("noise" if beam is None and kpar_filter is None
+                       else "instrument")
+            return out
 
     def post(pre_out: dict, U: torch.Tensor | None = None,
              clock=None) -> dict:
-        clock = clock or _NoClock()
-        data = pre_out["data"]
+        with timing.active(clock) as clock:
+            data = pre_out["data"]
 
-        # (8) PCA clean: given eigenvectors, exact eigh, or subspace
-        if U is not None:
-            cleaned = pca.pca_project(data, U)
-        elif config.pca_exact:
-            cleaned = pca.pca_filter(data, config.pca_nmodes)
-        else:
-            cleaned = pca.pca_filter_subspace(data, config.pca_nmodes)
-        clock.mark("pca")
+            # (8) PCA clean: given eigenvectors, exact eigh, or subspace
+            if U is not None:
+                cleaned = pca.pca_project(data, U)
+            elif config.pca_exact:
+                cleaned = pca.pca_filter(data, config.pca_nmodes)
+            else:
+                cleaned = pca.pca_filter_subspace(data, config.pca_nmodes)
+            clock.mark("pca")
 
-        # (9) binned P(k) of the cleaned cube and the density
-        ck = fft_safe.rfftn(cleaned)
-        p_clean = (ck.real.square() + ck.imag.square()) / boxf
-        del ck
-        # (cuFFT may hand back permuted strides; the kernels read C order)
-        p_dens = pre_out["p_dens"]
-        if pk_route in ("v2", "v2t"):
-            s1, q1, s2 = binned_pk_half_dual_v2(
-                p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j,
-                fi2h_j, kzw_j, thr_j, telescoped=pk_route == "v2t")
-            cnt = cnt_j
-        elif pk_route == "v1":
-            s1, q1, s2, cnt = binned_pk_half_dual(
-                p_clean.contiguous(), p_dens.contiguous(), kx2_b, ky2_b,
-                kz2h_b, kzw_j, edges2_j)
-        else:
-            s1, q1, s2, _, cnt = binned_weighted_dual(
-                p_clean.reshape(-1), p_dens.reshape(-1), w_flat, bin_idx, nb)
-        mean1 = s1 / cnt
-        pk_clean = mean1[1:]
-        if debias_j is not None:
-            pk_clean = pk_clean - debias_j
-        var = torch.clamp(q1 / cnt - mean1 ** 2, min=0.0)
-        var = torch.where(cnt > 1, var, torch.zeros_like(var))
-        out = {
-            "k": kcent_j,
-            "pk_cleaned": pk_clean,
-            "pk_cleaned_err": (torch.sqrt(var) / torch.sqrt(cnt))[1:],
-            "pk_density": (s2 / cnt)[1:],
-            "sigma_data": pre_out["sigma_data"],
-        }
-        clock.mark("pk")
-        if config.debug_stages:
-            out.update({n: pre_out[n] for n in ("delta_x", "vel_z",
-                                                "delta_s")},
-                       data=data, cleaned=cleaned, ck_power=p_clean)
-            if config.include_foregrounds:
-                out.update({n: pre_out[n] for n in ("fg_cube", "fg_map",
-                                                    "alpha_map")})
-        return out
+            # (9) binned P(k) of the cleaned cube and the density
+            ck = fft_safe.rfftn(cleaned)
+            p_clean = (ck.real.square() + ck.imag.square()) / boxf
+            del ck
+            # (cuFFT may hand back permuted strides; the kernels read C order)
+            p_dens = pre_out["p_dens"]
+            if pk_route in ("v2", "v2t"):
+                s1, q1, s2 = binned_pk_half_dual_v2(
+                    p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j,
+                    fi2h_j, kzw_j, thr_j, telescoped=pk_route == "v2t")
+                cnt = cnt_j
+            elif pk_route == "v1":
+                s1, q1, s2, cnt = binned_pk_half_dual(
+                    p_clean.contiguous(), p_dens.contiguous(), kx2_b, ky2_b,
+                    kz2h_b, kzw_j, edges2_j)
+            else:
+                s1, q1, s2, _, cnt = binned_weighted_dual(
+                    p_clean.reshape(-1), p_dens.reshape(-1), w_flat, bin_idx,
+                    nb)
+            mean1 = s1 / cnt
+            pk_clean = mean1[1:]
+            if debias_j is not None:
+                pk_clean = pk_clean - debias_j
+            var = torch.clamp(q1 / cnt - mean1 ** 2, min=0.0)
+            var = torch.where(cnt > 1, var, torch.zeros_like(var))
+            out = {
+                "k": kcent_j,
+                "pk_cleaned": pk_clean,
+                "pk_cleaned_err": (torch.sqrt(var) / torch.sqrt(cnt))[1:],
+                "pk_density": (s2 / cnt)[1:],
+                "sigma_data": pre_out["sigma_data"],
+            }
+            clock.mark("pk")
+            if config.debug_stages:
+                out.update({n: pre_out[n] for n in ("delta_x", "vel_z",
+                                                    "delta_s")},
+                           data=data, cleaned=cleaned, ck_power=p_clean)
+                if config.include_foregrounds:
+                    out.update({n: pre_out[n] for n in ("fg_cube", "fg_map",
+                                                        "alpha_map")})
+            return out
 
     def fn(generator: torch.Generator | None = None,
            draws: dict | None = None, clock=None,

@@ -3,20 +3,36 @@
 ``stage`` is a context manager that prints "<name>..." and "\t<name>
 complete (x sec)" around a block, as the reference examples' ad-hoc
 ``time.time()`` prints do, and names the block in ``torch.profiler``
-traces; ``Timings`` collects the durations.  ``StageClock`` marks the end
-of each stage of one pipeline call: on a CUDA device with a recorded
-``torch.cuda.Event`` (no sync until ``ms()``), on the CPU with the host
-clock.  The pipeline takes one through its ``clock`` argument; with none it
-records nothing.
+traces; ``Timings`` collects the durations.  ``StageClock`` is the trace of
+one call of the program: it marks the end of each stage, on a CUDA device
+with a recorded ``torch.cuda.Event`` (no sync until ``ms()``) and on the
+host clock, and holds the call's counters.  The entry points take one
+through their ``clock`` argument and make it the active clock for the
+call (``active``), so that code with no clock argument counts into it
+(``count``); with none they use ``NULL_CLOCK``, which times and counts
+nothing.  While ``torch.profiler`` records, every mark, real or null,
+also puts a ``stage:<name>`` range on the profiler's clock at the host's
+end of the stage.  Clocks whose ``ms()`` was read add their host times and
+counts to the process totals (``trace_totals``).
+
+Counter names: ``sync.<site>`` where the program reads a value of the
+device to the host (counted on every device, so that CPU runs show the
+sites) or copies from pageable host memory to a CUDA device
+(``count_copy``); ``rsd.band<b>``/``rsd.exact`` and
+``cola.band<b>``/``cola.exact``, the tier or band each RSD remap and COLA
+paint took; ``collective.calls`` and ``collective.bytes``, the
+``torch.distributed`` collectives issued and the bytes this rank sent.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 
 import torch
 
-__all__ = ["stage", "Timings", "StageClock"]
+__all__ = ["stage", "Timings", "StageClock", "NULL_CLOCK", "active", "count",
+           "count_copy", "trace_totals", "reset_trace_totals"]
 
 
 class Timings:
@@ -80,32 +96,134 @@ def stage(name: str, verbose: bool = True, timings: Timings | None = None,
         timings.add(name, dt)
 
 
+_profiling = torch.autograd._profiler_enabled
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "fastbox_tpu_torch_clock", default=None)
+_TOTALS: dict = {"calls": 0, "host_ms": {}, "counts": {}}
+
+
+def _profile_mark(stage: str) -> None:
+    """A zero-length ``stage:<stage>`` range on the profiler's clock."""
+    with torch.profiler.record_function("stage:" + stage):
+        pass
+
+
+class _NullClock:
+    """The clock of a call made without one: no times, no counts; its
+    marks reach a recording profiler only."""
+
+    __slots__ = ()
+
+    def mark(self, stage: str) -> None:
+        if _profiling():
+            _profile_mark(stage)
+
+
+NULL_CLOCK = _NullClock()
+
+
 class StageClock:
-    """Collects (stage, end time) marks; ``ms()`` gives each stage's time."""
+    """Collects (stage, end time) marks and counters of one call; ``ms()``
+    gives each stage's device time, ``host_ms()`` its host time."""
 
     def __init__(self, device):
         """The first stage starts now."""
         self.device = torch.device(device)
-        self._marks: list[tuple[str, object]] = [("", self._now())]
+        self._marks: list[tuple[str, object, float]] = [("", *self._now())]
+        self._counts: dict[str, int] = {}
+        self._folded = False
 
-    def _now(self):
+    def _now(self) -> tuple[object, float]:
+        """(the device's time: a recorded event on CUDA, else the host's;
+        the host's)."""
+        t = time.perf_counter()
         if self.device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record(torch.cuda.current_stream(self.device))
-            return ev
-        return time.perf_counter()
+            return ev, t
+        return t, t
 
     def mark(self, stage: str) -> None:
         """The stage named ``stage`` ends now."""
-        self._marks.append((stage, self._now()))
+        self._marks.append((stage, *self._now()))
+        if _profiling():
+            _profile_mark(stage)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the call's counter ``name``."""
+        self._counts[name] = self._counts.get(name, 0) + n
+
+    def counts(self) -> dict[str, int]:
+        """The call's counters."""
+        return dict(self._counts)
+
+    def _per_stage(self, dt) -> dict[str, float]:
+        out: dict[str, float] = {}
+        for a, b in zip(self._marks, self._marks[1:]):
+            out[b[0]] = out.get(b[0], 0.0) + dt(a, b)
+        return out
+
+    def host_ms(self) -> dict[str, float]:
+        """Milliseconds per stage on the host clock (from the previous
+        mark to the stage's own), in the order of ``ms()``."""
+        return self._per_stage(lambda a, b: 1e3 * (b[2] - a[2]))
 
     def ms(self) -> dict[str, float]:
-        """Milliseconds per stage, in pipeline order (waits for the device)."""
+        """Milliseconds per stage, in pipeline order (waits for the
+        device).  The first read adds the call's host times and counts to
+        the process totals."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        out: dict[str, float] = {}
-        for (_, t0), (name, t1) in zip(self._marks, self._marks[1:]):
-            dt = (t0.elapsed_time(t1) if self.device.type == "cuda"
-                  else 1e3 * (t1 - t0))
-            out[name] = out.get(name, 0.0) + dt
+            out = self._per_stage(lambda a, b: a[1].elapsed_time(b[1]))
+        else:
+            out = self.host_ms()
+        if not self._folded:
+            self._folded = True
+            _TOTALS["calls"] += 1
+            for into, src in ((_TOTALS["host_ms"], self.host_ms()),
+                              (_TOTALS["counts"], self._counts)):
+                for k, v in src.items():
+                    into[k] = into.get(k, 0) + v
         return out
+
+
+@contextlib.contextmanager
+def active(clock):
+    """The call's clock, or ``NULL_CLOCK`` for None; a real clock is the
+    active one (``count``'s) inside the block."""
+    if clock is None:
+        yield NULL_CLOCK
+        return
+    token = _ACTIVE.set(clock)
+    try:
+        yield clock
+    finally:
+        _ACTIVE.reset(token)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the active clock's counter ``name``; nothing without
+    an active clock."""
+    clock = _ACTIVE.get()
+    if clock is not None:
+        clock.count(name, n)
+
+
+def count_copy(name: str, device, n: int = 1) -> None:
+    """Count ``n`` copies from pageable host memory to ``device`` as host
+    syncs, ``sync.<name>``, where ``device`` is a CUDA device: such a copy
+    waits for the device's stream to drain."""
+    clock = _ACTIVE.get()
+    if clock is not None and torch.device(device).type == "cuda":
+        clock.count("sync." + name, n)
+
+
+def trace_totals() -> dict:
+    """``{"calls", "host_ms", "counts"}`` summed over the clocks whose
+    ``ms()`` was read since the last ``reset_trace_totals()``."""
+    return {"calls": _TOTALS["calls"], "host_ms": dict(_TOTALS["host_ms"]),
+            "counts": dict(_TOTALS["counts"])}
+
+
+def reset_trace_totals() -> None:
+    _TOTALS.update(calls=0, host_ms={}, counts={})
