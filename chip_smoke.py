@@ -11,7 +11,7 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K11, R1/R2) from fastbox_tpu_torch/csrc (timed;
+  2. build the kernels (K1-K12, R1/R2) from fastbox_tpu_torch/csrc (timed;
      ptxas's registers and spills of every kernel);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with device
@@ -152,6 +152,10 @@ failure:
      the same white noise, the engine with the plain twins on the card: the
      first force evaluation per particle, the final field (bitwise equal),
      std(delta) and the binned P(k), and bench_cola.py's health bounds;
+     K12 (the kick-drift) launched once a step (80 over the five
+     realisations), bitwise equal to its plain passes on a 256^3 COLA state
+     (f32, f64) and on random states at 256^3 and 63^3, aligned and not,
+     and timed on the COLA state beside its bound and the plain passes;
  8b. on the one-rank mesh, the slab-sharded COLA engine: K11a/K11c's slab
      mode bitwise equal to the slab twins and repeatable (one 256-row slab
      and four of 64 of the engine's own and of uniform displacements, f32
@@ -299,6 +303,9 @@ KERNELS = {
                    "fastbox_tpu/fields/gaussian.py:62"),
     "key_poisson": ("fastbox_tpu_torch/csrc/row_draw.cu",
                     "fastbox_tpu/models/halos.py:52"),
+    # K12 replaces no Pallas kernel: the COLA step's XLA-fused jnp kick-drift
+    "cola_kick_drift": ("fastbox_tpu_torch/csrc/cola_kick.cu",
+                        "fastbox_tpu/fields/cola.py:651"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -1642,6 +1649,71 @@ def cola_health(grid, cosmo0, delta, label: str) -> None:
           f"{label}: P/P_lin {ratio}")
 
 
+K12 = "cola_kick_drift"
+K12_OPS = 15             # floating-point operations an element
+K12_N = (256, 63)        # random states: the COLA cube, and a scalar tail
+
+
+def k12_record(dev, eng, white) -> dict:
+    """K12 against the plain passes, bit for bit: on a 256^3 COLA state
+    (``eng``'s third step: x, v, p1, p2 and its force) in f32 and cast to
+    f64, and on tests/test_torch_cola_kick.py's random states at 256^3 and
+    63^3 (K12_N; 3 N^3 leaves a scalar tail) and off a 16-byte boundary (the
+    direct path), f32 and f64; then K12's time on the COLA state beside its
+    bound and the plain passes' (each timed call updates its own copy)."""
+    from fastbox_tpu_torch.ops.cuda import cola_kick as k12
+
+    t = tests_module("test_torch_cola_kick")
+    x, v, p1, p2 = eng.initial_conditions(white)
+    for i in range(2):
+        eng.step(x, v, p1, p2, i)
+    F, _ = eng.force(x, eng.rows[2][7])
+    cola_state = (x, v, p1, p2, F)
+    del x, v, p1, p2, F
+
+    def sc(row, fac, L, dtype):
+        return t.scalars(row, fac, L, np.float32 if dtype == torch.float32
+                         else np.float64)
+
+    rng = np.random.default_rng(12)
+    cases = [(f"COLA {eng.N}^3 f32", lambda: cola_state,
+              sc(eng.rows[2], eng.fac_pm, eng.grid.Lx, torch.float32), 0),
+             (f"COLA {eng.N}^3 cast to f64",
+              lambda: tuple(a.double() for a in cola_state),
+              sc(eng.rows[2], eng.fac_pm, eng.grid.Lx, torch.float64), 0)]
+    for n, off in ((K12_N[0], 0), (K12_N[1], 0), (K12_N[1], 1)):
+        for dtype in (torch.float32, torch.float64):
+            row, fac = t.random_row(rng)
+            cases.append((f"random {n}^3 {dtype} offset {off}",
+                          lambda n=n, dtype=dtype: t.random_state(
+                              n, dtype, dev, n), sc(row, fac, t.L, dtype),
+                          off))
+    err = 0.0
+    for label, make, args, off in cases:
+        a, b = t._twice(make(), off)
+        k12.kick_drift_cuda(*b, *args)
+        k12.kick_drift_plain(*a, *args)
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        err = max([err] + [(a[j] - b[j]).abs().max().item() for j in (0, 1)])
+        log(f"K12 {label} (vector path {k12.vector_path(*b)}): x, v bitwise "
+            f"equal to the plain passes: {same}")
+        check(same, f"K12 {label}: x or v differs from the plain passes")
+        del a, b
+    args = cases[0][2]
+    ms = median_ms(lambda s=[t._copy(a) for a in cola_state]:
+                   k12.kick_drift_cuda(*s, *args))
+    plain = median_ms(lambda s=[t._copy(a) for a in cola_state]:
+                      k12.kick_drift_plain(*s, *args))
+    x = cola_state[0]
+    r = dict(name=K12, max_abs_err=err, ms=ms, plain_ms=plain,
+             library_ms=None, **roofline(nbytes(*cola_state) + nbytes(x, x),
+                                         K12_OPS * x.numel()))
+    log(f"K12 256^3 f32 on the COLA state: {ms:.4f} ms (bound "
+        f"{r['bound_ms']:.4f}, {100 * r['bound_ms'] / ms:.1f}% of it); the "
+        f"plain passes {plain:.4f} ms")
+    return r
+
+
 def run_cola(label: str, grid, cosmo0, dev, **kw):
     """One realisation with the kernels; returns (outputs, wall seconds)."""
     from fastbox_tpu_torch.fields.cola import realise_density_cola
@@ -1669,8 +1741,9 @@ def run_cola(label: str, grid, cosmo0, dev, **kw):
 
 
 def phase_cola(dev, kernels: list[dict]) -> None:
-    """The COLA path with the kernels (counted), then the plain engine on
-    the same white noise (not counted)."""
+    """The COLA path with the kernels (counted; K12 once a step), then the
+    plain engine on the same white noise (not counted), then K12 against
+    its plain passes and timed (``k12_record``, appended to ``kernels``)."""
     from fastbox_tpu_torch.cosmology import build_cosmology
     from fastbox_tpu_torch.fields.cola import ColaEngine, realise_density_cola
     from fastbox_tpu_torch.fields.gaussian import white_noise
@@ -1713,6 +1786,10 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     for r in kernels:
         r["launches"] = counts.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the COLA path")
+    # K12: one launch a step, 16 steps a realisation, five realisations
+    n_k12 = counts.get(K12, 0)
+    check(n_k12 == 5 * int(1 + COLA_Z_INIT),
+          f"K12 launched {n_k12} times over five realisations")
     log(f"COLA 256^3: {wall2 * 1e3:.1f} ms per realisation (realisation 1; "
         f"first call {wall1 * 1e3:.1f} ms, keep_velocities "
         f"{wall3 * 1e3:.1f} ms)")
@@ -1731,6 +1808,9 @@ def phase_cola(dev, kernels: list[dict]) -> None:
         f"max|F| (bitwise equal: {torch.equal(fk, fp)})")
     check(e <= K11_TWIN_BOUND, f"COLA first force: {e}")
     del x, fk, fp
+    k12 = k12_record(dev, eng_k, white)
+    k12["launches"] = n_k12
+    kernels.append(k12)
     t0 = time.perf_counter()
     dp, _ = realise_density_cola(None, grid, cosmo0, white=white,
                                  redshift_init=COLA_Z_INIT, lattice_B=3,
@@ -2137,7 +2217,7 @@ def phase_sharded_cola(dev, mesh) -> list[dict]:
         check(counts.get(name, 0) == n, f"{name}: {counts.get(name, 0)} "
               f"launches, the code makes {n}")
     for name in ("cic_paint_lattice", "cic_gather_lattice",
-                 "cic_gather3_lattice"):
+                 "cic_gather3_lattice", K12):
         check(counts.get(name, 0) == 0, f"{name} launched on the slab path")
     for r in rows:
         r["launches"] = counts.get(r["name"], 0)

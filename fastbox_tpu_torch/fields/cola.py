@@ -21,7 +21,8 @@ in f32 it is 6.4 GB.  The CIC paint and force gather take the lattice
 form (K11, ``ops/cuda/lattice_cic.py``) under an adaptive band ladder, and
 the exact ``index_add_`` scatter beyond the widest band.  The band is
 picked on the host from ``maxd.item()``: one device sync per force
-evaluation and one at the finish.
+evaluation and one at the finish.  Each step's kick and drift are one
+pass over the state (K12, ``ops/cuda/cola_kick.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from ..cosmology import background as bg
 from ..device import resolve
 from ..grid import GridSpec
 from ..ops import fft_safe
+from ..ops.cuda import cola_kick as kick
 from ..ops.cuda import lattice_cic as k11
 from ..ops.painting import compensation
 from . import lattice_cic as twin
@@ -422,19 +424,12 @@ class ColaEngine:
         dt = self.np_dtype
         K1, K2, Dr, D1, D2, dD1, dD2, a_f = (dt(r) for r in self.rows[i])
         F, diag = self.force(x, a_f, clock)
-        # COLA compensation: subtract the LPT acceleration
-        comp = p1 * float(D1)
-        comp += p2 * float(D2 - D1 * D1)
-        comp *= float(dt(self.fac_pm) / a_f)
-        F -= comp
-        del comp
-        F *= float(K1 + K2)
-        v += F
+        # COLA compensation (the LPT acceleration subtracted), kick, drift
+        kick.kick_drift(x, v, p1, p2, F, float(D1), float(D2 - D1 * D1),
+                        float(dt(self.fac_pm) / a_f), float(K1 + K2),
+                        float(Dr), float(dD1), float(dD2),
+                        self._s(self.grid.Lx))
         del F
-        x += v * float(Dr)
-        x += p1 * float(dD1)
-        x += p2 * float(dD2)
-        torch.remainder(x, self._s(self.grid.Lx), out=x)
         clock.mark("update")
         return diag
 

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels (sources in ``fastbox_tpu_torch/csrc``).
 
 One module per TPU kernel it replaces (and ``row_draw``, the row-keyed
-``jax.random`` draws of the sharded paths):
+``jax.random`` draws of the sharded paths, and ``cola_kick``):
 
 ====================  ===================================================
 ``noise``             K1 ``ops/pallas/noise.py::add_scaled_normal_pallas``
@@ -20,6 +20,8 @@ One module per TPU kernel it replaces (and ``row_draw``, the row-keyed
 ``row_draw``          R1 ``parallel/rng.py::row_normal``, R2
                       ``parallel/halos.py::row_poisson`` (no Pallas kernel:
                       jax.random's threefry row streams, one launch a field)
+``cola_kick``         K12, the COLA kick-drift in one pass (no Pallas
+                      kernel: ``fields/cola.py``'s step is XLA-fused ``jnp``)
 ====================  ===================================================
 
 Each module holds the CUDA launcher (``*_cuda``), its plain PyTorch twin

@@ -79,6 +79,8 @@ _SIGNATURES = {
                         _P),
     "fbx_key_normal": (_P, _I64, _I64, _INT, _INT, _F64, _F64, _INT, _P, _P),
     "fbx_key_poisson": (_P, _I64, _I64, _P, _P, _P, _I64, _P),
+    "fbx_cola_kick_drift": (_P, _P, _P, _P, _P, _I64) + (_F64,) * 8
+    + (_INT, _P),
 }
 
 _launches: collections.Counter = collections.Counter()

@@ -58,7 +58,8 @@ def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in _build._sources()}
     assert {"common.cuh", "noise.cu", "rsd_fused.cu", "rsd_interp.cu",
             "binned_pk_v2.cu", "lattice_cic.cu", "binned_pk.cu",
-            "half_draw.cu", "banded_interp.cu", "mmdft.cu"} <= names
+            "half_draw.cu", "banded_interp.cu", "mmdft.cu",
+            "cola_kick.cu"} <= names
     # the build key follows the sources and the toolkit
     assert _build.build_key("nvcc 12.8") != _build.build_key("nvcc 12.9")
 
