@@ -355,9 +355,11 @@ class ColaEngine:
         timing.count(f"cola.band{b}" if b is not None else "cola.exact")
         if b is not None:
             rho = self._paint(d, b, None, True)
+            clock.mark("paint")
         else:
+            timing.count("exact.paint")
             rho = cic_paint_particles(self._flat(u), Nf)
-        clock.mark("paint")
+            clock.mark("paint_exact")
 
         dk = fft_safe.rfftn(rho / self.mean_per_cell - 1.0)
         del rho
@@ -413,9 +415,11 @@ class ColaEngine:
             clock.mark("solve")
             if b is not None:
                 F[ax] = self._gather(mesh, d, b, True)
+                clock.mark("gather")
             else:
+                timing.count("exact.gather")
                 F[ax] = cic_gather(mesh, self._flat(u)).reshape(N, N, N)
-            clock.mark("gather")
+                clock.mark("gather_exact")
         return F, diag
 
     def step(self, x, v, p1, p2, i: int, clock=timing.NULL_CLOCK):
@@ -533,10 +537,14 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     centred differences, which under-pull the force near the mesh
     Nyquist).  ``clock`` (a ``timing.StageClock``) marks the stages white
     (the white-noise draw), schedule (the engine's set-up, its host step
-    schedule), ic (2LPT), prep, paint, solve, gather, update and finish,
-    and counts each paint's band (``cola.band<b>``, or ``cola.exact`` for
-    the exact scatter; one a force evaluation and one for the final
-    paints) and each band pick's host sync (``sync.cola_band``).
+    schedule), ic (2LPT), prep, paint, solve, gather, update and finish
+    (on the exact tier paint_exact and gather_exact in place of paint and
+    gather); it counts each paint's band
+    (``cola.band<b>``, or ``cola.exact`` for the exact scatter; one a
+    force evaluation and one for the final paints), the exact tier's
+    force paints (``exact.paint``, one a force evaluation) and gathers
+    (``exact.gather``, one a force component), and each band pick's host
+    sync (``sync.cola_band``).
 
     With ``diagnostics=True`` a third return value holds ``maxdisp`` (max
     wrapped displacement in cells at each force evaluation), ``frac_out``

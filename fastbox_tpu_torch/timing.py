@@ -20,8 +20,10 @@ device to the host (counted on every device, so that CPU runs show the
 sites) or copies from pageable host memory to a CUDA device
 (``count_copy``); ``rsd.band<b>``/``rsd.exact`` and
 ``cola.band<b>``/``cola.exact``, the tier or band each RSD remap and COLA
-paint took; ``collective.calls`` and ``collective.bytes``, the
-``torch.distributed`` collectives issued and the bytes this rank sent.
+paint took; ``exact.paint``/``exact.gather``, the force paints and force
+components that COLA's exact tier computed; ``collective.calls`` and
+``collective.bytes``, the ``torch.distributed`` collectives issued and the
+bytes this rank sent.
 """
 from __future__ import annotations
 
