@@ -11,7 +11,7 @@ without a GPU or without the repository beside it.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernels (K1-K12, R1/R2) from fastbox_tpu_torch/csrc (timed;
+  2. build the kernels (K1-K13, R1/R2) from fastbox_tpu_torch/csrc (timed;
      ptxas's registers and spills of every kernel);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
      the 256^3 pipeline and the 256^3 COLA engine give it, with device
@@ -156,6 +156,14 @@ failure:
      realisations), bitwise equal to its plain passes on a 256^3 COLA state
      (f32, f64) and on random states at 256^3 and 63^3, aligned and not,
      and timed on the COLA state beside its bound and the plain passes;
+     K13 (the exact CIC tier) launched as the five realisations' band
+     records say (a paint and a three-mesh gather a force evaluation past
+     band 3, and the final paints), then on a 512^3 COLA state past band
+     3: K13b bitwise equal to the plain gather (f32, f64; three meshes and
+     one), K13a within 1e-14 of max of the plain f64 paint and within the
+     per-cell order bound of the plain f32 paint, weighted and not, both
+     timed beside their bounds and the plain passes (the paint also beside
+     one index_add_ of the corners computed beforehand);
  8b. on the one-rank mesh, the slab-sharded COLA engine: K11a/K11c's slab
      mode bitwise equal to the slab twins and repeatable (one 256-row slab
      and four of 64 of the engine's own and of uniform displacements, f32
@@ -306,6 +314,12 @@ KERNELS = {
     # K12 replaces no Pallas kernel: the COLA step's XLA-fused jnp kick-drift
     "cola_kick_drift": ("fastbox_tpu_torch/csrc/cola_kick.cu",
                         "fastbox_tpu/fields/cola.py:651"),
+    # K13a/K13b replace no Pallas kernel: COLA's exact CIC tier, XLA's
+    # .at[].add scatter and a gathered sum
+    "cic_paint_exact": ("fastbox_tpu_torch/csrc/cic_exact.cu",
+                        "fastbox_tpu/fields/cola.py:81"),
+    "cic_gather_exact": ("fastbox_tpu_torch/csrc/cic_exact.cu",
+                         "fastbox_tpu/fields/cola.py:129"),
 }
 COLA_Z_INIT = 15.0
 COLA_N = (256, 512)      # the COLA cells; K11 is held to its twin at 256^3
@@ -1103,8 +1117,9 @@ def phase_k11(dev) -> list[dict]:
     path; their times at every B and on COLA's displacements beside
     grid_sample's.  The rows' times are at B = 3 on uniform draws, the band
     the late COLA steps take."""
-    from fastbox_tpu_torch.fields.cola import cic_gather, cic_paint_particles
     from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+    from fastbox_tpu_torch.ops.cuda.cic_exact import (cic_gather_exact_plain,
+                                                      cic_paint_exact_plain)
 
     N = COLA_N[0]
     g = torch.Generator(device=dev).manual_seed(11)
@@ -1166,18 +1181,21 @@ def phase_k11(dev) -> list[dict]:
         del m64
         log(f"K11b/K11c gathers B={B}: bitwise equal to their twins and "
             "repeatable, f32 and f64, uniform and clustered")
-        # f64 against the exact scatter/gather at the positions l + d
+        # f64 against the exact scatter/gather at the positions l + d: the
+        # plain passes, a reference independent of K11 and of K13
         u = tuple((s + a).reshape(-1) for s, a in zip(site, d64))
         e_paint = max(norm_err(k.cic_paint_lattice_cuda(d64, B, wt),
-                               cic_paint_particles(u, N, wr))
+                               cic_paint_exact_plain(u, N, wr))
                       for wt, wr in ((None, None),
                                      (w64[0], w64[0].reshape(-1))))
         m64 = meshes[0].double()
         e_gather = norm_err(k.cic_gather_lattice_cuda(m64, d64, B).reshape(-1),
-                            cic_gather(m64, u))
-        e_g3 = max(norm_err(a.reshape(-1), cic_gather(m.double(), u)) for a, m
-                   in zip(k.cic_gather3_lattice_cuda(
-                       tuple(m.double() for m in meshes), d64, B), meshes))
+                            cic_gather_exact_plain((m64,), u)[0])
+        m3 = tuple(m.double() for m in meshes)
+        e_g3 = max(norm_err(a.reshape(-1), b) for a, b in
+                   zip(k.cic_gather3_lattice_cuda(m3, d64, B),
+                       cic_gather_exact_plain(m3, u)))
+        del m3
         log(f"K11 B={B} f64 vs exact scatter/gather: paint {e_paint:.3e}, "
             f"gather {e_gather:.3e}, gather3 {e_g3:.3e}")
         check(max(e_paint, e_gather, e_g3) <= K11_EXACT_BOUND,
@@ -1714,6 +1732,140 @@ def k12_record(dev, eng, white) -> dict:
     return r
 
 
+K13A, K13B = "cic_paint_exact", "cic_gather_exact"
+K13_F64_BOUND = 1e-14    # K13a f64 against the plain paint: sum order only
+
+
+def cola_exact_inputs(dev) -> tuple:
+    """The positions (cell units) and the three force meshes of a 512^3
+    COLA run's first force evaluation on the exact tier (past band 3, in
+    the 4 Gpc box), captured by wrapping fields/cola.py's
+    cic_gather3_particles; and that step's index."""
+    from fastbox_tpu_torch.cosmology import build_cosmology
+    from fastbox_tpu_torch.fields import cola
+    from fastbox_tpu_torch.fields.gaussian import white_noise
+    from fastbox_tpu_torch.grid import GridSpec
+
+    grid = GridSpec.create(box_scale=BOX, nsamp=COLA_N[1])
+    eng = cola.ColaEngine(grid, build_cosmology(COSMO, redshift=0.0,
+                                                device=dev),
+                          redshift_init=COLA_Z_INIT, lattice_B=3, device=dev,
+                          keep_velocities=False)
+    seen, inner = {}, cola.cic_gather3_particles
+
+    def capture(meshes, u, out=None):
+        if not seen:
+            seen["u"] = tuple(a.clone() for a in u)
+            seen["meshes"] = tuple(m.clone() for m in meshes)
+        return inner(meshes, u, out)
+
+    x, v, p1, p2 = eng.initial_conditions(
+        white_noise(torch.Generator(device=dev).manual_seed(2029), grid))
+    cola.cic_gather3_particles = capture
+    try:
+        for step in range(eng.n_steps):
+            eng.step(x, v, p1, p2, step)
+            if seen:
+                break
+    finally:
+        cola.cic_gather3_particles = inner
+    check(bool(seen), "COLA 512^3 never took the exact tier")
+    return seen["u"], seen["meshes"], step
+
+
+def k13_records(dev) -> list[dict]:
+    """K13 on a 512^3 COLA state past band 3 (``cola_exact_inputs``): K13b
+    bitwise equal to the plain gather (f32 and cast to f64, three meshes
+    and one), K13a within K13_F64_BOUND of the plain f64 paint and, in
+    f32, within tests/test_torch_cic_exact.py's per-cell bound of the
+    plain f32 paint (the same contributions summed in two orders), weighted
+    and not, and its f32 repeat gap; then both timed beside their bounds,
+    the plain passes and, for the paint, one index_add_ of the 8 corners
+    computed beforehand."""
+    from fastbox_tpu_torch.ops.cuda import cic_exact as k
+
+    t = tests_module("test_torch_cic_exact")
+    u, meshes, step = cola_exact_inputs(dev)
+    N, M = meshes[0].shape[0], u[0].numel()
+    g = torch.Generator(device=dev).manual_seed(13)
+    w = torch.rand(M, generator=g, device=dev) * 2 - 1
+    errs = {K13A: 0.0, K13B: 0.0}
+    for label, uu, mm, ww in (
+            ("f32", u, meshes, w),
+            ("f64", tuple(a.double() for a in u),
+             tuple(m.double() for m in meshes), w.double())):
+        want = k.cic_gather_exact_plain(mm, uu)
+        got3 = k.cic_gather_exact_cuda(mm, uu)
+        got1 = k.cic_gather_exact_cuda(mm[:1], uu)
+        same = all(torch.equal(a, b) for a, b in zip(got3, want)) \
+            and torch.equal(got1[0], want[0])
+        log(f"K13b {label} on COLA 512^3's step {step} (C = 3 and 1): "
+            f"bitwise equal to the plain gather: {same}")
+        check(same, f"K13b {label}: differs from the plain gather")
+        del want, got3, got1
+        for wt in (None, ww):
+            what = f"K13a {label} {'weighted' if wt is not None else ''}"
+            got = k.cic_paint_exact_cuda(uu, N, wt)
+            want = k.cic_paint_exact_plain(uu, N, wt)
+            err = norm_err(got, want)
+            errs[K13A] = max(errs[K13A], (got - want).abs().max().item())
+            if label == "f64":
+                log(f"{what}: {err:.3e} of max|value| from the plain paint")
+                check(err <= K13_F64_BOUND, f"{what}: {err} from the plain")
+            else:
+                tol = t.paint_tolerance(uu, N, wt)
+                within = bool(((got.double() - want.double()).abs()
+                               <= tol).all())
+                again = k.cic_paint_exact_cuda(uu, N, wt)
+                log(f"{what}: {err:.3e} of max|value| from the plain paint, "
+                    f"within the per-cell order bound: {within}; repeat gap "
+                    f"{norm_err(again, got):.3e} of max|value|")
+                check(within, f"{what}: beyond the order bound")
+                del tol, again
+            del got, want
+        del uu, mm, ww
+    out = tuple(torch.empty_like(u[0]) for _ in range(3))
+    ms_a = median_ms(lambda: k.cic_paint_exact_cuda(u, N))
+    ms_b = median_ms(lambda: k.cic_gather_exact_cuda(meshes, u, out))
+    plain_a = median_ms(lambda: k.cic_paint_exact_plain(u, N))
+    plain_b = median_ms(lambda: k.cic_gather_exact_plain(meshes, u))
+    cx, cy, cz = k._corners(u, N)
+    idx8 = torch.cat([((ix * N + iy) * N + iz) for ix, _ in cx
+                      for iy, _ in cy for iz, _ in cz])
+    w8 = torch.cat([wx * wy * wz for _, wx in cx for _, wy in cy
+                    for _, wz in cz])
+    del cx, cy, cz
+    lib_a = median_ms(lambda: torch.zeros(N ** 3, device=dev)
+                      .index_add_(0, idx8, w8))
+    del idx8, w8
+    n3 = N ** 3
+    # per particle: 3 floors, 3 subtractions and 2 more for the weights,
+    # 12 products and 8 adds (paint: atomic)
+    recs = [dict(name=K13A, max_abs_err=errs[K13A], ms=ms_a,
+                 plain_ms=plain_a, library_ms=lib_a,
+                 **roofline(nbytes(*u) + 4 * n3, 28 * M)),
+            dict(name=K13B, max_abs_err=0.0, ms=ms_b, plain_ms=plain_b,
+                 library_ms=None,
+                 **roofline(nbytes(*u) + 3 * 4 * n3 + 3 * 4 * M,
+                            (8 + 3 * 32) * M))]
+    for r in recs:
+        log(f"{r['name']} 512^3 f32 on COLA's exact state: {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}, {100 * r['bound_ms'] / r['ms']:.1f}"
+            f"% of it); the plain passes {r['plain_ms']:.4f} ms"
+            + (f"; index_add_ of the corners {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else ""))
+    return recs
+
+
+def exact_calls(diag, keep_velocities: bool) -> tuple:
+    """(K13a, K13b) launches of a realisation from its band record: a
+    paint and a three-mesh gather a force evaluation on the exact tier,
+    and the finish's paints (one, four with velocities) past band 3."""
+    n = sum(int(i) == 3 for i in diag["used_lattice"])
+    fin = float(diag["final_maxdisp"]) >= 3
+    return n + fin * (4 if keep_velocities else 1), n
+
+
 def run_cola(label: str, grid, cosmo0, dev, **kw):
     """One realisation with the kernels; returns (outputs, wall seconds)."""
     from fastbox_tpu_torch.fields.cola import realise_density_cola
@@ -1757,15 +1909,17 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     white = white_noise(gen, grid)
 
     _build.reset_launch_counts()
-    (d1, _, _), wall1 = run_cola("COLA 256^3 realisation 0 (first call)",
-                                 grid, cosmo0, dev, keep_velocities=False,
-                                 white=white)
-    (d2, _, _), wall2 = run_cola("COLA 256^3 realisation 1", grid, cosmo0,
-                                 dev, keep_velocities=False, generator=gen)
-    (d3, vel, _), wall3 = run_cola(
+    (d1, _, g1), wall1 = run_cola("COLA 256^3 realisation 0 (first call)",
+                                  grid, cosmo0, dev, keep_velocities=False,
+                                  white=white)
+    (d2, _, g2), wall2 = run_cola("COLA 256^3 realisation 1", grid, cosmo0,
+                                  dev, keep_velocities=False, generator=gen)
+    (d3, vel, g3), wall3 = run_cola(
         "COLA 256^3 realisation 2 (keep_velocities, per-component gathers)",
         grid, cosmo0, dev, keep_velocities=True, fuse_force_gather=False,
         generator=gen)
+    k13_want = [exact_calls(g, v) for g, v in ((g1, False), (g2, False),
+                                               (g3, True))]
     check(vel.shape == (3,) + grid.shape and bool(torch.isfinite(vel).all()),
           "COLA velocities not finite")
     log(f"COLA 256^3 velocities: rms {vel.double().std().item():.2f} km/s")
@@ -1775,9 +1929,10 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     del d2, d3, vel
     for box in (BOX, 2 * BOX):
         g512 = GridSpec.create(box_scale=box, nsamp=COLA_N[1])
-        d512 = run_cola(f"COLA 512^3 in a {box / 1e3:.0f} Gpc box", g512,
-                        cosmo0, dev, keep_velocities=False,
-                        generator=gen)[0][0]
+        (d512, _, g), _ = run_cola(f"COLA 512^3 in a {box / 1e3:.0f} Gpc box",
+                                   g512, cosmo0, dev, keep_velocities=False,
+                                   generator=gen)
+        k13_want.append(exact_calls(g, False))
         cola_health(g512, cosmo0, d512, f"COLA 512^3 {box / 1e3:.0f} Gpc")
         del d512
     counts = _build.launch_counts()
@@ -1790,6 +1945,14 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     n_k12 = counts.get(K12, 0)
     check(n_k12 == 5 * int(1 + COLA_Z_INIT),
           f"K12 launched {n_k12} times over five realisations")
+    # K13: the exact tier's paints and gathers, as the band records count
+    # them (the 512^3 realisations pass band 3 in their late steps)
+    n_k13 = {K13A: sum(a for a, _ in k13_want),
+             K13B: sum(b for _, b in k13_want)}
+    for name, n in n_k13.items():
+        check(counts.get(name, 0) == n and n > 0,
+              f"{name} launched {counts.get(name, 0)} times, the band "
+              f"records make {n}")
     log(f"COLA 256^3: {wall2 * 1e3:.1f} ms per realisation (realisation 1; "
         f"first call {wall1 * 1e3:.1f} ms, keep_velocities "
         f"{wall3 * 1e3:.1f} ms)")
@@ -1811,6 +1974,10 @@ def phase_cola(dev, kernels: list[dict]) -> None:
     k12 = k12_record(dev, eng_k, white)
     k12["launches"] = n_k12
     kernels.append(k12)
+    del eng_k, eng_p
+    for r in k13_records(dev):
+        r["launches"] = n_k13[r["name"]]
+        kernels.append(r)
     t0 = time.perf_counter()
     dp, _ = realise_density_cola(None, grid, cosmo0, white=white,
                                  redshift_init=COLA_Z_INIT, lattice_B=3,
@@ -2217,7 +2384,7 @@ def phase_sharded_cola(dev, mesh) -> list[dict]:
         check(counts.get(name, 0) == n, f"{name}: {counts.get(name, 0)} "
               f"launches, the code makes {n}")
     for name in ("cic_paint_lattice", "cic_gather_lattice",
-                 "cic_gather3_lattice", K12):
+                 "cic_gather3_lattice", K12, K13A, K13B):
         check(counts.get(name, 0) == 0, f"{name} launched on the slab path")
     for r in rows:
         r["launches"] = counts.get(r["name"], 0)

@@ -19,7 +19,8 @@ The state (x, v and the LPT fields p1, p2, each (3, N, N, N)) stays on the
 device through one Python loop over the steps, updated in place; at 512^3
 in f32 it is 6.4 GB.  The CIC paint and force gather take the lattice
 form (K11, ``ops/cuda/lattice_cic.py``) under an adaptive band ladder, and
-the exact ``index_add_`` scatter beyond the widest band.  The band is
+the exact CIC tier beyond the widest band (K13, ``ops/cuda/cic_exact.py``:
+one paint and one three-mesh gather a force evaluation).  The band is
 picked on the host from ``maxd.item()``: one device sync per force
 evaluation and one at the finish.  Each step's kick and drift are one
 pass over the state (K12, ``ops/cuda/cola_kick.py``).
@@ -35,6 +36,7 @@ from ..cosmology import background as bg
 from ..device import resolve
 from ..grid import GridSpec
 from ..ops import fft_safe
+from ..ops.cuda import cic_exact as exact
 from ..ops.cuda import cola_kick as kick
 from ..ops.cuda import lattice_cic as k11
 from ..ops.painting import compensation
@@ -43,63 +45,21 @@ from .gaussian import gaussian_field_from_whitenoise, white_noise
 from .lpt import lpt_displacements, second_order_growth
 
 __all__ = ["realise_density_cola", "ColaEngine", "cic_paint_particles",
-           "cic_gather"]
+           "cic_gather", "cic_gather3_particles"]
 
 
 # ----------------------------------------------------------------------
-# Exact CIC scatter / gather on the periodic grid (cell units)
+# Exact CIC scatter / gather on the periodic grid (cell units): K13 on
+# CUDA tensors, the plain passes on CPU tensors (ops/cuda/cic_exact.py)
 # ----------------------------------------------------------------------
-def _u_axes(u):
-    """Positions as (ux, uy, uz): from a tuple of flat components or an
-    (M, 3) tensor."""
-    if isinstance(u, (tuple, list)):
-        return tuple(u)
-    return u[:, 0], u[:, 1], u[:, 2]
-
-
-def _corners(u, N: int):
-    """Per axis, the two CIC cells of each position and their weights:
-    [(floor mod N, 1 - frac), (floor + 1 mod N, frac)]."""
-    out = []
-    for a in u:
-        fl = torch.floor(a)
-        fr = a - fl
-        i0 = fl.long()
-        out.append(((torch.remainder(i0, N), 1.0 - fr),
-                    (torch.remainder(i0 + 1, N), fr)))
-    return out
-
-
-def cic_paint_particles(u, N: int, weights=None):
-    """Scatter particles at positions ``u`` (cell units, any real; (M, 3)
-    or a (ux, uy, uz) tuple of (M,) tensors) onto an (N, N, N) periodic
-    mesh with CIC weights, by ``index_add_``."""
-    cx, cy, cz = _corners(_u_axes(u), N)
-    ref = cx[0][1]
-    mesh = torch.zeros(N**3, dtype=ref.dtype, device=ref.device)
-    for ix, wx in cx:
-        px = wx if weights is None else weights * wx
-        for iy, wy in cy:
-            pxy = px * wy
-            row = ix * N + iy
-            for iz, wz in cz:
-                mesh.index_add_(0, row * N + iz, pxy * wz)
-    return mesh.reshape(N, N, N)
+cic_paint_particles = exact.cic_paint_exact
+cic_gather3_particles = exact.cic_gather_exact
 
 
 def cic_gather(mesh, u):
     """Trilinear (CIC) interpolation of a periodic (N, N, N) mesh at
     positions ``u`` (cell units; (M, 3) or a component tuple)."""
-    N = mesh.shape[0]
-    flat = mesh.reshape(-1)
-    cx, cy, cz = _corners(_u_axes(u), N)
-    out = torch.zeros_like(cx[0][1])
-    for ix, wx in cx:
-        for iy, wy in cy:
-            row = ix * N + iy
-            for iz, wz in cz:
-                out = out + flat[row * N + iz] * wx * wy * wz
-    return out
+    return cic_gather3_particles((mesh,), u)[0]
 
 
 # ----------------------------------------------------------------------
@@ -398,9 +358,15 @@ class ColaEngine:
                 return fft_safe.irfftn(base * kvecs[ax], s).contiguous()
 
         F = torch.empty((3, N, N, N), dtype=self.dtype, device=self.device)
-        if b is not None and b <= self.fuse_band:
+        if b is None or b <= self.fuse_band:
             comps = tuple(comp(ax) for ax in range(3))
             clock.mark("solve")
+            if b is None:
+                # one exact gather of the three meshes into the force rows
+                timing.count("exact.gather", 3)
+                cic_gather3_particles(comps, self._flat(u), out=self._flat(F))
+                clock.mark("gather_exact")
+                return F, diag
             if self.lattice_impl == "cuda":
                 # K11c gathers straight into the force rows
                 self._gather3(comps, d, b, True, out=F.unbind(0))
@@ -413,13 +379,8 @@ class ColaEngine:
         for ax in range(3):
             mesh = comp(ax)
             clock.mark("solve")
-            if b is not None:
-                F[ax] = self._gather(mesh, d, b, True)
-                clock.mark("gather")
-            else:
-                timing.count("exact.gather")
-                F[ax] = cic_gather(mesh, self._flat(u)).reshape(N, N, N)
-                clock.mark("gather_exact")
+            F[ax] = self._gather(mesh, d, b, True)
+            clock.mark("gather")
         return F, diag
 
     def step(self, x, v, p1, p2, i: int, clock=timing.NULL_CLOCK):
@@ -530,7 +491,8 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     kernels; raises off a CUDA device), ``"plain"`` (the roll-form twins,
     any device) or ``"auto"`` (the kernels on a CUDA device, the twins on
     the CPU).  ``fuse_force_gather`` gathers the three force components in
-    one call for bands <= it (True: every band, False: never).
+    one call for bands <= it (True: every band, False: never); the exact
+    tier always gathers them in one call.
 
     ``gradient``: ``"spectral"`` (default; three C2R transforms per step)
     or ``"fd4"``/``"fd6"`` (one C2R of the potential and 4th/6th-order
@@ -539,12 +501,14 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     (the white-noise draw), schedule (the engine's set-up, its host step
     schedule), ic (2LPT), prep, paint, solve, gather, update and finish
     (on the exact tier paint_exact and gather_exact in place of paint and
-    gather); it counts each paint's band
+    gather, one each a force evaluation); it counts each paint's band
     (``cola.band<b>``, or ``cola.exact`` for the exact scatter; one a
     force evaluation and one for the final paints), the exact tier's
     force paints (``exact.paint``, one a force evaluation) and gathers
-    (``exact.gather``, one a force component), and each band pick's host
-    sync (``sync.cola_band``).
+    (``exact.gather``, one a force component), each exact paint or gather
+    call's implementation (``exactcic.fused`` for K13, ``exactcic.plain``
+    for the plain passes), and each band pick's host sync
+    (``sync.cola_band``).
 
     With ``diagnostics=True`` a third return value holds ``maxdisp`` (max
     wrapped displacement in cells at each force evaluation), ``frac_out``

@@ -81,6 +81,8 @@ _SIGNATURES = {
     "fbx_key_poisson": (_P, _I64, _I64, _P, _P, _P, _I64, _P),
     "fbx_cola_kick_drift": (_P, _P, _P, _P, _P, _I64) + (_F64,) * 8
     + (_INT, _P),
+    "fbx_cic_paint_exact": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    "fbx_cic_gather_exact": (_P,) * 9 + (_I64, _I64, _INT, _P),
 }
 
 _launches: collections.Counter = collections.Counter()

@@ -59,7 +59,7 @@ def test_kernel_sources_ship_with_the_package():
     assert {"common.cuh", "noise.cu", "rsd_fused.cu", "rsd_interp.cu",
             "binned_pk_v2.cu", "lattice_cic.cu", "binned_pk.cu",
             "half_draw.cu", "banded_interp.cu", "mmdft.cu",
-            "cola_kick.cu"} <= names
+            "cola_kick.cu", "cic_exact.cu"} <= names
     # the build key follows the sources and the toolkit
     assert _build.build_key("nvcc 12.8") != _build.build_key("nvcc 12.9")
 
