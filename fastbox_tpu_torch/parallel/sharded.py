@@ -21,8 +21,9 @@ realisation is a function of its seed alone, and the single pipeline in
 K8 (K3 beyond the band) in the RSD remap, K1 in supplied-normals mode for
 the radiometer noise, and K4 per slab for P(k) on cubic grids (K4t with
 ``pallas_pk='v2t'``; K5 off them), with the per-slab sums all-reduced and
-the counts hoisted.  ``pk_debias`` is subtracted from the retained cleaned
-bins, as the single pipeline does.
+the counts hoisted.  The host constants and the bin plan are the single
+pipeline's (``mock_plan.MockPlan``, on this slab's rows), so ``pk_debias``
+is subtracted from the retained cleaned bins as there.
 """
 from __future__ import annotations
 
@@ -31,20 +32,14 @@ import torch
 import torch.distributed as dist
 
 from .. import timing
-from ..constants import C_MS
 from ..device import resolve
 from ..fields.gaussian import complex_dtype
 from ..filters.pca import _work, top_eigvecs, topk_eigvecs_subspace
 from ..grid import GridSpec
-from ..models import noise as noise_mod
+from ..mock_plan import MockPlan
 from ..models.foregrounds import _scipy_gaussian_kernel1d
-from ..ops import spectra as spectra_ops
-from ..ops.cuda.binned_pk import binned_pk_half_dual
-from ..ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
-from ..ops.reduce import binned_weighted_dual
 from ..ops.rsd import add_scaled_normal, remap_los_batched
-from ..pipeline import (PipelineConfig, _hi_bias, _hi_tb, _pk_debias,
-                        _pk_route, amp_half_table)
+from ..pipeline import PipelineConfig
 from .fft import pfft2_local, pifft2_local, pirfft3_local, prfft3_local
 from .mesh import axis_group, collective, ens_share, gather_ens
 from .rng import TAGS, row_normal
@@ -81,7 +76,6 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
     dtype = getattr(torch, config.dtype)
     cdtype = complex_dtype(dtype)
     N = grid.N
-    H = N // 2 + 1
     space_group, P, s_rank = axis_group(mesh, "space")
     if N % P != 0:
         raise ValueError(f"N={N} must be divisible by the 'space' axis {P}")
@@ -89,132 +83,37 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
     rows = slice(s_rank * Np, (s_rank + 1) * Np)
     row0 = s_rank * Np
 
-    z = grid.redshift
-    bias = float(config.bias if config.bias is not None else _hi_bias(z))
-    Tb = float(_hi_tb(z))
-    Hz = 100.0 * cosmology.h * cosmology.Ea
-    vel_fac = float(100.0 * cosmology.h * cosmology.Ea
-                    * cosmology.growth_rate * cosmology.scale_factor)
+    plan = MockPlan(grid, cosmology, config, device, rows, amp_half)
+    vz_w = plan.vz_weight()
 
     def dev_tensor(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-
-    kx, ky, kz = grid.kvec(dtype, device)
-    kx_loc = kx[rows]
-    kzh = kz[:H]
-    if amp_half is None:
-        amp_half = amp_half_table(grid, cosmology, config.linear_pk)
-    if amp_half.shape != (N, N, H):
-        raise ValueError(f"amp_half must be {(N, N, H)}")
-    amp_loc = amp_half[rows].to(device=device, dtype=dtype).contiguous()
-    # LOS velocity weight vel_fac kz / k^2, zero on the Nyquist plane
-    k2 = (kx_loc[:, None, None] ** 2 + ky[None, :, None] ** 2
-          + kzh[None, None, :] ** 2)
-    inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
-                         torch.zeros_like(k2))
-    vz_w = (torch.tensor(vel_fac, dtype=dtype) * kzh)[None, None, :] * inv_k2
-    nyq_z = grid.nyquist_mask(2, device)[:H]
-    vz_w = torch.where(nyq_z[None, None, :], torch.zeros_like(vz_w), vz_w)
-    del k2, inv_k2
 
     zgrid = np.asarray(grid.z)
     z_t = dev_tensor(zgrid)
     z0 = float(zgrid[0])
     L_z = float(zgrid[-1] - zgrid[0])
-    hz_t = torch.tensor(Hz, dtype=dtype, device=device)
-
-    freqs = grid.freq_array(cosmology)
-    ang_x, _ = grid.pixel_array(cosmology)
-    dang = ang_x[1] - ang_x[0]
-    sigma_c = dev_tensor(noise_mod.radiometer_sigma(
-        freqs, ang_x, config.Tinst, config.tp_hours, config.fov_deg2,
-        config.Ndish))
+    hz_t = torch.tensor(plan.Hz, dtype=dtype, device=device)
 
     # Foregrounds (sharded.py:124-144, :231-263): the smoothing kernels'
-    # spectra, the C_ell amplitude of this slab's rows, and the spectral
-    # factors in host f64
+    # spectra and the C_ell amplitude of this slab's rows
     if config.include_foregrounds:
         fg_kern = dev_tensor(np.fft.fft(_scipy_gaussian_kernel1d(
-            config.fg_smoothing_deg / dang, N)), cdtype)
+            plan.fg_sigma_pix, N)), cdtype)
         al_kern = dev_tensor(np.fft.fft(_scipy_gaussian_kernel1d(
-            config.spec_idx_smoothing_deg / dang, N)), cdtype)
-        k_perp = torch.sqrt(kx_loc[:, None] ** 2 + ky[None, :] ** 2)
+            plan.alpha_sigma_pix, N)), cdtype)
+        kx, ky, _ = plan.kvec()
+        k_perp = torch.sqrt(kx[:, None] ** 2 + ky[None, :] ** 2)
         ell = 0.5 * k_perp * cosmology.chi / 1000.0
         C_ell = torch.where(
             ell > 0, config.fg_amp * torch.where(
                 ell > 0, ell, torch.ones_like(ell)) ** config.fg_beta,
             torch.zeros_like(ell)) * (N ** 4 / (grid.Lx * grid.Ly))
         sqrt_cell = torch.sqrt(C_ell)
-        logf = np.log(np.asarray(freqs, np.float64) / config.freq_ref)
-        use_fg_poly = (config.fg_spectral == "poly"
-                       and 8.0 * config.spec_idx_std * np.abs(logf).max()
-                       < 1e-2)
-        ffac_mean_c = dev_tensor(np.power(np.asarray(freqs, np.float64)
-                                          / config.freq_ref,
-                                          config.spec_idx_mean))
-        logf_c = dev_tensor(logf)
-        freqs_c = dev_tensor(freqs.copy())
 
-    # Instrument response (sharded.py:115-122, :272-282)
-    beam_fac = kpar_filter = None
-    if config.beam_dish_m is not None:
-        lam = C_MS / (freqs * 1e6)
-        fwhm = 1.22 * lam / config.beam_dish_m                  # rad
-        sig2 = dev_tensor((fwhm / np.sqrt(8.0 * np.log(2.0)))
-                          * cosmology.chi) ** 2
-        kperp2 = kx_loc[:, None] ** 2 + ky[None, :] ** 2
-        beam_fac = torch.exp(-0.5 * kperp2[:, :, None] * sig2[None, None, :])
-    if config.kpar_min is not None:
-        kpar_filter = 1.0 - torch.exp(-0.5 * (kzh / config.kpar_min) ** 2)
-
-    # The bin plan of step (8), this slab's rows of it
-    kz_weight = np.full(H, 2.0)
-    kz_weight[0] = 1.0
-    if N % 2 == 0:
-        kz_weight[-1] = 1.0
-    kzw_j = dev_tensor(kz_weight)
-    kbins = np.asarray(spectra_ops.default_kbins(grid, config.nbins))
-    nb = kbins.size
-    debias = _pk_debias(config, nb, device, dtype)
-    e_ = np.concatenate([[0.0], kbins])
-    kcent = dev_tensor(0.5 * (e_[1:] + e_[:-1])[1:])
-    thr = spectra_ops.kbin_thresholds(grid, kbins)
-    pk_route = _pk_route(config.pallas_pk, thr is not None)
-    hoisted = pk_route in ("v2", "v2t")
-    if hoisted:
-        fi2 = spectra_ops._index_sq(grid)
-        fi2_j = dev_tensor(fi2, torch.int32)
-        fi2_loc = fi2_j[rows].contiguous()
-        fi2h_j = dev_tensor(fi2[:H], torch.int32)
-        thr_j = dev_tensor(thr, torch.int32)
-        cnt_j = dev_tensor(spectra_ops.hoisted_counts(grid, thr, kz_weight))
-    elif pk_route == "v1":
-        kx2_b, ky2_b, kz2_b, edges2_j = spectra_ops.kbin_plan(
-            grid, kbins, dtype, device)
-        kx2_loc = kx2_b[rows].contiguous()
-        kz2h_b = kz2_b[:H].contiguous()
-    else:
-        bin_idx = spectra_ops._bin_index(grid, kbins, thr, H, dtype, device) \
-            .reshape(N, N, H)[rows].reshape(-1)
-        w_flat = torch.broadcast_to(kzw_j[None, None, :], (Np, N, H)) \
-            .reshape(-1)
-    boxf = torch.tensor(grid.boxfactor, dtype=dtype, device=device)
-
-    def bin_slab(p1, p2):
-        """(sum w p1, sum w p1^2, sum w p2, count) per bin over this slab;
-        the count is the full cube's where it is hoisted (None).  K4t's
-        differences are linear, so this slab's share of each bin sums with
-        the other slabs' as K4's does."""
-        if hoisted:
-            return (*binned_pk_half_dual_v2(
-                p1, p2, fi2_loc, fi2_j, fi2h_j, kzw_j, thr_j,
-                telescoped=pk_route == "v2t"), None)
-        if pk_route == "v1":
-            return binned_pk_half_dual(p1, p2, kx2_loc, ky2_b, kz2h_b, kzw_j,
-                                       edges2_j)
-        s1, q1, s2, _, cnt = binned_weighted_dual(
-            p1.reshape(-1), p2.reshape(-1), w_flat, bin_idx, nb)
-        return s1, q1, s2, cnt
+    # Instrument response (sharded.py:115-122, :272-282): the beam on the
+    # full 2D FFT grid of this slab's rows
+    beam_fac = plan.beam(N)
 
     def all_reduce(t):
         collective(t)
@@ -250,13 +149,14 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
 
         # (1) Gaussian realisation: real white rows, one half-spectrum FFT
         white = draw("density", (N, N))
-        delta_k = prfft3_local(white, space_group) * (N ** -1.5) * amp_loc
+        delta_k = prfft3_local(white, space_group) * (N ** -1.5) \
+            * plan.amp_half
         del white
         delta_x = pirfft3_local(delta_k, N, space_group)
         clock.mark("density")
 
         # (2) bias + lognormal, the mean over the whole cube
-        e = torch.exp(delta_x * bias)
+        e = torch.exp(delta_x * plan.bias)
         del delta_x
         mean_e = all_reduce(torch.sum(e, dim=(1, 2, 3))) / N ** 3
         delta_ln = e / mean_e[:, None, None, None] - 1.0
@@ -281,7 +181,7 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
             fill.reshape(-1), method=config.rsd_method, ztarget_np=zgrid,
         ).reshape(delta_ln.shape)
         del svals, delta_ln, fill
-        data = Tb * (1.0 + delta_s)
+        data = plan.Tb * (1.0 + delta_s)
         del delta_s
         clock.mark("rsd")
 
@@ -297,20 +197,20 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
                                   space_group)
             dalpha = pifft2_local(alpha_k * al_kern[rows][None, :, None]
                                   * al_kern[None, None, :], space_group).real
-            if use_fg_poly:
-                u = dalpha[..., None] * logf_c
+            if plan.fg_poly:
+                u = dalpha[..., None] * plan.logf
                 expu = 1.0 + u * (1.0 + u * (0.5 + u * (1.0 / 6.0)))
-                ffac = ffac_mean_c * expu
+                ffac = plan.ffac_mean * expu
             else:
                 alpha = dalpha + config.spec_idx_mean
-                ffac = (freqs_c / config.freq_ref) ** alpha[..., None]
+                ffac = (plan.freqs / config.freq_ref) ** alpha[..., None]
             data = data + fg_x[..., None] * ffac
             del ffac
             clock.mark("foregrounds")
 
         # (6) radiometer noise (K1, supplied normals)
         if config.include_noise:
-            data = add_scaled_normal(data, sigma_c,
+            data = add_scaled_normal(data, plan.sigma,
                                      normals=draw("noise", (N, N)))
             clock.mark("noise")
 
@@ -320,10 +220,10 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
             dk2 = pfft2_local(data.to(cdtype), space_group)
             data = pifft2_local(dk2 * beam_fac, space_group).real
             del dk2
-        if kpar_filter is not None:
-            data = torch.fft.irfft(torch.fft.rfft(data, dim=3) * kpar_filter,
-                                   n=N, dim=3)
-        if beam_fac is not None or kpar_filter is not None:
+        if plan.kpar_filter is not None:
+            data = torch.fft.irfft(
+                torch.fft.rfft(data, dim=3) * plan.kpar_filter, n=N, dim=3)
+        if beam_fac is not None or plan.kpar_filter is not None:
             clock.mark("instrument")
 
         # (7) PCA clean, the mean spectrum and covariance all-reduced; a
@@ -350,23 +250,19 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         # the sums all-reduced
         ck = prfft3_local(cleaned, space_group)
         del cleaned
-        p_clean = (ck.real.square() + ck.imag.square()) / boxf
+        p_clean = (ck.real.square() + ck.imag.square()) / plan.boxfactor
         del ck
-        p_dens = (delta_k.real.square() + delta_k.imag.square()) / boxf
+        p_dens = (delta_k.real.square() + delta_k.imag.square()) \
+            / plan.boxfactor
         del delta_k
         sums, cnts = [], []
         for b in range(B_loc):
-            s1, q1, s2, cnt = bin_slab(p_clean[b].contiguous(),
-                                       p_dens[b].contiguous())
+            s1, q1, s2, cnt = plan.bins.sums(p_clean[b], p_dens[b])
             sums.append(torch.stack([s1, q1, s2]))
             cnts.append(cnt)
         sums = all_reduce(torch.stack(sums))                 # (B_loc, 3, nb)
-        cnt = cnt_j if hoisted else all_reduce(torch.stack(cnts))
-        s1, q1, s2 = sums.unbind(1)
-        pk_mean = s1 / cnt
-        var = torch.clamp(q1 / cnt - pk_mean ** 2, min=0.0)
-        var = torch.where(cnt > 1, var, torch.zeros_like(var))
-        pk_err = torch.sqrt(var) / torch.sqrt(cnt)
+        cnt = None if plan.bins.hoisted else all_reduce(torch.stack(cnts))
+        local = plan.bins.finish(*sums.unbind(1), cnt)
 
         # sigma of the data cube over all N^3 voxels (ddof=0), summed in f64
         dsum = all_reduce(torch.sum(data, dim=(1, 2, 3), dtype=torch.float64))
@@ -376,13 +272,9 @@ def make_sharded_ensemble_step(mesh, grid: GridSpec, cosmology,
         sigma = torch.sqrt(torch.clamp(dsq / N ** 3 - dmean ** 2, min=0.0))
         clock.mark("pk")
 
-        pk_clean = pk_mean[:, 1:]
-        if debias is not None:
-            pk_clean = pk_clean - debias
-        local = {"pk_cleaned": pk_clean, "pk_cleaned_err": pk_err[:, 1:],
-                 "pk_density": (s2 / cnt)[:, 1:], "sigma_data": sigma.to(dtype)}
+        local["sigma_data"] = sigma.to(dtype)
         out = {k: gather_ens(mesh, v) for k, v in local.items()}
-        out["k"] = kcent
+        out["k"] = plan.bins.k
         return out
 
     return fn

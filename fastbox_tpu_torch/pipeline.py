@@ -18,9 +18,9 @@ cubic and anisotropic boxes.  The stages:
   9. binned P(k) of the cleaned cube and of the density  (K4 | K4t | K5)
 
 The host set-up (cosmology, instrument scalars, sqrt(P) on the half grid,
-the bin plan) runs once in ``make_pipeline``; the returned function runs
-stages 1-9 on ``device``, split as fastbox_tpu's ``fn_pre`` (1-7b, its
-``pre`` attribute) and ``fn_post`` (8-9, ``post``).
+the bin plan: ``mock_plan.MockPlan``) runs once in ``make_pipeline``; the
+returned function runs stages 1-9 on ``device``, split as fastbox_tpu's
+``fn_pre`` (1-7b, its ``pre`` attribute) and ``fn_post`` (8-9, ``post``).
 
 Random draws.  The pipeline function takes a key, a ``torch.Generator``
 or the ``draws`` dict.  A key (an int seed, ``jax.random.PRNGKey(seed)``,
@@ -64,7 +64,6 @@ the config's dtype (``filters.pca``).
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from collections.abc import Mapping
 
 import numpy as np
@@ -72,21 +71,16 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from . import keys, timing
-from .constants import C_MS
 from .cosmology import Cosmology
 from .device import resolve
 from .fields import gaussian, transforms
 from .filters import pca
 from .grid import GridSpec
-from .models import noise as noise_mod
+from .mock_plan import MockPlan, amp_half_table
 from .models.foregrounds import ForegroundModel, gaussian_smooth_wrap
 from .ops import fft_safe
 from .ops import rsd as rsd_ops
-from .ops import spectra as spectra_ops
 from .ops.cuda import half_draw
-from .ops.cuda.binned_pk import binned_pk_half_dual
-from .ops.cuda.binned_pk_v2 import binned_pk_half_dual_v2
-from .ops.reduce import binned_weighted_dual
 from .parallel import rng
 
 __all__ = ["PipelineConfig", "make_pipeline", "draw_inputs", "amp_half_table",
@@ -199,16 +193,6 @@ class PipelineConfig:
                     f"(ROADMAP.md {item})")
 
 
-def _hi_bias(z):
-    """Bull et al. (2015) b_HI(z) fit (reference tracers.py:129-144)."""
-    return 6.6655e-01 + 1.7765e-01 * z + 5.0223e-02 * z**2
-
-
-def _hi_tb(z):
-    """Tb(z) power-law fit in mK (reference tracers.py:115-117)."""
-    return 5.5919e-02 + 2.3242e-01 * z - 2.4136e-02 * z**2
-
-
 class _KeyDraws(Mapping):
     """The five ``draws`` arrays of a key, each drawn on first access:
     ``split(key, 5)`` in ``DRAW_NAMES`` order, then fastbox_tpu's
@@ -275,21 +259,6 @@ def draw_inputs(grid: GridSpec, generator, dtype=torch.float32,
     return out
 
 
-def amp_half_table(grid: GridSpec, cosmology: Cosmology,
-                   linear_pk: bool = False) -> torch.Tensor:
-    """sqrt(P(k) boxfactor) on the rfft half grid, tabulated once at build
-    time in the P(k) tables' dtype and device
-    (fastbox_tpu/pipeline.py:334-340)."""
-    pk_fn = cosmology.pk_lin if linear_pk else cosmology.pk_nl
-    H = grid.N // 2 + 1
-    kx, ky, kz = grid.kvec(pk_fn.lnk.dtype, pk_fn.lnk.device)
-    kmag = torch.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2
-                      + kz[:H][None, None, :] ** 2)
-    pk = torch.nan_to_num(pk_fn(kmag))
-    return torch.sqrt(pk * torch.tensor(grid.boxfactor, dtype=pk.dtype,
-                                        device=pk.device))
-
-
 def vz_vectors(grid: GridSpec, vel_fac: float, dtype=torch.float32,
                device="cpu"):
     """K9b's velocity-weight operands (kx2col (N,), kyz2row and kznumrow
@@ -304,38 +273,6 @@ def vz_vectors(grid: GridSpec, vel_fac: float, dtype=torch.float32,
                                  device=device) for a in (
         kx ** 2, (ky[:, None] ** 2 + kzh[None, :] ** 2).reshape(N * H),
         np.broadcast_to(kznum[None, :], (N, H)).reshape(N * H)))
-
-
-def _pk_route(pallas_pk: str, cubic: bool) -> str:
-    """'v2' (K4, hoisted counts), 'v2t' (K4t, telescoped), 'v1' (K5) or
-    'plain', as fastbox_tpu routes step (9) on a TPU
-    (fastbox_tpu/pipeline.py:376-400)."""
-    if pallas_pk == "off":
-        return "plain"
-    if pallas_pk == "on":
-        return "v1"
-    if cubic:
-        return "v2t" if pallas_pk == "v2t" else "v2"
-    if pallas_pk in ("v2", "v2t"):
-        warnings.warn(
-            f"pallas_pk='{pallas_pk}' requires a cubic-exact grid "
-            "(kbin_thresholds returned None); falling back to the v1 kernel"
-            + (" and dropping telescoping" if pallas_pk == "v2t" else ""),
-            stacklevel=3)
-    return "v1"
-
-
-def _pk_debias(config: PipelineConfig, nb: int, device, dtype):
-    """``config.pk_debias`` as a tensor (None when unset), checked to hold
-    one value per retained bin."""
-    if config.pk_debias is None:
-        return None
-    if len(config.pk_debias) != nb - 1:
-        raise ValueError(
-            f"pk_debias must have length {nb - 1} (the retained bins); "
-            f"got {len(config.pk_debias)}")
-    return torch.as_tensor(np.asarray(config.pk_debias), dtype=dtype,
-                           device=device)
 
 
 def make_pipeline(grid: GridSpec, cosmology: Cosmology,
@@ -373,110 +310,21 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
     ddt = getattr(torch, config.draw_dtype) if config.draw_dtype else dtype
     N = grid.N
     H = N // 2 + 1
-    z = grid.redshift
-    bias = float(config.bias if config.bias is not None else _hi_bias(z))
-    Tb = float(_hi_tb(z))
-    Hz = 100.0 * cosmology.h * cosmology.Ea
-    vel_fac = float(100.0 * cosmology.h * cosmology.Ea
-                    * cosmology.growth_rate * cosmology.scale_factor)
-
-    def dev_tensor(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-
-    # Host-side instrument constants
-    freqs = grid.freq_array(cosmology)
-    ang_x, _ = grid.pixel_array(cosmology)
-    dang = ang_x[1] - ang_x[0]
-    fg_sigma_pix = config.fg_smoothing_deg / dang
-    alpha_sigma_pix = config.spec_idx_smoothing_deg / dang
-    sigma_j = dev_tensor(noise_mod.radiometer_sigma(
-        freqs, ang_x, config.Tinst, config.tp_hours, config.fov_deg2,
-        config.Ndish))
-    freqs_j = dev_tensor(freqs.copy())
-    # Foreground spectral factors in f64 on the host; the poly path needs
-    # |dalpha * logf| << 1 (fastbox_tpu/pipeline.py:303-316).
-    logf = np.log(np.asarray(freqs, np.float64) / config.freq_ref)
-    use_fg_poly = (config.fg_spectral == "poly"
-                   and 8.0 * config.spec_idx_std * np.abs(logf).max() < 1e-2)
-    ffac_mean_j = dev_tensor(np.power(np.asarray(freqs, np.float64)
-                                      / config.freq_ref, config.spec_idx_mean))
-    logf_j = dev_tensor(logf)
-
-    if amp_half is None:
-        amp_half = amp_half_table(grid, cosmology, config.linear_pk)
-    if amp_half.shape != (N, N, H):
-        raise ValueError(f"amp_half must be {(N, N, H)}")
-    amp_half = amp_half.to(device=device, dtype=dtype).contiguous()
+    plan = MockPlan(grid, cosmology, config, device, amp_half=amp_half)
+    amp_half = plan.amp_half
     amp2d = amp_half.reshape(N, N * H)
-
-    kxv, kyv, kzv = grid.kvec(dtype, device)
-    kz_half = kzv[:H]
-    nyq_z = grid.nyquist_mask(2, device)[:H]
     rows_mode = config.noise_scheme == "rows"
     # the row-keyed draws are white rows in x-space: K9 has no part in them
     use_k9 = not rows_mode and config.pallas_draw in ("auto", "on", "vz")
     vz_mode = use_k9 and config.pallas_draw == "vz"
     if vz_mode:
-        kx2col_j, kyz2row_j, kznumrow_j = vz_vectors(grid, vel_fac, dtype,
-                                                     device)
+        kx2col_j, kyz2row_j, kznumrow_j = vz_vectors(grid, plan.vel_fac,
+                                                     dtype, device)
     else:
-        # LOS velocity weight vel_fac * kz / k^2 on the half grid, zero on
-        # the Nyquist plane (fastbox_tpu/pipeline.py:526-533)
-        k2 = (kxv[:, None, None] ** 2 + kyv[None, :, None] ** 2
-              + kz_half[None, None, :] ** 2)
-        inv_k2 = torch.where(k2 > 0.0, 1.0 / torch.where(k2 > 0.0, k2, 1.0),
-                             torch.zeros_like(k2))
-        vz_w = (torch.tensor(vel_fac, dtype=dtype) * kz_half)[None, None, :] \
-            * inv_k2
-        vz_w = torch.where(nyq_z[None, None, :], torch.zeros_like(vz_w), vz_w)
-        del k2, inv_k2
-
-    # Instrument response (fastbox_tpu/pipeline.py:636-655), tabulated once
-    beam = kpar_filter = None
-    if config.beam_dish_m is not None:
-        lam = C_MS / (freqs * 1e6)
-        fwhm = 1.22 * lam / config.beam_dish_m                  # rad
-        sigma_r = (fwhm / np.sqrt(8.0 * np.log(2.0))) * cosmology.chi
-        sig_j = dev_tensor(sigma_r)                             # (Nfreq,) Mpc
-        kperp2 = kxv[:, None] ** 2 + kyv[:H][None, :] ** 2
-        beam = torch.exp(-0.5 * kperp2[:, :, None]
-                         * (sig_j ** 2)[None, None, :])
-    if config.kpar_min is not None:
-        kpar_filter = 1.0 - torch.exp(-0.5 * (kz_half / config.kpar_min) ** 2)
-
-    # Half-spectrum kz multiplicity and the bin plan of step (9)
-    kz_weight = np.full(H, 2.0, dtype=np.float64)
-    kz_weight[0] = 1.0
-    if N % 2 == 0:
-        kz_weight[-1] = 1.0
-    kzw_j = dev_tensor(kz_weight)
-    kbins_edges = np.asarray(spectra_ops.default_kbins(grid, config.nbins))
-    nb = kbins_edges.size
-    debias_j = _pk_debias(config, nb, device, dtype)
-    e_ = np.concatenate([[0.0], kbins_edges])
-    kcent_j = dev_tensor(0.5 * (e_[1:] + e_[:-1])[1:])
-    thr = spectra_ops.kbin_thresholds(grid, kbins_edges)
-    pk_route = _pk_route(config.pallas_pk, thr is not None)
-    if pk_route in ("v2", "v2t"):
-        # the exact integer-lattice plan and its counts (K4, K4t)
-        fi2 = spectra_ops._index_sq(grid)
-        fi2_j = dev_tensor(fi2, torch.int32)
-        fi2h_j = dev_tensor(fi2[:H], torch.int32)
-        thr_j = dev_tensor(thr, torch.int32)
-        cnt_j = dev_tensor(spectra_ops.hoisted_counts(grid, thr, kz_weight))
-    elif pk_route == "v1":
-        # squared-space digitize operands (K5), counts from the kernel
-        kx2_b, ky2_b, kz2_b, edges2_j = spectra_ops.kbin_plan(
-            grid, kbins_edges, dtype, device)
-        kz2h_b = kz2_b[:H].contiguous()
-    else:
-        # the bin of every half-spectrum mode, as fastbox_tpu's XLA path
-        # digitizes (fastbox_tpu/pipeline.py:422-440)
-        bin_idx = spectra_ops._bin_index(grid, kbins_edges, thr, H, dtype,
-                                         device)
-        w_flat = torch.broadcast_to(kzw_j[None, None, :], (N, N, H)) \
-            .reshape(-1)
-    boxf = torch.tensor(grid.boxfactor, dtype=dtype, device=device)
+        vz_w = plan.vz_weight()
+    # the beam on the rfft2 grid of the (x, y) plane
+    beam = plan.beam(H)
+    kpar_filter = plan.kpar_filter
     sigma_nl_row = torch.full((N,), config.sigma_nl, dtype=dtype,
                               device=device)
 
@@ -611,7 +459,7 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
             clock.mark("velocity_irfft")
 
             # (2) bias + log-normal
-            delta_ln = transforms.lognormal(delta_x * bias)
+            delta_ln = transforms.lognormal(delta_x * plan.bias)
             clock.mark("lognormal")
 
             # (4) sigma_NL dispersion (K1, with max|v|), then the remap (K2/K3;
@@ -625,12 +473,13 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                     vel_z, sigma_nl_row, generator, draw(draws, "rsd"),
                     return_max=True)
             delta_s = rsd_ops.redshift_space_density(
-                delta_ln, vel_z, grid, Hz, vmax=vmax, method=config.rsd_method)
+                delta_ln, vel_z, grid, plan.Hz, vmax=vmax,
+                method=config.rsd_method)
             del delta_ln
             clock.mark("rsd")
 
             # (5) signal cube in mK, (6) foregrounds
-            data = Tb * (1.0 + delta_s)
+            data = plan.Tb * (1.0 + delta_s)
             fg_cube = fg_map = alpha_map = None
             if config.include_foregrounds:
                 white2d = draw(draws, "fg", lambda: gaussian._complex_normal(
@@ -639,33 +488,33 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
                     (N, N), generator=generator, dtype=dtype, device=device))
                 fg_map = ForegroundModel.foreground_amp_from_whitenoise(
                     white2d, grid, cosmology.chi, config.fg_amp,
-                    config.fg_beta, config.fg_monopole, fg_sigma_pix)
-                if use_fg_poly:
+                    config.fg_beta, config.fg_monopole, plan.fg_sigma_pix)
+                if plan.fg_poly:
                     dalpha = config.spec_idx_std * gaussian_smooth_wrap(
-                        alpha_w, alpha_sigma_pix)
+                        alpha_w, plan.alpha_sigma_pix)
                     alpha_map = config.spec_idx_mean + dalpha
                     fg_cube = ForegroundModel.construct_cube_smallalpha_fn(
-                        fg_map, dalpha, ffac_mean_j, logf_j)
+                        fg_map, dalpha, plan.ffac_mean, plan.logf)
                 else:
                     alpha_map = gaussian_smooth_wrap(
                         config.spec_idx_mean + config.spec_idx_std * alpha_w,
-                        alpha_sigma_pix)
+                        plan.alpha_sigma_pix)
                     fg_cube = ForegroundModel.construct_cube_fn(
-                        fg_map, alpha_map, freqs_j, config.freq_ref)
+                        fg_map, alpha_map, plan.freqs, config.freq_ref)
                 data = data + fg_cube
             clock.mark("foregrounds")
 
             # (7) radiometer noise (K1), (7b) instrument response
             if config.include_noise:
                 data = rsd_ops.add_scaled_normal(
-                    data, sigma_j, generator, draw(draws, "noise"))
+                    data, plan.sigma, generator, draw(draws, "noise"))
             if beam is not None or kpar_filter is not None:
                 clock.mark("noise")
                 data = instrument(data)
             out = {
                 "data": data,
                 "p_dens": (delta_k.real.square()
-                           + delta_k.imag.square()) / boxf,
+                           + delta_k.imag.square()) / plan.boxfactor,
                 "sigma_data": torch.std(data, correction=0),
             }
             if want_cov:
@@ -695,36 +544,12 @@ def make_pipeline(grid: GridSpec, cosmology: Cosmology,
 
             # (9) binned P(k) of the cleaned cube and the density
             ck = fft_safe.rfftn(cleaned)
-            p_clean = (ck.real.square() + ck.imag.square()) / boxf
+            p_clean = (ck.real.square() + ck.imag.square()) / plan.boxfactor
             del ck
-            # (cuFFT may hand back permuted strides; the kernels read C order)
-            p_dens = pre_out["p_dens"]
-            if pk_route in ("v2", "v2t"):
-                s1, q1, s2 = binned_pk_half_dual_v2(
-                    p_clean.contiguous(), p_dens.contiguous(), fi2_j, fi2_j,
-                    fi2h_j, kzw_j, thr_j, telescoped=pk_route == "v2t")
-                cnt = cnt_j
-            elif pk_route == "v1":
-                s1, q1, s2, cnt = binned_pk_half_dual(
-                    p_clean.contiguous(), p_dens.contiguous(), kx2_b, ky2_b,
-                    kz2h_b, kzw_j, edges2_j)
-            else:
-                s1, q1, s2, _, cnt = binned_weighted_dual(
-                    p_clean.reshape(-1), p_dens.reshape(-1), w_flat, bin_idx,
-                    nb)
-            mean1 = s1 / cnt
-            pk_clean = mean1[1:]
-            if debias_j is not None:
-                pk_clean = pk_clean - debias_j
-            var = torch.clamp(q1 / cnt - mean1 ** 2, min=0.0)
-            var = torch.where(cnt > 1, var, torch.zeros_like(var))
-            out = {
-                "k": kcent_j,
-                "pk_cleaned": pk_clean,
-                "pk_cleaned_err": (torch.sqrt(var) / torch.sqrt(cnt))[1:],
-                "pk_density": (s2 / cnt)[1:],
-                "sigma_data": pre_out["sigma_data"],
-            }
+            bins = plan.bins
+            out = {"k": bins.k,
+                   **bins.finish(*bins.sums(p_clean, pre_out["p_dens"])),
+                   "sigma_data": pre_out["sigma_data"]}
             clock.mark("pk")
             if config.debug_stages:
                 out.update({n: pre_out[n] for n in ("delta_x", "vel_z",
