@@ -27,6 +27,8 @@ pass over the state (K12, ``ops/cuda/cola_kick.py``).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from scipy.integrate import quad
@@ -63,8 +65,13 @@ def cic_gather(mesh, u):
 
 
 # ----------------------------------------------------------------------
-# Host-side step schedule (numpy/scipy, as in fastbox_tpu)
+# Host-side step schedule (numpy/scipy, as in fastbox_tpu).  Seed-free, so
+# built once for each configuration: the schedule and the scalars are
+# memoised as immutable tuples of floats, keyed by the frozen CosmoParams
+# and the scale factors; the engine's 1-D k vectors by grid, dtype and
+# device.
 # ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=32)
 def _growth_scalars(params, a):
     a_tab, D_tab, f_tab = bg.growth_tables(params)
     D1 = np.interp(np.log(a), np.log(a_tab), D_tab)
@@ -89,9 +96,11 @@ def _kick_drift_integrals(params, a1, a2):
     return K, D
 
 
+@functools.lru_cache(maxsize=32)
 def _step_schedule(params, a_init: float, a_final: float, n_steps: int):
     """Per step (K1, K2, Dr, D1, D2, dD1, dD2, a_force): the half kicks, the
-    drift, the growth factors at the step start and their increments."""
+    drift, the growth factors at the step start and their increments, as
+    a tuple of tuples."""
     a_steps = np.linspace(a_init, a_final, n_steps + 1)
     a_half = 0.5 * (a_steps[:-1] + a_steps[1:])
     rows = []
@@ -103,7 +112,41 @@ def _step_schedule(params, a_init: float, a_final: float, n_steps: int):
         d1b, _, d2b, _ = _growth_scalars(params, a_steps[i + 1])
         rows.append((K1, K2, Dr, d1a, d2a, d1b - d1a, d2b - d2a,
                      float(a_steps[i])))
-    return rows
+    return tuple(rows)
+
+
+@functools.lru_cache(maxsize=32)
+def _k_vectors(Nf: int, N: int, L: float, dtype, device):
+    """The engine's 1-D k vectors on ``device`` (an indexed device):
+    (kf, kf's half axis, both with the Nyquist plane zeroed for the
+    derivative, the particle-Nyquist masks on the full and half axes).
+    Shared by every engine of the configuration: never written in place."""
+    Hf = Nf // 2 + 1
+    kf = 2.0 * np.pi * np.fft.fftfreq(Nf, d=1.0 / Nf) / L
+    # Zero the derivative axis's Nyquist plane: in the full-FFT form
+    # the .real projection drops exactly that (anti-Hermitian) plane.
+    nyq_full = np.zeros(Nf, bool)
+    nyq_half = np.zeros(Hf, bool)
+    if Nf % 2 == 0:
+        nyq_full[Nf // 2] = True
+        nyq_half[-1] = True
+
+    def vec(a):
+        timing.count_copy("h2d_cola_k", device)
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    m1 = np.abs(kf) <= np.pi * N / L * (1 + 1e-12)
+    return (vec(kf).to(dtype), vec(kf[:Hf]).to(dtype),
+            vec(np.where(nyq_full, 0.0, kf)).to(dtype),
+            vec(np.where(nyq_half, 0.0, kf[:Hf])).to(dtype),
+            vec(m1), vec(m1[:Hf]))
+
+
+def _plan_misses() -> int:
+    """The misses of the host plan's memos so far (the step schedule, the
+    growth scalars and the k vectors)."""
+    return sum(f.cache_info().misses
+               for f in (_step_schedule, _growth_scalars, _k_vectors))
 
 
 def _fuse_max_band(fuse_force_gather) -> int:
@@ -191,8 +234,9 @@ class ColaEngine:
             self._gather = k11.cic_gather_lattice_plain
             self._gather3 = k11.cic_gather3_lattice_plain
 
-        # --- host schedule and scalars, rounded to dtype as fastbox_tpu's
-        # step_consts / scal arrays are
+        # --- host schedule and scalars (memoised), rounded to dtype as
+        # fastbox_tpu's step_consts / scal arrays are
+        misses = _plan_misses()
         a_init = 1.0 / (1.0 + redshift_init)
         a_final = 1.0 / (1.0 + z_final)
         H0 = 100.0 * params.h
@@ -208,27 +252,15 @@ class ColaEngine:
         self.pfac2 = self._s(a2H * f2_f * D2_f)
         self.inv_a_final = self._s(1.0 / a_final)
 
-        # --- 1-D k vectors; the 3-D k^2 grid is broadcast on the fly
-        Hf = Nf // 2 + 1
-        kf = 2.0 * np.pi * np.fft.fftfreq(Nf, d=1.0 / Nf) / grid.Lx
-        # Zero the derivative axis's Nyquist plane: in the full-FFT form
-        # the .real projection drops exactly that (anti-Hermitian) plane.
-        nyq_full = np.zeros(Nf, bool)
-        nyq_half = np.zeros(Hf, bool)
-        if Nf % 2 == 0:
-            nyq_full[Nf // 2] = True
-            nyq_half[-1] = True
-
-        def vec(a):
-            timing.count_copy("h2d_cola_k", device)
-            return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-        self._kf = vec(kf).to(dtype)
-        self._kzf_h = vec(kf[:Hf]).to(dtype)
-        self._kx_d = vec(np.where(nyq_full, 0.0, kf)).to(dtype)
-        self._kz_d = vec(np.where(nyq_half, 0.0, kf[:Hf])).to(dtype)
-        m1 = np.abs(kf) <= np.pi * N / grid.Lx * (1 + 1e-12)
-        self._m1, self._m1h = vec(m1), vec(m1[:Hf])
+        # --- 1-D k vectors (memoised); the 3-D k^2 grid is broadcast on
+        # the fly
+        key_device = device
+        if device.type == "cuda" and device.index is None:
+            key_device = torch.device("cuda", torch.cuda.current_device())
+        (self._kf, self._kzf_h, self._kx_d, self._kz_d, self._m1,
+         self._m1h) = _k_vectors(Nf, N, grid.Lx, dtype, key_device)
+        timing.count("colaplan.hit" if _plan_misses() == misses
+                     else "colaplan.miss")
         self.mean_per_cell = self._s(N**3 / Nf**3)
 
     # ------------------------------------------------------------------
@@ -507,8 +539,12 @@ def realise_density_cola(generator, grid: GridSpec, cosmology, redshift=None,
     force paints (``exact.paint``, one a force evaluation) and gathers
     (``exact.gather``, one a force component), each exact paint or gather
     call's implementation (``exactcic.fused`` for K13, ``exactcic.plain``
-    for the plain passes), and each band pick's host sync
-    (``sync.cola_band``).
+    for the plain passes), each band pick's host sync
+    (``sync.cola_band``), and the engine's host plan (``colaplan.hit``
+    where the step schedule, the growth scalars and the k vectors all
+    came from their memos, built by an earlier call of the configuration;
+    else ``colaplan.miss``, and the k vectors' copies to a CUDA device,
+    ``sync.h2d_cola_k``).
 
     With ``diagnostics=True`` a third return value holds ``maxdisp`` (max
     wrapped displacement in cells at each force evaluation), ``frac_out``

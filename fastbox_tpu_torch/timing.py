@@ -21,7 +21,8 @@ sites) or copies from pageable host memory to a CUDA device
 (``count_copy``); ``rsd.band<b>``/``rsd.exact`` and
 ``cola.band<b>``/``cola.exact``, the tier or band each RSD remap and COLA
 paint took; ``exact.paint``/``exact.gather``, the force paints and force
-components that COLA's exact tier computed; ``collective.calls`` and
+components that COLA's exact tier computed; ``colaplan.hit``/``.miss``,
+whether a COLA engine found its host plan built; ``collective.calls`` and
 ``collective.bytes``, the ``torch.distributed`` collectives issued and the
 bytes this rank sent.
 """
