@@ -22,9 +22,15 @@ The tier is chosen on the host from ``maxdisp``: one ``.item()`` per call
 (``sync.rsd_band`` or ``sync.rsd_cover`` in the active clock's counts,
 ``timing.count``).  Every tier is exact when its band covers ``maxdisp``.
 Each remap also counts the tier it took: ``rsd.band<b>``, or
-``rsd.exact`` for the sort + K3.
+``rsd.exact`` for the sort + K3; and its work: ``rsdwork.cells``, the
+cells remapped, and, where the host read the displacement bound,
+``rsdwork.disp_mcells`` (that bound in thousandths of a cell) and
+``rsdwork.disp_reads`` (one a read).  The ``rsdwork.`` family stays out
+of ``rsd.``, whose counts the benchmark sums as one family of tiers.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -145,10 +151,28 @@ def _uniform_targets(ztarget, ztarget_np, C: int):
     return zt
 
 
-def _covers(maxdisp, bound: float) -> bool:
-    """maxdisp <= bound, compared in maxdisp's dtype (one host sync)."""
-    timing.count("sync.rsd_cover")
-    return maxdisp.item() <= torch.tensor(bound, dtype=maxdisp.dtype).item()
+def _count_tier(tier: str, cells: int) -> None:
+    """Count a remap's tier (``rsd.<tier>``) and its cells."""
+    timing.count(f"rsd.{tier}")
+    timing.count("rsdwork.cells", cells)
+
+
+def _read_disp(maxdisp, dz: float, site: str) -> float:
+    """``maxdisp`` on the host (one sync, ``sync.<site>``), counted in
+    thousandths of a cell of width ``dz`` where it is finite."""
+    timing.count("sync." + site)
+    md = maxdisp.item()
+    if math.isfinite(md):
+        timing.count("rsdwork.disp_mcells", round(1000.0 * md / dz))
+        timing.count("rsdwork.disp_reads")
+    return md
+
+
+def _covers(maxdisp, band: int, dz: float) -> bool:
+    """maxdisp <= band * dz, compared in maxdisp's dtype (one host
+    sync)."""
+    md = _read_disp(maxdisp, dz, "rsd_cover")
+    return md <= torch.tensor(band * dz, dtype=maxdisp.dtype).item()
 
 
 def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
@@ -191,11 +215,11 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
             and M % min(256, M) == 0):
         dz = float(zt_np[1] - zt_np[0])
         maxdisp = torch.max(torch.abs(s_unwrapped - ztarget[None, :]))
-        if _covers(maxdisp, band * dz):
-            timing.count(f"rsd.band{band}")
+        if _covers(maxdisp, band, dz):
+            _count_tier(f"band{band}", M * C)
             return rsd_bracket_interp(s.contiguous(), vals.contiguous(),
                                       ztarget, fill, band)
-        timing.count("rsd.exact")
+        _count_tier("exact", M * C)
         ss, order = torch.sort(s, dim=1, stable=True)
         return interp_sorted(ss, torch.gather(vals, 1, order), ztarget, fill)
 
@@ -206,10 +230,10 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
         if zt_np is not None:
             dz = float(zt_np[1] - zt_np[0])
             maxdisp = torch.max(torch.abs(ss - ztarget[None, :]))
-            if _covers(maxdisp, band * dz):
-                timing.count(f"rsd.band{band}")
+            if _covers(maxdisp, band, dz):
+                _count_tier(f"band{band}", M * C)
                 return banded_interp(ss, vv, ztarget, fill, band)
-        timing.count("rsd.exact")
+        _count_tier("exact", M * C)
         return interp_sorted(ss, vv, ztarget, fill)
 
     # 'nearest' (interp1d, fill_value='extrapolate'): the value switches at
@@ -226,8 +250,7 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
 def pick_band(maxdisp, dz: float, band: int = 4) -> int:
     """2, ``band``, or 0 for the exact tier: the narrowest band covering
     ``maxdisp`` (compared in its dtype, as fastbox_tpu's lax.cond does)."""
-    timing.count("sync.rsd_band")
-    md = maxdisp.item()
+    md = _read_disp(maxdisp, dz, "rsd_band")
     dt = maxdisp.dtype
     for b in ((2, band) if band > 2 else (band,)):
         if md <= torch.tensor(b * dz, dtype=dt).item():
@@ -241,7 +264,7 @@ def _remap_wrap_tiered(vals, vel, ztarget, fill, z0, length_z, inv_hz,
     fallback, picked on the host from the displacement bound."""
     wrap = wrap_params(z0, length_z, inv_hz, vals.dtype, vals.device)
     b = pick_band(maxdisp, dz, band)
-    timing.count(f"rsd.band{b}" if b else "rsd.exact")
+    _count_tier(f"band{b}" if b else "exact", vals.numel())
     if b:
         return rsd_remap_wrap(vals, vel, ztarget, fill, wrap, band=b)
     u = ztarget[None, :] - vel * inv_hz

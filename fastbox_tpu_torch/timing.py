@@ -20,11 +20,14 @@ device to the host (counted on every device, so that CPU runs show the
 sites) or copies from pageable host memory to a CUDA device
 (``count_copy``); ``rsd.band<b>``/``rsd.exact`` and
 ``cola.band<b>``/``cola.exact``, the tier or band each RSD remap and COLA
-paint took; ``exact.paint``/``exact.gather``, the force paints and force
-components that COLA's exact tier computed; ``colaplan.hit``/``.miss``,
-whether a COLA engine found its host plan built; ``collective.calls`` and
-``collective.bytes``, the ``torch.distributed`` collectives issued and the
-bytes this rank sent.
+paint took; ``rsdwork.cells``, ``rsdwork.disp_mcells`` and
+``rsdwork.disp_reads``, the cells each RSD remap moved and the largest
+displacement the host read for its tier, in thousandths of a cell, with
+the number of such reads; ``exact.paint``/``exact.gather``, the force
+paints and force components that COLA's exact tier computed;
+``colaplan.hit``/``.miss``, whether a COLA engine found its host plan
+built; ``collective.calls`` and ``collective.bytes``, the
+``torch.distributed`` collectives issued and the bytes this rank sent.
 """
 from __future__ import annotations
 
