@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase below
     python3 chip_smoke.py --step-1024   # only: does a 1024^3 step fit?
     python3 chip_smoke.py --truth-256   # only: the truth gate at 256^3
+    python3 chip_smoke.py --k11         # only: phase 3's K11 checks
 
 from the root of a checkout, on a machine with a CUDA GPU (written for an
 H100, sm_90a) and the CUDA toolkit.  It exits non-zero, printing no result,
@@ -23,7 +24,11 @@ failure:
      gather, three-mesh gather) for bands B = 1, 2, 3, and in f64 against
      the exact index_add_ scatter and gather, the paint bitwise equal to its
      twin and repeatable (f32 and f64, weighted and not, clustered
-     displacements) and timed at every B beside the index_add_ paint, the
+     displacements, one cell that (2B + 2)^3 sources or more aim at, the
+     closed band, 64^3 wide bands, 60^3 and 62^3) and timed at every B,
+     weighted and not, beside the index_add_ paint, at 512^3 bitwise equal
+     to its twin (weighted), repeatable and timed, with no device memory
+     beyond its output, the
      gathers bitwise equal to their twins and repeatable (f32 and f64,
      uniform, clustered and COLA's displacements, a closed band, and wide
      bands at 64^3 that take the launcher's direct-read path) and timed at
@@ -1075,6 +1080,39 @@ def grid_sample_ms(meshes, d, B: int) -> tuple:
             median_ms(lambda: grid_sample_gather(inp3, grid)))
 
 
+def deep_cell_disp(d, B: int) -> tuple:
+    """``d`` with every site within B + 1 cells (per axis, periodic) of one
+    cell next to the periodic corner aimed at that cell, 0.3 cells into
+    it: (2B + 2)^3 painting sources or more with their lower corner in one
+    cell, whose masks fill every offset the band has (|d| up to B + 1.3,
+    past the band for the farthest)."""
+    N = d[0].shape[0]
+    site = torch.arange(N, device=d[0].device, dtype=d[0].dtype)
+    out = [a.clone() for a in d]
+    cen = (N - 1, 1, N // 2)
+    off = [((site - c + N // 2) % N - N // 2).reshape(
+        [N if i == ax else 1 for i in range(3)]) for ax, c in enumerate(cen)]
+    near = (off[0].abs() <= B + 1) & (off[1].abs() <= B + 1) \
+        & (off[2].abs() <= B + 1)
+    for a, o in zip(out, off):
+        a.copy_(torch.where(near, 0.3 - o, a))
+    return tuple(out)
+
+
+def paint_scratch_bytes(d, B: int, weights=None) -> int:
+    """Device bytes a K11a paint allocates beyond its output: the peak
+    allocation during the call less what was allocated before it and the
+    output's bytes."""
+    from fastbox_tpu_torch.ops.cuda import lattice_cic as k
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = k.cic_paint_lattice_cuda(d, B, weights)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before - nbytes(out)
+
+
 def cola_gather_inputs(dev) -> dict:
     """The force meshes and displacements of a 256^3 COLA run's fused force
     gathers (K11c): the first at band 1 and the last, captured by wrapping
@@ -1157,11 +1195,15 @@ def phase_k11(dev) -> list[dict]:
         del pairs
         # the paint: bitwise its twin and itself, clustered and in f64
         dc = clustered_disp(d, B)
-        d64, dc64, w64 = (tuple(a.double() for a in t) for t in (d, dc, (w,)))
+        dd = deep_cell_disp(d, B)
+        d64, dc64, dd64, w64 = (tuple(a.double() for a in t)
+                                for t in (d, dc, dd, (w,)))
         for label, disp, wts in (("f32", d, (None, w)),
                                  ("f32 clustered", dc, (None, w)),
+                                 ("f32 deep cell", dd, (None, w)),
                                  ("f64", d64, (None, w64[0])),
-                                 ("f64 clustered", dc64, (None, w64[0]))):
+                                 ("f64 clustered", dc64, (None, w64[0])),
+                                 ("f64 deep cell", dd64, (None, w64[0]))):
             for wt in wts:
                 got = k.cic_paint_lattice_cuda(disp, B, wt)
                 same = torch.equal(got, k.cic_paint_lattice_plain(disp, B, wt))
@@ -1171,7 +1213,9 @@ def phase_k11(dev) -> list[dict]:
                 check(same and again, f"{what}: bitwise equal to the twin "
                       f"{same}, repeatable {again}")
         log(f"K11a paint B={B}: bitwise equal to its twin and repeatable, "
-            "f32 and f64, weighted and not, uniform and clustered")
+            "f32 and f64, weighted and not, uniform, clustered and one deep "
+            "cell")
+        del dd, dd64
         m64 = tuple(m.double() for m in meshes)
         for label, disp, mm in (("f32", d, meshes),
                                 ("f32 clustered", dc, meshes),
@@ -1223,13 +1267,44 @@ def phase_k11(dev) -> list[dict]:
                                  .index_add_(0, idx8, w8))
         del idx8, w8
         ms_c = median_ms(lambda: k.cic_paint_lattice_cuda(dc, B))
+        ms_w = median_ms(lambda: k.cic_paint_lattice_cuda(d, B, w))
         log(f"K11a paint B={B}: kernel {times[('cic_paint_lattice', B)][0]:.4f}"
-            f" ms (clustered {ms_c:.4f} ms), index_add_ {lib_paint[B]:.4f} ms")
+            f" ms (weighted {ms_w:.4f} ms, clustered {ms_c:.4f} ms), "
+            f"index_add_ {lib_paint[B]:.4f} ms")
         del dc
+    # the paint at 512^3 (bitwise its twin, weighted; repeatable; its time)
+    # and the device memory it takes beyond its output, at 256^3 and 512^3
+    scratch = {}
+    for n in COLA_N:
+        for B in (1, 2, 3):
+            d = tuple((torch.rand((n, n, n), generator=g, device=dev) * 2 - 1)
+                      * B for _ in range(3))
+            w = torch.rand((n, n, n), generator=g, device=dev) * 2 - 1
+            scratch[(n, B)] = max(paint_scratch_bytes(d, B, wt)
+                                  for wt in (None, w))
+            if n == N:
+                continue
+            got = k.cic_paint_lattice_cuda(d, B, w)
+            same = torch.equal(got, k.cic_paint_lattice_plain(d, B, w))
+            again = torch.equal(got, k.cic_paint_lattice_cuda(d, B, w))
+            check(same and again, f"K11a paint {n}^3 B={B} weighted: bitwise "
+                  f"equal to the twin {same}, repeatable {again}")
+            del got
+            ms = [median_ms(lambda wt=wt: k.cic_paint_lattice_cuda(d, B, wt))
+                  for wt in (None, w)]
+            log(f"K11a paint {n}^3 B={B}, uniform: kernel {ms[0]:.4f} ms, "
+                f"weighted {ms[1]:.4f} ms; weighted bitwise equal to its "
+                "twin and repeatable")
+        del d, w
+    log(f"K11a paint: device memory beyond its output {scratch} bytes "
+        "(n, B): none")
+    check(all(v == 0 for v in scratch.values()), "K11a paint takes scratch")
     # a closed band; wide bands at 64^3: at B = 8 in f32 K11b stages its
     # rings and K11c reads its corners from global memory; in f64, and at
     # B = 16, both read from global memory; ragged faces (60^3), and rows
-    # that are not whole 16-byte chunks in f32 (62^3: global memory)
+    # that are not whole 16-byte chunks in f32 (62^3: global memory); the
+    # paint on each, weighted (by the first mesh) and not, its faces
+    # narrowing with the band, and refused past k.PAINT_MAX_B
     for B, ob, n, what in ((2, False, K11_WIDE_N, "closed band"),
                            (8, True, K11_WIDE_N, "wide band"),
                            (16, True, K11_WIDE_N, "wide band"),
@@ -1251,8 +1326,25 @@ def phase_k11(dev) -> list[dict]:
             for disp, kind in cases:
                 gathers_bitwise(meshes_n, disp, B, f"{n}^3 {what} {dt} {kind}",
                                 openband=ob)
-        log(f"K11b/K11c gathers {n}^3 {what} B={B}: bitwise equal to their "
-            "twins and repeatable, f32 and f64")
+                for wt in (None, meshes_n[0]):
+                    if B > k.PAINT_MAX_B:
+                        try:
+                            k.cic_paint_lattice_cuda(disp, B, wt, ob)
+                        except ValueError:
+                            continue
+                        raise AssertionError(f"K11a paint took B={B}")
+                    got = k.cic_paint_lattice_cuda(disp, B, wt, ob)
+                    same = torch.equal(got, k.cic_paint_lattice_plain(
+                        disp, B, wt, ob))
+                    again = torch.equal(got, k.cic_paint_lattice_cuda(
+                        disp, B, wt, ob))
+                    check(same and again, f"K11a paint {n}^3 {what} B={B} "
+                          f"{dt} {kind}: bitwise equal to the twin {same}, "
+                          f"repeatable {again}")
+        log(f"K11 {n}^3 {what} B={B}: " + (
+            "the paint refused, " if B > k.PAINT_MAX_B else "the paint and ")
+            + "the gathers bitwise equal to their twins and repeatable, f32 "
+            "and f64")
     # COLA's own displacements and force meshes
     for label, (meshes_c, d, B) in cola_gather_inputs(dev).items():
         gathers_bitwise(meshes_c, d, B, f"COLA {label} f32")
@@ -5281,6 +5373,9 @@ def main() -> None:
         return
     if "--truth-256" in sys.argv[1:]:
         truth_256(dev)
+        return
+    if "--k11" in sys.argv[1:]:
+        phase_k11(dev)
         return
     grid = GridSpec.create(box_scale=BOX, nsamp=256, redshift=Z)
     cosmo = build_cosmology(COSMO, redshift=Z, device=dev)

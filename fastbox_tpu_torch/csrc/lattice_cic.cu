@@ -18,36 +18,49 @@
 // rounded explicitly, so kernel and twin agree bit for bit.  Offsets outside
 // [lo, hi] contribute nothing, as in the twin, even when the bound fails.
 //
-// Paint gathers per cell, without atomics in the sums.  A particle at
-// lattice site l with floors fl has its lower-corner cell L = l + fl and
-// reaches only cells L + e, e in {0,1}^3, on offset o = fl + e.  A block
-// owns a tx x ty x tz tile of cells (8^3 where it fits) and
-//   1. stages its source tile (the cell tile plus the band's halo, the
-//      sources l = c - o with o in [lo, hi]) in shared memory as per-axis
-//      fractions, the optional weight and one packed word of the floors,
-//      and counts each source into the bucket of its L, over the cell tile
-//      plus one layer below (shared-memory atomics);
-//   2. scans the counts into bucket starts and fills the buckets (atomics
-//      again: the order within a bucket is arbitrary);
-//   3. sorts each bucket by source index, descending (insertion sort, one
-//      thread per bucket);
-//   4. gives each cell c one thread, which merges its 8 buckets L = c - e
-//      by source index, descending.  That is the twin's order: for a fixed
-//      cell, o = c - l, so descending l is ascending (ox, oy, oz).  Each
-//      contribution with o inside [lo, hi] is summed as the twin nests its
-//      rolls, ox { oy { oz } }: partial sums sy -> sx -> acc, every product
-//      and sum rounded explicitly.  Terms the twin adds with weight zero
-//      add exactly nothing, so kernel and twin agree bit for bit.
-// A cell reads ~8 candidates whatever the band, where the TPU kernel tests
-// all (hi-lo+1)^3 offsets (343 at B = 3); clustered particles only lengthen
-// a cell's merge.  The bound by bytes (one read of d, one write of the
-// mesh) is far below what this takes: the block's phases are serial, each
-// behind a __syncthreads, and the source tile's staging reads each
-// displacement ~(1 + span/8)^3 times (mostly from L2).  At 256^3 the paint
-// takes 1.7 ms at B = 1 and 2.5 ms at B = 3, under the index_add_ paint
-// from B = 2 (H100 80GB HBM3, 700 W; PERF.md).  The launcher shrinks the
-// tile where it would not fit in shared memory and refuses a band beyond
-// that.
+// Paint: each cell sums its own terms in one thread, in the twin's order;
+// no float is added into the mesh by an atomic.  A particle at site l with
+// floors fl reaches only cells L + e, L = l + fl, e in {0,1}^3, at offset o
+// = fl + e, and paints at all only where every floor lies in [lo - 1, hi].
+// For a fixed cell c the twin adds the terms of the sources c - o in
+// ascending (ox, oy, oz), nested as its rolls: sy over oz, sx over oy, acc
+// over ox.  A block owns a face of fy x 32 cells (warp = y, lane = z; fy =
+// 16 where two blocks fit an SM's shared memory, narrower for wide bands),
+// one thread a cell column, and marches DOWN x over the source planes s
+// that reach its run of 32 cell planes.  Plane s feeds the D = hi - lo + 1
+// cell planes X = s + ox, and marching down hands each cell its ox in
+// ascending order, one source plane, one sx, at a time.  A step:
+//   1. stage and push: each source of plane s, the face grown by the band
+//      (periodic, the d of the plane loaded while the block summed the
+//      plane before), stages in shared memory its eight corner terms ((wx
+//      w) wy) wz, every product rounded, and one word from its floors, and
+//      sets, for each corner cell inside the face and the run, the bit of
+//      its (oy, oz) in that cell's D^2-bit mask for target ox, and the bit
+//      ox in the cell's word of live targets: integer atomicOr's in shared
+//      memory, whose result does not depend on their order;
+//   2. sum: each cell walks its live targets' masks, bits in ascending
+//      (oy, oz) two at a time (their loads in flight together), reads each
+//      term by its source c - o and the source's word, nests sy and sx,
+//      adds sx to the target plane's sum (a ring of D sums a cell) and
+//      writes the plane X = s + hi, which is then complete.
+// Measured first (the tile kernel this replaces, 2.05 ms at B = 2 on a
+// 256^3 COLA run's own displacements): its sort-and-merge per cell took
+// 1.47 ms of that, its staging and counting 0.35 ms, its scan, fill and
+// bucket sorts 0.18 ms; slab mode's five passes spent 1.10 of their 1.83
+// ms in the per-cell 8-way merge.  Here no cell merges buckets: the mask's
+// bit order is the twin's order.  The bound by bytes is one read of d (and
+// w) and one write of the mesh, 16 N^3 bytes (0.080 ms at 256^3); the
+// kernel is instruction-bound at ~10x that: each source is staged (1 +
+// span/fy)(1 + span/32)(1 + span/32) times, pushes up to 16 shared
+// atomics, and a cell's walk diverges across its warp by the spread of its
+// terms' count.  On a 256^3 COLA run's paints it takes 0.83, 0.85 and 0.99
+// ms at B = 1, 2, 3 (2.5x the tile kernel; H100 80GB HBM3, 700 W;
+// PERF.md), and uses no device memory beyond its output.  It keeps 64
+// registers a thread, with no spills.  A cell clears its masks and live
+// word as it walks them; a barrier separates the first clear from the
+// first pushes, the pushes from the sums, and the sums from the next
+// pushes.  The launcher narrows the face where shared memory would not
+// hold it and refuses D > 32 (B = 16; the wrapper refuses it first).
 //
 // Gather: under the bound a particle's banded sum has at most eight
 // non-zero weights, on the corners (l + floor(d) + {0,1}) mod N, summed oz
@@ -88,24 +101,22 @@
 // then scan, over blocks), fill (an atomic claims the particle a place in
 // its bucket for a record of its key and fractions), sort (each bucket by
 // key) and sum (a thread per cell merges its 8 buckets in the twin's
-// order, for every weight channel of a call on one sort).  Where the tile
-// kernel above re-read each displacement ~(1 + span/8)^3 times and ran its
-// phases one after another in each block, each pass here streams the slab
-// once; the sum still visits each record from 8 cells, through a chain of
-// scattered loads where buckets hold several records (times: PERF.md,
-// section 6).  The sums and their order are the periodic mode's, in the
+// order, for every weight channel of a call on one sort).  Each pass
+// streams the slab once; the sum, which visits each record from 8 cells
+// through a chain of scattered loads where buckets hold several records,
+// takes most of the time (times: PERF.md, section 6).  The sums and their order are the periodic mode's, in the
 // slab twin's order (fastbox_tpu_torch/fields/lattice_cic.py), so the slab
 // paint agrees with its twin bit for bit.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // paint block
-constexpr int kStage = 4;      // sources a paint thread loads at once
 constexpr int kMaxB = 16;
-// A staged paint source's code: fl + kFlBias in 6 bits per axis (|fl| <=
-// kMaxB + 1 < kFlBias), its bucket from bit 18; 0 for a source that
-// reaches no cell of the tile.
+// A paint or staged gather block owns a face of kFaceZ cells or sites along
+// z (a warp's lanes) and marches along x over a run of kRun planes.
+constexpr int kFaceZ = 32, kRun = 32;
+// A slab record's key: fl + kFlBias in 6 bits per axis (|fl| <= kMaxB + 1
+// < kFlBias).
 constexpr int kFlBias = 32;
 
 __device__ __forceinline__ float floor_t(float a) { return floorf(a); }
@@ -121,15 +132,6 @@ __device__ __forceinline__ int wrap_near(int a, int n) {
   if (a < 0) a += n;
   else if (a >= n) a -= n;
   return (a < 0 || a >= n) ? wrap(a, n) : a;
-}
-
-// Shared memory of a paint block: the staged sources (fractions, weight,
-// packed floors, the bucket list), the bucket starts and cursors, and the
-// scan's per-warp scratch.
-template <typename T>
-__host__ __device__ size_t paint_smem(int S, int nb, bool weighted) {
-  return static_cast<size_t>(S) * ((weighted ? 4 : 3) * sizeof(T) + 2 * sizeof(int)) +
-         static_cast<size_t>(2 * nb + 1 + 32) * sizeof(int);
 }
 
 // start[0..n] = exclusive prefix sums of cnt[0..n); cnt[i] becomes start[i]
@@ -166,177 +168,250 @@ __device__ void block_exclusive_scan(int* cnt, int* start, int n, int* scratch) 
   if (threadIdx.x == blockDim.x - 1) start[n] = offset;
 }
 
+// A paint block: a face of fy x kFaceZ cells (warp = y, lane = z), one
+// thread a cell column, marching down x over kRun cell planes.  Shared
+// memory: one staged source plane (the face grown by the band: each
+// source's eight corner terms and its corner base), the cells' sums of the
+// D = span + 1 planes in flight, and each cell's mask of the (oy, oz)
+// offsets that reach it from the staged plane, D^2 bits (oy - lo) D + oz -
+// lo for each of the D planes, with a word of the planes whose masks are
+// not empty.
+constexpr int kPaintAhead = 2;  // staged sources a thread loads a plane ahead
+constexpr int kWalk = 2;        // mask bits a cell reads at once
+__host__ __device__ inline int paint_mask_words(int D) { return (D * D + 31) / 32; }
+
+template <typename T>
+__host__ __device__ size_t paint_smem(int fy, int span) {
+  const int D = span + 1, threads = fy * kFaceZ;
+  const size_t staged = static_cast<size_t>(fy + span) * (kFaceZ + span);
+  return staged * (8 * sizeof(T) + sizeof(int)) +
+         static_cast<size_t>(threads) * (D * (sizeof(T) + paint_mask_words(D) * 4) + 4);
+}
+
+// A paint block's shape and shared memory (see paint_kernel).
+template <typename T>
+struct PaintBlock {
+  T* term;           // [8][PYZ]: each staged source's corner terms
+  int* corner;       // [PYZ]: each staged source's corner base
+  unsigned* mask;    // [D][nw][threads]: each cell's offset masks
+  unsigned* live;    // [threads]: each cell's targets with a mask bit
+  int lo, hi, D, nw, PYZ, threads, fy, X0, R;
+};
+
+// This thread's staged sources p = t + j threads (j < kPaintAhead) of plane
+// s: rows pr, lanes pq of the staged plane (source y0 - hi + r, z0 - hi +
+// q, periodic).
 template <typename T, bool kWeighted>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void paint_load(const T* __restrict__ dx, const T* __restrict__ dy,
+                                           const T* __restrict__ dz, const T* __restrict__ w,
+                                           int N, int s, int ry0, int qz0, int t, int threads,
+                                           int PYZ, const int (&pr)[kPaintAhead],
+                                           const int (&pq)[kPaintAhead],
+                                           T (&v)[kPaintAhead][3], T (&wv)[kPaintAhead]) {
+  const int64_t gx = static_cast<int64_t>(wrap_near(s, N)) * N;
+#pragma unroll
+  for (int j = 0; j < kPaintAhead; ++j) {
+    if (t + j * threads < PYZ) {
+      const int64_t g = (gx + wrap_near(ry0 + pr[j], N)) * N + wrap_near(qz0 + pq[j], N);
+      v[j][0] = dx[g];
+      v[j][1] = dy[g];
+      v[j][2] = dz[g];
+      if (kWeighted) wv[j] = w[g];
+    }
+  }
+}
+
+// Stage source p of plane s, at (r, q), with displacement (a0, a1, a2) and
+// weight wa, and push it.  A painting source (every floor in [lo - 1, hi],
+// else no weight in the band is non-zero) stages its eight corner terms
+// ((wx w) wy) wz, e = (ex, ey, ez) at 4 ex + 2 ey + ez, and its corner
+// base 7 - 4 fx - 2 fy - fz (f = fl - lo + 1), so that a cell at offset o
+// from it finds its term at 4 kx + 2 oyi + ozi + base (kx, oyi, ozi = o -
+// lo).  Then it sets, in the mask of each corner cell L + e inside the face
+// and the run, the bit of the offset (oy, oz) = fl + e for the target kx =
+// fl_x + e_x - lo, and the cell's live bits of its targets.  The masks are
+// integers, so the order of the atomicOr's does not matter.
+template <typename T, bool kWeighted>
+__device__ __forceinline__ void paint_stage(const PaintBlock<T>& b, int s, int p, int r, int q,
+                                            T a0, T a1, T a2, T wa) {
+  const T a[3] = {a0, a1, a2};
+  int fl[3];
+  T fr[3];
+  bool ok = true;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const T f = floor_t(a[ax]);
+    fr[ax] = a[ax] - f;  // exact
+    ok = ok && f >= T(b.lo - 1) && f <= T(b.hi);
+    fl[ax] = ok ? static_cast<int>(f) : 0;
+  }
+  if (!ok) return;
+  const int lo = b.lo, hi = b.hi;
+  b.corner[p] = 7 - 4 * (fl[0] - lo + 1) - 2 * (fl[1] - lo + 1) - (fl[2] - lo + 1);
+  T px[2], wy[2], wz[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const T wx = e ? fr[0] : fbx::sub_rn(T(1), fr[0]);
+    px[e] = kWeighted ? fbx::mul_rn(wx, wa) : wx;
+    wy[e] = e ? fr[1] : fbx::sub_rn(T(1), fr[1]);
+    wz[e] = e ? fr[2] : fbx::sub_rn(T(1), fr[2]);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    b.term[e * b.PYZ + p] = fbx::mul_rn(fbx::mul_rn(px[e >> 2], wy[(e >> 1) & 1]), wz[e & 1]);
+  // target planes (x), rows (y) and lanes (z) of the corners e = 0, 1
+  bool in_x[2], in_y[2], in_z[2];
+  int kx[2], cy[2], cz[2], by[2], bz[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int ox = fl[0] + e, oy = fl[1] + e, oz = fl[2] + e;
+    kx[e] = ox - lo;
+    cy[e] = r - hi + oy;
+    cz[e] = q - hi + oz;
+    in_x[e] = ox >= lo && ox <= hi && s + ox >= b.X0 && s + ox < b.X0 + b.R;
+    in_y[e] = oy >= lo && oy <= hi && cy[e] >= 0 && cy[e] < b.fy;
+    in_z[e] = oz >= lo && oz <= hi && cz[e] >= 0 && cz[e] < kFaceZ;
+    by[e] = (oy - lo) * b.D;
+    bz[e] = oz - lo;
+  }
+  const unsigned targets = (in_x[0] ? 1u << kx[0] : 0u) | (in_x[1] ? 1u << kx[1] : 0u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int ey = e >> 1, ez = e & 1;
+    if (targets == 0u || !in_y[ey] || !in_z[ez]) continue;
+    const int bit = by[ey] + bz[ez];
+    const int c = cy[ey] * kFaceZ + cz[ez];
+#pragma unroll
+    for (int ex = 0; ex < 2; ++ex)
+      if (in_x[ex])
+        atomicOr(&b.mask[(kx[ex] * b.nw + (bit >> 5)) * b.threads + c], 1u << (bit & 31));
+    atomicOr(&b.live[c], targets);
+  }
+}
+
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(16 * kFaceZ, 2)
 paint_kernel(const T* __restrict__ dx, const T* __restrict__ dy, const T* __restrict__ dz,
-             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi, int tx, int ty,
-             int tz) {
+             const T* __restrict__ w, T* __restrict__ out, int N, int lo, int hi,
+             unsigned magic_d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int span = hi - lo;
-  const int WX = tx + span, WY = ty + span, WZ = tz + span;
-  const int S = WX * WY * WZ;
-  const int BY = ty + 1, BZ = tz + 1;
-  const int nb = (tx + 1) * BY * BZ;
-  T* fr = reinterpret_cast<T*>(smem_raw);  // [3][S]
-  T* wsh = fr + 3 * S;                     // [S] when weighted
-  int* code = reinterpret_cast<int*>(wsh + (kWeighted ? S : 0));  // [S]
-  int* list = code + S;                    // [S]
-  int* start = list + S;                   // [nb + 1]
-  int* cursor = start + nb + 1;            // [nb]
-  int* scratch = cursor + nb;              // [32]
-  // z tiles fastest in launch order, so blocks that share halo rows along
+  const int threads = blockDim.x, fy = threads / kFaceZ;
+  const int span = hi - lo, D = span + 1, nw = paint_mask_words(D);
+  const int PZ = kFaceZ + span, PYZ = (fy + span) * PZ;
+  T* term = reinterpret_cast<T*>(smem_raw);                    // [8][PYZ]
+  T* acc = term + 8 * PYZ;                                     // [D][threads]
+  int* corner = reinterpret_cast<int*>(acc + D * threads);     // [PYZ]
+  unsigned* mask = reinterpret_cast<unsigned*>(corner + PYZ);  // [D][nw][threads]
+  unsigned* live = mask + D * nw * threads;                    // [threads]
+  const int t = threadIdx.x, ty = t / kFaceZ, tz = t % kFaceZ;
+  // z faces fastest in launch order, so blocks that share halo rows along
   // the contiguous axis run together and find them in L2
-  const int cx0 = blockIdx.z * tx, cy0 = blockIdx.y * ty, cz0 = blockIdx.x * tz;
-
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) cursor[b] = 0;
+  const int z0 = blockIdx.x * kFaceZ, y0 = blockIdx.y * fy, X0 = blockIdx.z * kRun;
+  const int R = min(kRun, N - X0);
+  const int64_t NN = static_cast<int64_t>(N) * N;
+  for (int i = 0; i < D * nw; ++i) mask[i * threads + t] = 0u;
+  live[t] = 0u;
+  for (int k = 0; k < D; ++k) acc[k * threads + t] = T(0);
+  // every cell's masks clear before any source pushes into them
   __syncthreads();
 
-  // 1. Source p = (a, b, c) of the tile is particle (c0 - hi + (a, b, c))
-  // mod N; its bucket is L - (c0 - 1) = (a, b, c) + fl - hi + 1.  A thread
-  // steps p by blockDim.x, carrying (a, b, c) along without divisions, and
-  // loads kStage sources before it uses any, to keep loads in flight.
-  const int WYZ = WY * WZ;
-  const int da = blockDim.x / WYZ, db = (blockDim.x / WZ) % WY, dc = blockDim.x % WZ;
-  int pa = threadIdx.x / WYZ, pb = (threadIdx.x / WZ) % WY, pc = threadIdx.x % WZ;
-  for (int p0 = threadIdx.x; p0 < S; p0 += kStage * blockDim.x) {
-    T v[kStage][3], wv[kStage];
-    int pos[kStage][3];
+  // This thread stages sources p = t + j threads of each plane; the first
+  // kPaintAhead are loaded while the block sums the plane before.
+  int pr[kPaintAhead], pq[kPaintAhead];
+  T v[kPaintAhead][3], wv[kPaintAhead];
 #pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      if (p0 + u * static_cast<int>(blockDim.x) >= S) break;
-      pos[u][0] = pa;
-      pos[u][1] = pb;
-      pos[u][2] = pc;
-      const int64_t g = (static_cast<int64_t>(wrap_near(cx0 - hi + pa, N)) * N +
-                         wrap_near(cy0 - hi + pb, N)) * N + wrap_near(cz0 - hi + pc, N);
-      v[u][0] = dx[g];
-      v[u][1] = dy[g];
-      v[u][2] = dz[g];
-      if (kWeighted) wv[u] = w[g];
-      pc += dc;
-      pb += db;
-      pa += da;
-      if (pc >= WZ) {
-        pc -= WZ;
-        ++pb;
-      }
-      if (pb >= WY) {
-        pb -= WY;
-        ++pa;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int p = p0 + u * blockDim.x;
-      if (p >= S) break;
-      const int ext[3] = {tx, ty, tz};
-      int packed = 0, bkt = 0;
-      bool ok = true;
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        const T f = floor_t(v[u][ax]);
-        fr[ax * S + p] = v[u][ax] - f;  // exact
-        // a weight can be non-zero on some o in [lo, hi] only if fl in [lo-1, hi]
-        ok = ok && f >= T(lo - 1) && f <= T(hi);
-        const int fl = ok ? static_cast<int>(f) : 0;
-        const int l = pos[u][ax] + fl - hi + 1;
-        ok = ok && l >= 0 && l <= ext[ax];
-        packed |= (fl + kFlBias) << (6 * ax);
-        bkt = bkt * (ext[ax] + 1) + l;
-      }
-      code[p] = ok ? packed | (bkt << 18) : 0;
-      if (kWeighted) wsh[p] = wv[u];
-      if (ok) atomicAdd(&cursor[bkt], 1);
-    }
+  for (int j = 0; j < kPaintAhead; ++j) {
+    pr[j] = (t + j * threads) / PZ;
+    pq[j] = (t + j * threads) % PZ;
+    wv[j] = T(0);
   }
-  __syncthreads();
+  const PaintBlock<T> pb{term, corner, mask, live, lo, hi, D, nw, PYZ, threads, fy, X0, R};
 
-  // 2. bucket starts, then the fill
-  block_exclusive_scan(cursor, start, nb, scratch);
-  __syncthreads();
-  for (int p = threadIdx.x; p < S; p += blockDim.x) {
-    const int cd = code[p];
-    if (cd) list[atomicAdd(&cursor[cd >> 18], 1)] = p;
-  }
-  __syncthreads();
+  // Source plane s feeds cell planes X = s + o_x, o_x in [lo, hi]: target k
+  // = o_x - lo.  Marching down in s gives each cell its o_x ascending, the
+  // twin's outer order.  Cell plane X takes ring slot (X - X0) mod D of acc;
+  // base is the slot of X = s + lo.
+  const int s_first = X0 + R - 1 - lo, s_last = X0 - hi;
+  const int cell = (ty + span) * PZ + tz + span;  // the source at o = lo
+  int base = (R - 1) % D;
+  paint_load<T, kWeighted>(dx, dy, dz, w, N, s_first, y0 - hi, z0 - hi, t, threads, PYZ, pr, pq,
+                           v, wv);
+  for (int s = s_first; s >= s_last; --s) {
+    // 1. stage and push
+#pragma unroll
+    for (int j = 0; j < kPaintAhead; ++j)
+      if (t + j * threads < PYZ)
+        paint_stage<T, kWeighted>(pb, s, t + j * threads, pr[j], pq[j], v[j][0], v[j][1], v[j][2],
+                                  wv[j]);
+    for (int p = t + kPaintAhead * threads; p < PYZ; p += threads) {  // wide bands only
+      const int r = p / PZ, q = p % PZ;
+      const int64_t g = (static_cast<int64_t>(wrap_near(s, N)) * N + wrap_near(y0 - hi + r, N)) * N +
+                        wrap_near(z0 - hi + q, N);
+      paint_stage<T, kWeighted>(pb, s, p, r, q, dx[g], dy[g], dz[g], kWeighted ? w[g] : T(0));
+    }
+    __syncthreads();
+    if (s > s_last)  // in flight while the block sums
+      paint_load<T, kWeighted>(dx, dy, dz, w, N, s - 1, y0 - hi, z0 - hi, t, threads, PYZ, pr, pq,
+                               v, wv);
 
-  // 3. each bucket in descending source index
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    const int b0 = start[b], b1 = start[b + 1];
-    for (int i = b0 + 1; i < b1; ++i) {
-      const int key = list[i];
-      int j = i - 1;
-      while (j >= b0 && list[j] < key) {
-        list[j + 1] = list[j];
-        --j;
-      }
-      list[j + 1] = key;
-    }
-  }
-  __syncthreads();
-
-  // 4. one thread per cell: merge the 8 buckets c - e, sum in the twin's order
-  const int ncell = tx * ty * tz;
-  for (int cell = threadIdx.x; cell < ncell; cell += blockDim.x) {
-    const int ix = cell / (ty * tz), iy = (cell / tz) % ty, iz = cell % tz;
-    const int cx = cx0 + ix, cy = cy0 + iy, cz = cz0 + iz;
-    if (cx >= N || cy >= N || cz >= N) continue;
-    int at[8], end[8], head[8];
+    // 2. Each cell sums what the staged plane gives each target plane whose
+    // mask is not empty: the mask's bits in ascending (oy, oz), the staged
+    // terms nested as the twin nests its rolls (sy over oz, sx over oy,
+    // every sum rounded explicitly), sx added to the plane's sum.
+    for (unsigned u = live[t]; u != 0u; u &= u - 1) {
+      const int k = __ffs(u) - 1;
+      T sx = T(0), sy = T(0);
+      int cur_oy = -1;
+      for (int wd = 0; wd < nw; ++wd) {
+        unsigned* mw = &mask[(k * nw + wd) * threads + t];
+        unsigned m = *mw;
+        if (m == 0u) continue;
+        *mw = 0u;
+        // kWalk bits at a time, their loads in flight together
+        do {
+          int oyi[kWalk], ozi[kWalk];
+          bool use[kWalk];
+          T tm[kWalk];
+          int bit = 0;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int b = ((ix + 1 - (e >> 2)) * BY + iy + 1 - ((e >> 1) & 1)) * BZ + iz + 1 - (e & 1);
-      at[e] = start[b];
-      end[e] = start[b + 1];
-      head[e] = at[e] < end[e] ? list[at[e]] : -1;
-    }
-    T acc = T(0), sx = T(0), sy = T(0);
-    int cur_ox = lo - 2, cur_oy = lo - 2;
-    while (true) {
-      int best = -1, p = -1;
+          for (int i = 0; i < kWalk; ++i) {
+            use[i] = m != 0u;
+            if (use[i]) {
+              bit = wd * 32 + __ffs(m) - 1;
+              m &= m - 1;
+            }
+            oyi[i] = __umulhi(static_cast<unsigned>(bit), magic_d);  // bit / D
+            ozi[i] = bit - oyi[i] * D;
+            const int p = cell - oyi[i] * PZ - ozi[i];  // the source c - o
+            tm[i] = term[(4 * k + 2 * oyi[i] + ozi[i] + corner[p]) * PYZ + p];
+          }
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (head[e] > p) {
-          p = head[e];
-          best = e;
-        }
+          for (int i = 0; i < kWalk; ++i) {
+            if (!use[i]) break;
+            if (oyi[i] != cur_oy) {
+              sx = fbx::add_rn(sx, sy);
+              sy = T(0);
+              cur_oy = oyi[i];
+            }
+            sy = fbx::add_rn(sy, tm[i]);
+          }
+        } while (m != 0u);
       }
-      if (best < 0) break;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (e == best) {
-          ++at[e];
-          head[e] = at[e] < end[e] ? list[at[e]] : -1;
-        }
-      }
-      // o = fl + e; e = 0: weight 1 - fr, e = 1: weight fr
-      const int cd = code[p];
-      const int ex = best >> 2, ey = (best >> 1) & 1, ez = best & 1;
-      const int ox = (cd & 63) - kFlBias + ex;
-      const int oy = ((cd >> 6) & 63) - kFlBias + ey;
-      const int oz = ((cd >> 12) & 63) - kFlBias + ez;
-      if (ox < lo || ox > hi || oy < lo || oy > hi || oz < lo || oz > hi) continue;
-      const T frx = fr[p], fry = fr[S + p], frz = fr[2 * S + p];
-      const T wx = ex ? frx : fbx::sub_rn(T(1), frx);
-      const T wy = ey ? fry : fbx::sub_rn(T(1), fry);
-      const T wz = ez ? frz : fbx::sub_rn(T(1), frz);
-      const T px = kWeighted ? fbx::mul_rn(wx, wsh[p]) : wx;
-      const T term = fbx::mul_rn(fbx::mul_rn(px, wy), wz);
-      if (ox != cur_ox) {
-        sx = fbx::add_rn(sx, sy);
-        acc = fbx::add_rn(acc, sx);
-        sx = sy = T(0);
-        cur_ox = ox;
-        cur_oy = oy;
-      } else if (oy != cur_oy) {
-        sx = fbx::add_rn(sx, sy);
-        sy = T(0);
-        cur_oy = oy;
-      }
-      sy = fbx::add_rn(sy, term);
+      T* a = &acc[(base + k < D ? base + k : base + k - D) * threads + t];
+      *a = fbx::add_rn(*a, fbx::add_rn(sx, sy));
     }
-    sx = fbx::add_rn(sx, sy);
-    acc = fbx::add_rn(acc, sx);
-    out[(static_cast<int64_t>(cx) * N + cy) * N + cz] = acc;
+    live[t] = 0u;
+    // The plane X = s + hi is complete: written, its slot cleared for X =
+    // s - 1 + lo.
+    const int X = s + hi;
+    if (X >= X0 && X < X0 + R) {
+      T* a = &acc[(base == 0 ? D - 1 : base - 1) * threads + t];
+      const int y = y0 + ty, z = z0 + tz;
+      if (y < N && z < N) out[X * NN + static_cast<int64_t>(y) * N + z] = *a;
+      *a = T(0);
+    }
+    base = base == 0 ? D - 1 : base - 1;
+    __syncthreads();
   }
 }
 
@@ -368,7 +443,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // The staged gather's block: a face_y x kFaceZ face of sites (warp = y,
 // lane = z; rows sites per thread along y) that marches along x over kRun
 // planes, with ahead mesh planes staged ahead of the plane it sums.
-constexpr int kFaceZ = 32, kRun = 32;
 
 // K11b takes two sites per thread; K11c's three rings leave room for two
 // blocks of one site per thread, staged two planes ahead.
@@ -622,21 +696,21 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     return e;
   const bool weighted = w != nullptr;
   const int span = hi - lo;
-  // the largest cell tile, from 8^3 down to one cell, whose blocks fit
-  static const int kTiles[][3] = {{8, 8, 8}, {4, 8, 8}, {4, 4, 8}, {4, 4, 4}, {2, 4, 4},
-                                  {2, 2, 4}, {2, 2, 2}, {1, 2, 2}, {1, 1, 2}, {1, 1, 1}};
-  const int* tile = nullptr;
+  if (span + 1 > 32) return cudaErrorInvalidValue;  // a word of live planes
+  // the widest face, 16 rows down to one, of which two blocks fit an SM's
+  // shared memory, else of which one fits
+  int fy = 0;
   size_t smem = 0;
-  for (const auto& t : kTiles) {
-    const int S = (t[0] + span) * (t[1] + span) * (t[2] + span);
-    const int nb = (t[0] + 1) * (t[1] + 1) * (t[2] + 1);
-    smem = paint_smem<T>(S, nb, weighted);
-    if (smem <= static_cast<size_t>(max_smem)) {
-      tile = t;
-      break;
+  for (int pass = 0; pass < 2 && fy == 0; ++pass) {
+    for (int f = 16; f >= 1; f /= 2) {
+      smem = paint_smem<T>(f, span);
+      if (smem * (pass == 0 ? 2 : 1) <= static_cast<size_t>(max_smem)) {
+        fy = f;
+        break;
+      }
     }
   }
-  if (tile == nullptr) return cudaErrorInvalidValue;
+  if (fy == 0) return cudaErrorInvalidValue;
   auto kernel = weighted ? &paint_kernel<T, true> : &paint_kernel<T, false>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -644,11 +718,10 @@ cudaError_t launch_paint(const T* dx, const T* dy, const T* dz, const T* w, T* o
     if (e != cudaSuccess) return e;
   }
   const int n = static_cast<int>(N);
-  const dim3 grid((n + tile[2] - 1) / tile[2], (n + tile[1] - 1) / tile[1],
-                  (n + tile[0] - 1) / tile[0]);
+  const dim3 grid((n + kFaceZ - 1) / kFaceZ, (n + fy - 1) / fy, (n + kRun - 1) / kRun);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, tile[0], tile[1],
-                                            tile[2]);
+  const unsigned magic_d = 0xffffffffu / (span + 1) + 1;  // ceil(2^32 / D)
+  kernel<<<grid, fy * kFaceZ, smem, stream>>>(dx, dy, dz, w, out, n, lo, hi, magic_d);
   return cudaGetLastError();
 }
 

@@ -8,7 +8,12 @@ Counterparts of ``fastbox_tpu/ops/pallas/lattice_cic.py``:
 sums in the same order, so the two agree bit for bit.  The displacements
 are a (dx, dy, dz) tuple of contiguous (N, N, N) tensors in cell units,
 wrapped to [-N/2, N/2); the COLA band ladder guarantees ``|d| < B`` for
-the open band (the default here, as in the engine).
+the open band (the default here, as in the engine).  The periodic paint
+(K11a) marches blocks of cells down x, one staged plane of sources at a
+time, and sums each cell's terms in the twin's order from per-cell masks
+of the offsets that reach it; it needs no memory beyond its output.  Each
+paint call counts ``latpaint.kernel`` (K11a) or ``latpaint.plain`` (the
+twin) on the active ``timing`` clock.
 
 The slab mode (``*_slab``) serves the slab-sharded engine
 (``parallel/lattice.py``): an (S, N, N) particle slab, the closed band,
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import timing
 from ...fields import lattice_cic as twin
 from . import _build
 
@@ -43,6 +49,9 @@ PAINT, GATHER, GATHER3 = ("cic_paint_lattice", "cic_gather_lattice",
 PAINT_SLAB, GATHER3_SLAB = ("cic_paint_lattice_slab",
                             "cic_gather3_lattice_slab")
 MAX_B = 16  # csrc/lattice_cic.cu kMaxB
+# K11a's word of live targets holds the D = hi - lo + 1 <= 32 cell planes a
+# source plane feeds: B <= 15 in the open band and the closed
+PAINT_MAX_B = 15
 
 
 def _check(name, meshes, disp, B):
@@ -98,11 +107,15 @@ def _launch(name, stem, dtype, device, *args):
 
 
 def cic_paint_lattice_cuda(disp, B: int, weights=None, openband: bool = True):
+    if int(B) > PAINT_MAX_B:
+        raise ValueError(f"{PAINT}: B must be in [1, {PAINT_MAX_B}] for the "
+                         f"periodic paint, got {B}")
     d, N = _check(PAINT, () if weights is None else (weights,), disp, B)
     out = torch.empty((N, N, N), dtype=d[0].dtype, device=d[0].device)
     _launch(PAINT, "fbx_cic_paint_lattice", out.dtype, out.device,
             *(t.data_ptr() for t in d), _build.ptr(weights), out.data_ptr(),
             N, int(B), int(bool(openband)))
+    timing.count("latpaint.kernel")
     return out
 
 
@@ -202,6 +215,7 @@ def cic_gather3_lattice_slab_plain(exts, disp, B: int):
 
 
 def cic_paint_lattice_plain(disp, B: int, weights=None, openband: bool = True):
+    timing.count("latpaint.plain")
     return twin.cic_paint_lattice(tuple(disp), B, weights, openband)
 
 
