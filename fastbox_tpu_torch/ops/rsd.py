@@ -25,8 +25,12 @@ Each remap also counts the tier it took: ``rsd.band<b>``, or
 ``rsd.exact`` for the sort + K3; and its work: ``rsdwork.cells``, the
 cells remapped, and, where the host read the displacement bound,
 ``rsdwork.disp_mcells`` (that bound in thousandths of a cell) and
-``rsdwork.disp_reads`` (one a read).  The ``rsdwork.`` family stays out
-of ``rsd.``, whose counts the benchmark sums as one family of tiers.
+``rsdwork.disp_reads`` (one a read); an exact remap also counts its
+cells as ``rsdwork.exact_cells``.  The ``rsdwork.`` family stays out of
+``rsd.``, whose counts the benchmark sums as one family of tiers.  The
+exact tier is a stage of its own on the active clock (``timing.mark``):
+it ends ``rsd`` as it starts and marks ``rsd_exact`` after K3, so a remap
+on that tier is ``rsd`` + ``rsd_exact``; the banded tiers mark nothing.
 """
 from __future__ import annotations
 
@@ -152,9 +156,21 @@ def _uniform_targets(ztarget, ztarget_np, C: int):
 
 
 def _count_tier(tier: str, cells: int) -> None:
-    """Count a remap's tier (``rsd.<tier>``) and its cells."""
+    """Count a remap's tier (``rsd.<tier>``) and its cells; the exact tier
+    also counts ``rsdwork.exact_cells`` and ends the ``rsd`` stage as it
+    starts (``_interp_exact`` ends its own)."""
     timing.count(f"rsd.{tier}")
     timing.count("rsdwork.cells", cells)
+    if tier == "exact":
+        timing.count("rsdwork.exact_cells", cells)
+        timing.mark("rsd")
+
+
+def _interp_exact(ss, vv, ztarget, fill):
+    """K3 on the sorted nodes, ending the ``rsd_exact`` stage."""
+    out = interp_sorted(ss, vv, ztarget, fill)
+    timing.mark("rsd_exact")
+    return out
 
 
 def _read_disp(maxdisp, dz: float, site: str) -> float:
@@ -221,7 +237,8 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
                                       ztarget, fill, band)
         _count_tier("exact", M * C)
         ss, order = torch.sort(s, dim=1, stable=True)
-        return interp_sorted(ss, torch.gather(vals, 1, order), ztarget, fill)
+        return _interp_exact(ss, torch.gather(vals, 1, order), ztarget,
+                             fill)
 
     ss, order = torch.sort(s, dim=1, stable=True)
     vv = torch.gather(vals, 1, order)
@@ -234,7 +251,7 @@ def remap_los_batched(vals, s, ztarget, fill, method: str = "linear",
                 _count_tier(f"band{band}", M * C)
                 return banded_interp(ss, vv, ztarget, fill, band)
         _count_tier("exact", M * C)
-        return interp_sorted(ss, vv, ztarget, fill)
+        return _interp_exact(ss, vv, ztarget, fill)
 
     # 'nearest' (interp1d, fill_value='extrapolate'): the value switches at
     # segment midpoints.  fastbox_tpu sums vv_0 + sum_c dv_c [mid_c < z];
@@ -271,4 +288,4 @@ def _remap_wrap_tiered(vals, vel, ztarget, fill, z0, length_z, inv_hz,
     s = torch.remainder(u - z0, length_z) + z0
     ss, order = torch.sort(s, dim=1, stable=True)
     vv = torch.gather(vals, 1, order)
-    return interp_sorted(ss, vv, ztarget, fill)
+    return _interp_exact(ss, vv, ztarget, fill)

@@ -9,11 +9,12 @@ with a recorded ``torch.cuda.Event`` (no sync until ``ms()``) and on the
 host clock, and holds the call's counters.  The entry points take one
 through their ``clock`` argument and make it the active clock for the
 call (``active``), so that code with no clock argument counts into it
-(``count``); with none they use ``NULL_CLOCK``, which times and counts
-nothing.  While ``torch.profiler`` records, every mark, real or null,
-also puts a ``stage:<name>`` range on the profiler's clock at the host's
-end of the stage.  Clocks whose ``ms()`` was read add their host times and
-counts to the process totals (``trace_totals``).
+(``count``) and marks it (``mark``); with none they use ``NULL_CLOCK``,
+which times and counts nothing.  While ``torch.profiler`` records, every
+mark, real or null, also puts a ``stage:<name>`` range on the profiler's
+clock at the host's end of the stage.  Clocks whose ``ms()`` was read
+add their host times and counts to the process totals
+(``trace_totals``).
 
 Counter names: ``sync.<site>`` where the program reads a value of the
 device to the host (counted on every device, so that CPU runs show the
@@ -23,8 +24,10 @@ sites) or copies from pageable host memory to a CUDA device
 paint took; ``rsdwork.cells``, ``rsdwork.disp_mcells`` and
 ``rsdwork.disp_reads``, the cells each RSD remap moved and the largest
 displacement the host read for its tier, in thousandths of a cell, with
-the number of such reads; ``exact.paint``/``exact.gather``, the force
-paints and force components that COLA's exact tier computed;
+the number of such reads; ``rsdwork.exact_cells``, the cells of the
+remaps that took the exact tier (marked ``rsd_exact``);
+``exact.paint``/``exact.gather``, the force paints and force components
+that COLA's exact tier computed;
 ``colaplan.hit``/``.miss``, whether a COLA engine found its host plan
 built; ``collective.calls`` and ``collective.bytes``, the
 ``torch.distributed`` collectives issued and the bytes this rank sent.
@@ -38,7 +41,7 @@ import time
 import torch
 
 __all__ = ["stage", "Timings", "StageClock", "NULL_CLOCK", "active", "count",
-           "count_copy", "trace_totals", "reset_trace_totals"]
+           "mark", "count_copy", "trace_totals", "reset_trace_totals"]
 
 
 class Timings:
@@ -213,6 +216,12 @@ def count(name: str, n: int = 1) -> None:
     clock = _ACTIVE.get()
     if clock is not None:
         clock.count(name, n)
+
+
+def mark(stage: str) -> None:
+    """The stage named ``stage`` ends now on the active clock; without
+    one, ``NULL_CLOCK``'s mark (the profiler's range only)."""
+    (_ACTIVE.get() or NULL_CLOCK).mark(stage)
 
 
 def count_copy(name: str, device, n: int = 1) -> None:
